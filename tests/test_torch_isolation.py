@@ -1,0 +1,111 @@
+"""The PyTorch port stands alone and runs on the GPU unless told otherwise.
+
+- importing ``daliid_tpu_torch`` and every submodule in a fresh interpreter
+  loads no ``jax`` / ``flax`` module and nothing of the JAX package
+  ``daliid_tpu`` (``daliid_tpu_torch`` itself is not a ``daliid_tpu.*``
+  module);
+- no source file of the port imports either;
+- an entry point started without ``--device`` on a host without CUDA exits
+  with an error instead of running on the CPU.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "daliid_tpu_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import daliid_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(daliid_tpu_torch.__path__, "daliid_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "daliid_tpu"))
+print(len(names), "modules;", "foreign:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_import_loads_no_jax_and_nothing_of_daliid_tpu():
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 20, r.stdout  # every subpackage was walked
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|flax|daliid_tpu)\b(?!_)"
+                        r"|from\s+(jax|flax|daliid_tpu)(\.|\s))", re.M)
+
+
+def test_sources_import_no_jax_and_nothing_of_daliid_tpu():
+    files = sorted(PORT.rglob("*.py"))
+    assert files
+    hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
+            for f in files for m in _FORBIDDEN.finditer(f.read_text())]
+    assert not hits, hits
+    # the pattern itself: the port's own imports pass, the JAX package's do not
+    assert not _FORBIDDEN.search("from daliid_tpu_torch.ops import _build")
+    assert not _FORBIDDEN.search("import daliid_tpu_torch")
+    assert _FORBIDDEN.search("from daliid_tpu.eval import matcher")
+    assert _FORBIDDEN.search("import daliid_tpu")
+    assert _FORBIDDEN.search("from jax import numpy")
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "daliid_tpu_torch.cli.search", "--dataset", "Synthetic"],
+    ["-m", "daliid_tpu_torch.cli.evaluate", "--targets", "Synthetic"],
+    ["-m", "daliid_tpu_torch", "serve", "--port", "0"],
+])
+def test_entry_point_without_device_refuses_a_host_without_cuda(tmp_path, argv):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid here")
+    r = subprocess.run([sys.executable, *argv, "--data_root", str(tmp_path)]
+                       if "serve" not in argv else [sys.executable, *argv],
+                       cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr, r.stderr
+    assert not (tmp_path / "Synthetic").exists()  # it stopped before any work
+
+
+def test_kernel_build_is_keyed_by_the_sources_and_needs_nvcc(tmp_path, monkeypatch):
+    from daliid_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text("// one\n")
+    first = _build._library_path("k")
+    (tmp_path / "k.cu").write_text("// two\n")
+    second = _build._library_path("k")
+    (tmp_path / "shared.cuh").write_text("// header\n")  # headers are part of the key
+    assert len({first, second, _build._library_path("k")}) == 3
+    if _build.shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this host has nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("k")
+    assert not (tmp_path / "build").exists() or not any((tmp_path / "build").iterdir())
+
+
+def test_kernels_build_in_the_checkout_or_a_user_cache(tmp_path, monkeypatch):
+    """A checkout builds under its own ``build/``; an installed copy, which
+    has no repository root, under the per-user cache."""
+    from daliid_tpu_torch.ops import _build
+
+    assert _build.BUILD_DIR == REPO / "build" / "daliid_tpu_torch"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    installed = tmp_path / "site-packages" / "daliid_tpu_torch"
+    assert _build.build_dir(installed) == tmp_path / "cache" / "daliid_tpu_torch"

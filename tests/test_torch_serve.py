@@ -1,0 +1,284 @@
+"""The port's serving and evaluation slice end to end against the JAX package (CPU).
+
+One synthetic dataset and one weight set serve both packages: a flax
+``ResNet50ReID(stage_sizes=(1, 1, 1, 1))`` initialized with
+``jax.random.key(12)``, saved by the JAX package's ``save_variables`` and
+loaded by the port from that ``.npz``. ``resnet50`` is rebound to these
+stage sizes in both packages' model registries for the duration of the
+module.
+
+- The serve daemons of both packages run over real sockets on port 0 with
+  ``--index_quantize int8``. Requests with the same pre-computed
+  ``embeddings`` quantize with the same numpy code and give exact int32
+  products; the JAX CPU route multiplies the two scales in the other order
+  (``acc * q_scale * g_scale`` against the kernel's ``(acc * g_scale) *
+  q_scale``), and the protocol rounds similarities to 6 decimals, so values
+  agree within rtol 1e-6 plus atol 1e-6, and indices and pids are equal.
+- Requests with image ``paths`` go through both forwards, with the JAX
+  package's native JPEG loader switched off so that both decode with PIL.
+  The embeddings then differ within float32 summation order, which int8
+  rounding can follow: top-1 pids are equal and values agree within 1e-3.
+- ``cli.evaluate.main`` of both packages on ``--targets Synthetic`` in
+  float32 gives R1 and mAP within one query's weight (1/len(query)).
+  Measured on the CPU: R1 1.0 in both, mAP 0.9741319444 against the JAX
+  package's 0.9741319418 (it accumulates AP in float32), a difference of
+  3e-9 where the bound is 1/32.
+"""
+
+import json
+import os
+import socket
+import threading
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import daliid_tpu.data.native_loader as jax_native_loader
+import daliid_tpu.models.factory as jax_factory
+import daliid_tpu_torch.models.factory as port_factory
+from daliid_tpu.cli import evaluate as jax_evaluate
+from daliid_tpu.cli import serve as jax_serve
+from daliid_tpu.data.synthetic import make_synthetic_dataset as jax_make_synthetic
+from daliid_tpu.eval.features import FeatureExtractor as JaxExtractor
+from daliid_tpu.models.resnet import ResNet50ReID as FlaxResNet
+from daliid_tpu.train.checkpoint import save_variables
+from daliid_tpu_torch.cli import evaluate as port_evaluate
+from daliid_tpu_torch.cli import serve as port_serve
+from daliid_tpu_torch.data import load_dataset, make_synthetic_dataset
+from daliid_tpu_torch.eval.features import FeatureExtractor
+from daliid_tpu_torch.models.resnet import ResNet50ReID
+from daliid_tpu_torch.ops.search_topk import sq8_search_topk
+
+STAGES = (1, 1, 1, 1)
+IMG = (64, 32)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_serve")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(jax_factory.MODEL_REGISTRY, "resnet50",
+                   lambda dtype=jnp.float32, **kw: (FlaxResNet(stage_sizes=STAGES, dtype=dtype), 2048))
+        mp.setitem(port_factory.MODEL_REGISTRY, "resnet50",
+                   lambda dtype, **kw: (ResNet50ReID(stage_sizes=STAGES, dtype=dtype), 2048))
+        # both packages decode with PIL
+        mp.setattr(jax_native_loader, "native_loader_available", lambda: False)
+        bundle = jax_factory.get_model("resnet50", jax.random.key(12), img_size=IMG)
+        weights = str(root / "weights.npz")
+        save_variables(weights, bundle.variables)
+        splits = load_dataset("Synthetic", root=str(root))
+        yield {
+            "root": str(root), "weights": weights, "splits": splits,
+            "jax_extractor": JaxExtractor(bundle, img_size=IMG, batch_size=16),
+            "port_extractor": FeatureExtractor(
+                port_evaluate.load_bundle("resnet50", weights, torch.float32, "cpu"),
+                img_size=IMG, batch_size=16, device="cpu"),
+        }
+
+
+class _Client:
+    def __init__(self, port):
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+        self.rfile = self.sock.makefile("r")
+
+    def request(self, obj) -> dict:
+        self.sock.sendall((json.dumps(obj) + "\n").encode())
+        return json.loads(self.rfile.readline())
+
+    def close(self):
+        self.rfile.close()
+        self.sock.close()
+
+
+def _start(module, argv, extractor):
+    server = module.make_server(module.build_argparser().parse_args(argv), extractor)
+    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05},
+                              daemon=True)
+    thread.start()
+    return server, thread, _Client(server.server_address[1])
+
+
+def _stop(server, thread, client):
+    assert client.request({"op": "shutdown"})["ok"]
+    client.close()
+    thread.join(timeout=30)
+    assert not thread.is_alive()
+    server.server_close()
+
+
+def _pair(world, tmp_path):
+    port = _start(port_serve, ["--port", "0", "--index_quantize", "int8", "--device", "cpu",
+                               "--data_dir", str(tmp_path)], world["port_extractor"])
+    jax_side = _start(jax_serve, ["--port", "0", "--index_quantize", "int8",
+                                  "--data_dir", str(tmp_path)], world["jax_extractor"])
+    return port, jax_side
+
+
+def _both(clients, req):
+    rp, rj = (c.request(req) for c in clients)
+    assert rp["ok"] and rj["ok"], (rp, rj)
+    return rp, rj
+
+
+def _same_search(rp, rj):
+    np.testing.assert_allclose(rp["sims"], rj["sims"], rtol=1e-6, atol=1e-6)
+    assert rp["indices"] == rj["indices"]
+    assert rp["pids"] == rj["pids"]
+
+
+def test_synthetic_generator_writes_the_jax_files(tmp_path):
+    make_synthetic_dataset(str(tmp_path / "port"), num_ids=2, imgs_per_id_train=1,
+                           imgs_per_id_test=2, turbulence_splits=("train", "gallery"))
+    jax_make_synthetic(str(tmp_path / "jax"), num_ids=2, imgs_per_id_train=1,
+                       imgs_per_id_test=2, turbulence_splits=("train", "gallery"))
+    files = sorted(os.path.relpath(os.path.join(d, f), tmp_path / "jax")
+                   for d, _, fs in os.walk(tmp_path / "jax") for f in fs)
+    assert len(files) == 2 * (1 + 2 + 1) + 2 * 3 * 5
+    for rel in files:
+        assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "jax" / rel).read_bytes(), rel
+
+
+def test_serve_embeddings_match_jax(world, tmp_path):
+    """Enroll, search, remove, save, load and stats with pre-computed
+    embeddings over both daemons' sockets."""
+    (ps, pt, pc), (js, jt, jc) = _pair(world, tmp_path)
+    try:
+        rng = np.random.default_rng(21)
+        centers = rng.normal(size=(12, 2048)).astype(np.float32)
+        gallery = np.repeat(centers, 3, axis=0) + 0.3 * rng.normal(size=(36, 2048)).astype(np.float32)
+        pids = np.repeat(np.arange(12), 3).tolist()
+        probes = (centers + 0.3 * rng.normal(size=(12, 2048)).astype(np.float32)).tolist()
+        clients = (pc, jc)
+
+        rp, rj = _both(clients, {"op": "enroll", "embeddings": gallery[:30].tolist(),
+                                 "pids": pids[:30]})
+        assert rp == rj
+        _both(clients, {"op": "enroll", "embeddings": gallery[30:].tolist(), "pids": pids[30:]})
+        rp, rj = _both(clients, {"op": "search", "embeddings": probes, "topk": 7})
+        _same_search(rp, rj)
+        assert np.mean(np.asarray(rp["pids"])[:, 0] == np.arange(12)) == 1.0
+
+        rp, rj = _both(clients, {"op": "remove", "pids": [0, 5]})
+        assert rp == rj and rp["num_gallery"] == 30
+        _same_search(*_both(clients, {"op": "search", "embeddings": probes, "topk": 5}))
+
+        # each daemon saves; each loads the other's file
+        assert pc.request({"op": "save", "path": "port.npz"})["ok"]
+        assert jc.request({"op": "save", "path": "jax.npz"})["ok"]
+        assert pc.request({"op": "load", "path": "jax.npz"})["num_gallery"] == 30
+        assert jc.request({"op": "load", "path": "port.npz"})["num_gallery"] == 30
+        _same_search(*_both(clients, {"op": "search", "embeddings": probes[:4], "topk": 64}))
+        for c in clients:
+            r = c.request({"op": "save", "path": "../escape.npz"})
+            assert not r["ok"] and "escapes" in r["error"]
+
+        rp, rj = _both(clients, {"op": "stats"})
+        for key in ("num_gallery", "index_quantize", "model", "requests", "errors",
+                    "search_requests", "search_dispatches"):
+            assert rp[key] == rj[key], key
+        assert rp["index_quantize"] == "int8" and rp["busy_ms"] > 0
+        r = pc.request({"op": "search", "embeddings": probes[:1], "rerank": True})
+        assert not r["ok"] and "not yet ported" in r["error"]
+    finally:
+        _stop(ps, pt, pc)
+        _stop(js, jt, jc)
+
+
+def test_serve_paths_match_jax(world, tmp_path):
+    """Enroll the gallery split and search the query split by image path."""
+    (ps, pt, pc), (js, jt, jc) = _pair(world, tmp_path)
+    try:
+        gallery, query = world["splits"]["gallery"], world["splits"]["query"]
+        clients = (pc, jc)
+        rp, rj = _both(clients, {"op": "enroll", "paths": [str(p) for p in gallery.paths],
+                                 "pids": gallery.pids.tolist()})
+        assert rp == rj and rp["num_gallery"] == len(gallery)
+        rp, rj = _both(clients, {"op": "search", "paths": [str(p) for p in query.paths],
+                                 "topk": 5})
+        top1_p, top1_j = np.asarray(rp["pids"])[:, 0], np.asarray(rj["pids"])[:, 0]
+        np.testing.assert_array_equal(top1_p, top1_j)
+        np.testing.assert_allclose(rp["sims"], rj["sims"], atol=1e-3, rtol=0)
+        rp, rj = _both(clients, {"op": "remove", "pids": [int(gallery.pids[0])]})
+        assert rp == rj
+    finally:
+        _stop(ps, pt, pc)
+        _stop(js, jt, jc)
+
+
+def test_serve_concurrent_clients_micro_batch(world):
+    """Searches that arrive while the device is busy share one dispatch, and
+    each answer equals the same search made alone."""
+    server, thread, first = _start(port_serve, ["--port", "0", "--index_quantize", "int8",
+                                                "--device", "cpu"], None)
+    try:
+        rng = np.random.default_rng(8)
+        g = rng.normal(size=(40, 96)).astype(np.float32)
+        assert first.request({"op": "enroll", "embeddings": g.tolist(),
+                              "pids": list(range(40))})["ok"]
+        alone = [first.request({"op": "search", "embeddings": [g[i].tolist()], "topk": i % 4 + 1})
+                 for i in range(8)]
+        index = server.service.index
+        launches = sq8_search_topk.launches
+        orig = index.search
+
+        def slow_search(*a, **kw):
+            time.sleep(0.15)  # hold the device so that a queue forms
+            return orig(*a, **kw)
+
+        index.search = slow_search
+        before = first.request({"op": "stats"})
+        clients = [_Client(server.server_address[1]) for _ in range(8)]
+        results = [None] * 8
+
+        def ask(i):
+            results[i] = clients[i].request(
+                {"op": "search", "embeddings": [g[i].tolist()], "topk": i % 4 + 1})
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+        threads[0].start()
+        time.sleep(0.05)
+        for t in threads[1:]:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert results == alone
+        after = first.request({"op": "stats"})
+        assert after["search_requests"] - before["search_requests"] == 8
+        assert after["search_dispatches"] - before["search_dispatches"] <= 4
+        assert sq8_search_topk.launches == launches  # CPU tensors take the plain version
+        for c in clients:
+            c.close()
+    finally:
+        _stop(server, thread, first)
+
+
+def test_evaluate_cli_matches_jax(world, capsys):
+    common = ["--targets", "Synthetic", "--data_root", world["root"], "--model_name", "resnet50",
+              "--model_path", world["weights"], "--img_height", str(IMG[0]),
+              "--img_width", str(IMG[1]), "--batch_size", "16", "--compute_dtype", "float32"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(jax_factory.MODEL_REGISTRY, "resnet50",
+                   lambda dtype=jnp.float32, **kw: (FlaxResNet(stage_sizes=STAGES, dtype=dtype), 2048))
+        mp.setitem(port_factory.MODEL_REGISTRY, "resnet50",
+                   lambda dtype, **kw: (ResNet50ReID(stage_sizes=STAGES, dtype=dtype), 2048))
+        mp.setattr(jax_native_loader, "native_loader_available", lambda: False)
+        cmc_p, map_p = port_evaluate.main(
+            port_evaluate.build_argparser().parse_args(common + ["--device", "cpu"]))["Synthetic"]
+        cmc_j, map_j = jax_evaluate.main(jax_evaluate.build_argparser().parse_args(common))["Synthetic"]
+    assert "[Synthetic] mAP" in capsys.readouterr().out
+    one_query = 1.0 / len(world["splits"]["query"])
+    assert abs(float(cmc_p[0]) - float(cmc_j[0])) <= one_query
+    assert abs(map_p - float(map_j)) <= one_query
+    assert cmc_p.shape == (50,)
+
+
+def test_evaluate_cli_rejects_unported_flags(world):
+    parse = port_evaluate.build_argparser().parse_args
+    for extra in (["--rerank"], ["--quantize", "int8"], ["--multiple_output"],
+                  ["--turbulence_dir_path", "x"]):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            port_evaluate.main(parse(["--targets", "Synthetic", "--device", "cpu", *extra]))
