@@ -22,22 +22,42 @@ Phases, in order; any failed check exits non-zero and prints no result:
 6. evaluate: ``cli.evaluate.main`` on the same set. The K2 counter must
    rise; the CMC equals ``evaluate_rank_numpy`` on the same distance matrix
    exactly and mAP within 1e-12 (float64 summation order).
-7. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64, D=2048,
-   k=10 over 2^20 gallery rows, and at the serve path's shape; K2 at the Market-1501 protocol shape
-   (Q=3368, G=15913) at P=48 and, kernel only, P=2800; ResNet-50 extraction
-   img/s at batch 64 and 512 in bf16.
+7. K1 ``fused_augment`` against its plain version on the card: random
+   uint8 batches at the train shape (384, 256, 128, 3) and at (3, 32, 16)
+   and (2, 37, 19), pad 10 and 4, crop offsets at 0 and 2*pad, erase
+   rectangles touching each border; f32 within 2e-5, bf16 within one bf16
+   ulp (or 2e-5 where that ulp is finer).
+8. train: ``cli.train.main`` in-process: ResNet-50 at 256x128, bf16,
+   ``--kind_of_transform 1``, P16 K12 (384 images a step), 2 epochs with
+   ``--eval_freq 1`` on a synthetic set of 32 identities x 12 train images
+   with turbulence copies (4 gallery, 2 query each). The K1 counter must
+   equal the number of steps (4), the K2 counter must rise (validation), the
+   epoch losses must be finite and the checkpoints written.
+9. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64, D=2048,
+   k=10 over 2^20 gallery rows, and at the serve path's shape; K2 at the
+   Market-1501 protocol shape (Q=3368, G=15913) at P=48 and, kernel only,
+   P=2800; K1 at the train shape; one train step split into augment,
+   forward+backward and Adam+EMA, with img/s, peak device memory, the host
+   decode time of one batch (with 1, 4 and the trainer's default number of
+   threads), the train loop's steady rate with decode on its prefetch thread
+   (``PIPELINE_BATCHES`` steps, timed after the first batch has arrived)
+   and a ``torch.profiler`` view of three steps
+   (the device's busy time, its share of the wall time, the largest
+   kernels); ResNet-50 extraction img/s at batch 64 and 512 in bf16.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. Counts of launches are set to 0 just
-before each of the serve, search and evaluate phases and read just after.
+before each of the serve, search, evaluate and train phases and read just
+after.
 
 Run from the repository root: ``python3 chip_smoke.py``. The kernels,
-the synthetic set and the saved index go under ``build/``.
+the synthetic sets, the saved index and the checkpoints go under ``build/``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import socket
 import subprocess
@@ -54,6 +74,12 @@ IMG = (256, 128)
 # identities of the synthetic set (4 gallery and 2 query images each)
 NUM_IDS = 100
 COMPUTE_DTYPE = "bfloat16"
+# the training run: P16 K12 paired (384 images a step) over 32 identities,
+# 2 batches an epoch, 2 epochs
+TRAIN_IDS, TRAIN_IMGS, P, K, EPOCHS = 32, 12, 16, 12, 2
+TRAIN_STEPS = EPOCHS * (TRAIN_IDS // P)
+# batches through the prefetching train loop for its steady rate (even: two an epoch)
+PIPELINE_BATCHES = 10
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "f32": 67e12}
@@ -391,6 +417,126 @@ def phase_evaluate(torch, counts):
 
 
 # ---------------------------------------------------------------- phase 7
+def bf16_ulp(torch, x):
+    """One bf16 ulp at the magnitude of each element of ``x`` (f32)."""
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def k1_compare(torch, got, want, dtype, what: str) -> float:
+    """Hold a K1 output against the plain version's → max |diff|: f32
+    within 2e-5; bf16 within one bf16 ulp of the larger magnitude, or 2e-5
+    where that ulp is finer (near zero both round values that differ by the
+    f32 tolerance)."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype == dtype,
+          f"K1 output {tuple(got.shape)} {got.dtype} at {what}")
+    check(got.is_contiguous(memory_format=torch.channels_last), f"K1 layout at {what}")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    check(bool(torch.isfinite(g).all()), f"K1 output not finite at {what}")
+    if dtype == torch.float32:
+        tol = torch.full_like(diff, 2e-5)
+    else:
+        tol = torch.maximum(bf16_ulp(torch, torch.maximum(g.abs(), w.abs())),
+                            torch.full_like(diff, 2e-5))
+    bad = int((diff > tol).sum())
+    check(bad == 0, f"K1 differs from plain at {what}: {bad} elements, max |diff| "
+                    f"{float(diff.max()):.3g}")
+    return float(diff.max())
+
+
+def k1_edge_scalars(torch, table, h: int, w: int, pad: int):
+    """Override a drawn (B, 16) table with the edge cases: crop offsets at 0
+    and 2*pad, both flips, erase rectangles touching each border."""
+    t = table.clone()
+    b = t.shape[0]
+    for i in range(b):
+        oy, ox = (0, 2 * pad) if i % 2 else (2 * pad, 0)
+        eh, ew = max(1, h // (2 + i % 3)), max(1, w // (2 + i % 2))
+        ey, ex = [(0, 0), (h - eh, w - ew), (0, w - ew), (h - eh, 0)][i % 4]
+        if i % 5 == 4:  # the whole width, the whole height
+            ey, ex, eh, ew = 0, 0, h, w
+        t[i, :10] = torch.tensor([oy, ox, i % 2, float(t[i, 3]), float(t[i, 4]),
+                                  float(t[i, 5]), ey, ex, eh, ew], dtype=torch.float32)
+    return t
+
+
+def phase_k1(torch, dev):
+    from daliid_tpu_torch.ops.fused_augment import draw_scalars, fused_augment, fused_augment_plain
+
+    gen = torch.Generator().manual_seed(1)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+    for (b, h, w), pad in [((384, 256, 128), 10), ((3, 32, 16), 10), ((3, 32, 16), 4),
+                           ((2, 37, 19), 10), ((2, 37, 19), 4), ((5, 256, 128), 10)]:
+        images = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8).to(dev)
+        drawn = draw_scalars(b, h, w, pad, 0.4, 0.3, 0.4, (0.05, 0.30), (0.3, 3.3), gen)
+        for edge in (False, True):
+            scal = (k1_edge_scalars(torch, drawn, h, w, pad) if edge else drawn).to(dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                what = f"B={b} H={h} W={w} pad={pad} edge={edge} {dtype}"
+                worst[dtype] = max(worst[dtype], k1_compare(
+                    torch, fused_augment(images, scal, pad, dtype),
+                    fused_augment_plain(images, scal, pad, dtype), dtype, what))
+                n_cases += 1
+    log(f"K1 fused_augment == plain on {n_cases} cases (max |diff| f32 "
+        f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}), the train path's "
+        f"(384, 256, 128, 3) among them")
+    return max(worst.values())
+
+
+# ---------------------------------------------------------------- phase 8
+def make_train_dataset():
+    from daliid_tpu_torch.data import make_synthetic_dataset
+
+    t0 = time.time()
+    root = WORK / "train_data"
+    make_synthetic_dataset(str(root / "Synthetic"), num_ids=TRAIN_IDS,
+                           imgs_per_id_train=TRAIN_IMGS, imgs_per_id_test=4,
+                           with_turbulence=True)
+    log(f"train set: {TRAIN_IDS} identities x {TRAIN_IMGS} train images with turbulence "
+        f"copies in {time.time() - t0:.1f} s")
+    return root
+
+
+def phase_train(torch, counts, root):
+    import numpy as np
+
+    from daliid_tpu_torch.cli import train
+
+    ckpt, metrics = WORK / "train_ckpt", WORK / "train_metrics"
+    args = train.build_argparser().parse_args(
+        ["--dataset", "Synthetic", "--data_root", str(root), "--model_name", "resnet50",
+         "--compute_dtype", COMPUTE_DTYPE, "--kind_of_transform", "1", "--P", str(P),
+         "--K", str(K), "--epochs", str(EPOCHS), "--eval_freq", "1",
+         "--path_to_save_models", str(ckpt), "--path_to_save_metrics", str(metrics),
+         *_img_flags()])
+    counts.reset()
+    t0 = time.time()
+    best_r1, best_iter = train.main(args)
+    seconds = time.time() - t0
+    launched = counts.read()
+    check(launched["fused_augment"] == TRAIN_STEPS,
+          f"the train path launched K1 {launched['fused_augment']} times for {TRAIN_STEPS} steps")
+    check(launched["rank_counts"] > 0, "validation in the train path did not launch K2")
+    progress = json.loads((metrics / "progress_resnet50_v0.json").read_text())
+    check(len(progress) == EPOCHS, f"progress has {len(progress)} epochs, not {EPOCHS}")
+    for row in progress:
+        for key in ("loss", "center_loss", "proxy_loss", "rank1", "rank1_momentum"):
+            check(np.isfinite(row[key]), f"epoch {row['epoch']}: {key} = {row[key]}")
+    for name in ("model_online_resnet50_v0.pt", "model_momentum_resnet50_v0.pt",
+                 "latest/index.json"):
+        check((ckpt / name).exists(), f"the train run wrote no {name}")
+    log(f"train: {TRAIN_STEPS} steps of {2 * P * K} images in {EPOCHS} epochs, "
+        f"{seconds:.1f} s with mining and validation; losses "
+        f"{[round(r['loss'], 5) for r in progress]}, rank-1 online "
+        f"{[r['rank1'] for r in progress]} momentum {[r['rank1_momentum'] for r in progress]} "
+        f"(random init), best {best_r1} @ {best_iter}; launches {launched}")
+    return launched
+
+
+# ---------------------------------------------------------------- phase 9
 def _time_k3(torch, dev, n_q: int, n_g: int, num_real: int, reps: int, plain_reps: int):
     """Time K3 SQ8 and f32 at (Q, G, D=2048, num_real, k=10) against the plain
     version and a library yardstick; → {kernel name: timing}."""
@@ -513,6 +659,125 @@ def _time_k2(torch, dev, results):
     del dist
 
 
+def _time_k1(torch, dev):
+    """K1 at the train path's shape in bf16: kernel and plain version."""
+    from daliid_tpu_torch.ops.fused_augment import draw_scalars, fused_augment, fused_augment_plain
+
+    b, (h, w), pad = 2 * P * K, IMG, 10
+    gen = torch.Generator().manual_seed(9)
+    images = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8).to(dev)
+    scal = draw_scalars(b, h, w, pad, 0.4, 0.3, 0.4, (0.05, 0.30), (0.3, 3.3), gen).to(dev)
+    err = k1_compare(torch, fused_augment(images, scal, pad, torch.bfloat16),
+                     fused_augment_plain(images, scal, pad, torch.bfloat16), torch.bfloat16,
+                     "the train shape")
+    ms = cuda_ms(torch, lambda: fused_augment(images, scal, pad, torch.bfloat16), reps=50)
+    plain_ms = cuda_ms(torch, lambda: fused_augment_plain(images, scal, pad, torch.bfloat16),
+                       reps=5, warmup=1)
+    # each uint8 input byte read once, each bf16 output written once, the table read once
+    bytes_ = b * h * w * 3 * (1 + 2) + b * 16 * 4
+    # about 30 f32 operations a pixel (crop, jitter, gray, erase, normalize)
+    ops = 30 * b * h * w
+    return _timing(f"B={b} H={h} W={w} pad={pad} bf16 out", ms, plain_ms, None, bytes_, ops,
+                   "f32", err)
+
+
+def _profile_steps(torch, step, steps: int) -> dict:
+    """``torch.profiler`` over ``steps`` calls of ``step``: the device's busy
+    time a step (the union of its kernels' spans), the share of the wall
+    time it is busy, and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    # kernels and copies on the device; user ranges (such as the optimizer's
+    # step annotation) span them and would count their gaps as busy
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    check(len(spans) > 0, "the profiler saw no kernel on the device")
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for s, e, name in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    bn = sum(t for name, t in by_name.items() if "batch_norm" in name)
+    return {"profiled_device_busy_ms_per_step": busy / 1e3 / steps,
+            "profiled_busy_share": busy / 1e6 / wall,
+            "kernels_per_step": len(spans) / steps,
+            "batch_norm_kernels_ms_per_step": bn / 1e3 / steps,
+            "top_kernels_ms_per_step": {name[:80]: t / 1e3 / steps for name, t in top}}
+
+
+def _time_train_step(torch, dev, root):
+    """One train step at the path's shape, split with CUDA events into K1
+    augment, forward+backward and Adam+EMA; the whole step's img/s and peak
+    device memory; the host decode time of one batch."""
+    from daliid_tpu_torch.data import load_dataset
+    from daliid_tpu_torch.models import build_model_pair
+    from daliid_tpu_torch.train.sampler import PKBatchSampler
+    from daliid_tpu_torch.train.trainer import Trainer
+
+    table = load_dataset("Synthetic", root=str(root))["train"]
+    online, momentum = build_model_pair("resnet50", torch.Generator().manual_seed(12),
+                                        dtype=torch.bfloat16, device=dev)
+    sampler = PKBatchSampler(table, table.pids, P=P, K=K, kind_of_transform=1,
+                             turbulence_dir=str(root / "Synthetic" / "turbulence"), seed=12)
+    trainer = Trainer(online, momentum, sampler, img_size=IMG, tau=0.05, lambda_proxy=0.4,
+                      compute_dtype=torch.bfloat16, extractor_batch=512)
+    pset = trainer.mine_proxies()
+    put = lambda a: torch.as_tensor(a, device=dev)
+    centers, proxies, proxy_labels = put(pset.centers), put(pset.proxies), \
+        put(pset.proxy_labels).long()
+    batch = next(iter(sampler.epoch()))
+    trainer._decode_batch(batch.paths)  # warm the decode path
+    decode_ms = {}
+    default_workers = trainer.decode_workers
+    for workers in sorted({1, 4, default_workers}):
+        trainer.decode_workers = workers
+        t0 = time.time()
+        for _ in range(2):
+            trainer._decode_batch(batch.paths)
+        decode_ms[workers] = (time.time() - t0) / 2 * 1e3
+    trainer.decode_workers = default_workers
+    rest = (centers, proxies, proxy_labels, 1)
+    # the train loop as it runs: decode on the prefetch thread, steps on the
+    # card; timed from the second batch's arrival, after the pipeline's fill
+    batches = [b for _ in range(PIPELINE_BATCHES // 2) for b in sampler.epoch()]
+    arrivals = []
+    for staged in trainer.staged_batches(batches):
+        arrivals.append(time.time())
+        trainer.train_step(*staged, *rest)
+    torch.cuda.synchronize(dev)
+    pipeline_ms = (time.time() - arrivals[1]) / (len(batches) - 1) * 1e3
+    images_u8, labels, distortions, mask = (t.to(dev) for t in trainer._stage(batch))
+    rest = (labels, distortions, mask) + rest
+    images = trainer.augment(images_u8)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(torch, lambda: trainer.train_step(images_u8, *rest), reps=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    aug_ms = cuda_ms(torch, lambda: trainer.augment(images_u8), reps=20)
+    fb_ms = cuda_ms(torch, lambda: trainer.forward_backward(images, *rest), reps=10)
+    upd_ms = cuda_ms(torch, trainer.apply_update, reps=10)
+    b = images_u8.shape[0]
+    split = {"batch": b, "step_ms": step_ms, "img_per_s": b / step_ms * 1e3,
+             "augment_ms": aug_ms, "forward_backward_ms": fb_ms, "adam_ema_ms": upd_ms,
+             "peak_memory_gb": peak / 1e9,
+             "host_decode_ms_per_batch": decode_ms[default_workers],
+             "host_decode_ms_by_threads": decode_ms, "host_cpus": os.cpu_count(),
+             "pipeline_steps": len(batches) - 1, "pipeline_ms_per_step": pipeline_ms,
+             "pipeline_img_per_s": b / pipeline_ms * 1e3,
+             **_profile_steps(torch, lambda: trainer.train_step(images_u8, *rest), steps=3)}
+    log(f"train step (ResNet-50 bf16, {b} images of 256x128, CUDA events): {json.dumps(split)}")
+    del trainer, online, momentum, images
+    return split
+
+
 def _time_extraction(torch, dev):
     from daliid_tpu_torch.augment.preprocess import normalize_images
     from daliid_tpu_torch.models import get_model
@@ -539,12 +804,14 @@ class Counts:
     """The launch counters of every kernel wrapper on the main path."""
 
     def __init__(self):
+        from daliid_tpu_torch.ops.fused_augment import fused_augment
         from daliid_tpu_torch.ops.rank_counts import positive_rank_counts
         from daliid_tpu_torch.ops.search_topk import f32_search_topk, sq8_search_topk
 
         self.wrappers = {"rank_counts": positive_rank_counts,
                          "search_topk_sq8": sq8_search_topk,
-                         "search_topk_f32": f32_search_topk}
+                         "search_topk_f32": f32_search_topk,
+                         "fused_augment": fused_augment}
 
     def reset(self):
         for w in self.wrappers.values():
@@ -562,6 +829,9 @@ KERNELS = {
     "search_topk_f32": {"source": "daliid_tpu_torch/csrc/search_topk.cu",
                         "replaces": "daliid_tpu/ops/search_topk.py:119",
                         "check": "vals rtol 1e-5, equal index sets"},
+    "fused_augment": {"source": "daliid_tpu_torch/csrc/fused_augment.cu",
+                      "replaces": "daliid_tpu/ops/fused_augment.py:153",
+                      "check": "f32 atol 2e-5; bf16 one bf16 ulp (or 2e-5)"},
 }
 
 
@@ -584,12 +854,15 @@ def main() -> int:
 
     phase_k2(torch, dev, (n_q, n_g, max_positives_bound(splits["gallery"].pids)))
     f32_err = phase_k3(torch, dev, (n_q, capacity, 2048, n_g))
+    k1_err = phase_k1(torch, dev)
+    train_root = make_train_dataset()
 
     counts = Counts()
     launches = {name: 0 for name in KERNELS}
     for phase in (lambda: phase_serve(torch, splits, counts)[0],
                   lambda: phase_search(torch, counts),
-                  lambda: phase_evaluate(torch, counts)):
+                  lambda: phase_evaluate(torch, counts),
+                  lambda: phase_train(torch, counts, train_root)):
         for name, n in phase().items():
             launches[name] += n
     counts.reset()
@@ -604,6 +877,9 @@ def main() -> int:
     _time_k2(torch, dev, results)
     results["search_topk_f32"]["max_abs_err"] = max(results["search_topk_f32"]["max_abs_err"],
                                                     f32_err)
+    results["fused_augment"].update(_time_k1(torch, dev))
+    results["fused_augment"]["max_abs_err"] = max(results["fused_augment"]["max_abs_err"], k1_err)
+    step = _time_train_step(torch, dev, train_root)
     rates = _time_extraction(torch, dev)
     for name, r in results.items():
         r["launches"] = launches[name]
@@ -612,6 +888,15 @@ def main() -> int:
             f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"launches on the path {r['launches']}")
     log(f"extraction img/s (bf16, 256x128): {json.dumps({str(b): v for b, v in rates.items()})}")
+    log(f"train step: {step['step_ms']:.3f} ms, {step['img_per_s']:.1f} img/s "
+        f"(K1 {step['augment_ms']:.4f} ms, forward+backward {step['forward_backward_ms']:.3f} ms, "
+        f"Adam+EMA {step['adam_ema_ms']:.3f} ms), peak {step['peak_memory_gb']:.2f} GB, "
+        f"host decode {step['host_decode_ms_per_batch']:.1f} ms a batch; with decode prefetched "
+        f"{step['pipeline_ms_per_step']:.1f} ms a step, {step['pipeline_img_per_s']:.1f} img/s "
+        f"over {step['pipeline_steps']} steps after the fill; profiled: device busy "
+        f"{step['profiled_device_busy_ms_per_step']:.3f} ms a step "
+        f"({100 * step['profiled_busy_share']:.1f}% of the wall time), BN kernels "
+        f"{step['batch_norm_kernels_ms_per_step']:.3f} ms a step")
     log(f"card: {card}; total {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check", "shape")

@@ -14,6 +14,7 @@ COMMANDS = {
     "serve": ("cli.serve", "persistent identification daemon (TCP JSON protocol)"),
     "evaluate": ("cli.evaluate", "single-model evaluation (evaluate.py)"),
     "search": ("cli.search", "gallery search service"),
+    "train": ("cli.train", "training loop (mainKIT.py)"),
 }
 
 

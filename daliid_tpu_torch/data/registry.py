@@ -1,12 +1,14 @@
 """Dataset registry: parsers producing (path, pid, camid, kind) tables.
 
-Port of ``daliid_tpu/data/registry.py`` for the serving and evaluation
-path: :class:`ReidTable` (``registry.py:27-100``),
-:func:`parse_market_duke_dir` (``:107-120``), :func:`data_root` (``:199``)
-and :func:`load_dataset` (``:387``) with the ``Market`` and ``Synthetic``
-datasets. The other formats (MSMT17, VeRi, DeepChange, PRCC, BRIAR
-manifests, ...) are not ported yet. Roots come from ``root=`` or
-``DALIID_DATA_ROOT``.
+Port of ``daliid_tpu/data/registry.py`` for the serving, evaluation and
+training paths: :class:`ReidTable` (``registry.py:27-100``),
+:func:`parse_market_duke_dir` (``:107-120``), :func:`data_root` (``:199``),
+:func:`load_dataset` (``:387``) with the ``Market`` and ``Synthetic``
+datasets and their ``train`` splits, and :func:`merge_train_tables`
+(``:400``). The Synthetic set's turbulence copies are under
+``<root>/Synthetic/turbulence``. The other formats (MSMT17, VeRi,
+DeepChange, PRCC, BRIAR manifests, ...) are not ported yet. Roots come from
+``root=`` or ``DALIID_DATA_ROOT``.
 """
 
 from __future__ import annotations
@@ -169,3 +171,15 @@ def load_dataset(name: str, root: str | None = None) -> Dict[str, ReidTable]:
         if isinstance(v, ReidTable):
             v.name = name
     return splits
+
+
+def merge_train_tables(tables: Sequence[ReidTable]) -> ReidTable:
+    """Concatenate training tables with densely renumbered, offset classes —
+    the reference's multi-target class offsetting (``evaluate.py:131-174``)."""
+    merged = None
+    offset = 0
+    for t in tables:
+        r = t.relabeled(offset=offset)
+        offset += r.num_ids
+        merged = r if merged is None else merged.concat(r)
+    return merged

@@ -1,8 +1,9 @@
-"""Backbone factory for the serving path.
+"""Backbone factory.
 
-Port of ``daliid_tpu/models/factory.py``: :class:`ModelBundle` and
+Port of ``daliid_tpu/models/factory.py``: :class:`ModelBundle`,
 :func:`get_model` for ``resnet50`` and ``resnet50_gap`` (``:72-81``,
-``:200-220``). The other zoo entries are not ported yet. Weights are
+``:200-220``) and :func:`build_model_pair` (``:256-266``). The other zoo
+entries are not ported yet. Weights are
 initialized from an explicit ``torch.Generator``: LeCun-normal convolution
 kernels (flax ``nn.Conv``'s default family), unit BN scale, zero BN bias,
 zero running mean and unit running variance.
@@ -10,6 +11,7 @@ zero running mean and unit running variance.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Callable, Dict
@@ -22,7 +24,7 @@ from daliid_tpu_torch.models.resnet import ResNet50ReID
 
 @dataclasses.dataclass
 class ModelBundle:
-    """An eval-mode backbone module on its device, and its embedding width."""
+    """A backbone module on its device, and its embedding width."""
 
     module: nn.Module
     feature_dim: int
@@ -73,3 +75,15 @@ def get_model(name: str, generator: torch.Generator | None = None,
     init_weights(module, generator)
     module = module.to(device).eval()
     return ModelBundle(module=module, feature_dim=feature_dim, name=name)
+
+
+def build_model_pair(name: str, generator: torch.Generator | None = None,
+                     dtype: torch.dtype = torch.float32, device="cpu", **kw):
+    """(online, momentum) pair with identical initial weights: the momentum
+    model is a copy of the online one (the weight sync at
+    ``Encoders.py:36-44``). Both come back in eval mode; the trainer puts
+    the online model in train mode."""
+    online = get_model(name, generator, dtype=dtype, device=device, **kw)
+    momentum = ModelBundle(module=copy.deepcopy(online.module), feature_dim=online.feature_dim,
+                           name=name)
+    return online, momentum

@@ -1,17 +1,23 @@
-"""Eval-mode batch normalization with the JAX package's numerics.
+"""Batch normalization with the JAX package's numerics, in train and eval mode.
 
-Port of ``daliid_tpu/models/norm.py::TorchBatchNorm`` (``:34-84``) in eval
-mode: the running statistics and the affine ``(x - mean) * scale *
-rsqrt(var + eps) + bias`` are applied in float32 (a bf16 input is upcast
-inside torch's eval ``batch_norm``), and the result is cast back to the
-compute dtype. Parameters and buffers carry
-torch's names (``weight``, ``bias``, ``running_mean``, ``running_var``), so
-a reference ``state_dict`` loads as it is.
+Port of ``daliid_tpu/models/norm.py::TorchBatchNorm`` (``:34-84``). The mode
+follows ``self.training``:
 
-Training is not ported here. The train-mode rule belongs to the training
-slice: normalize with the biased batch variance, update the running
-variance with the unbiased one (``n / (n - 1)``), torch momentum 0.1 (flax
-0.9), see ``daliid_tpu/models/norm.py:3-10,63-79``.
+- train: normalize with the biased batch variance and update the running
+  variance with the unbiased one (``n / (n - 1)``), torch momentum 0.1
+  (flax 0.9), as ``daliid_tpu/models/norm.py:63-79`` does;
+- eval: the running statistics.
+
+In both, the statistics and the affine are f32 (a bf16 input is upcast
+inside torch's ``batch_norm``, whose running buffers stay f32 through an
+update), and the result is cast to the compute dtype. Every row of the input
+counts in the batch statistics, masked padding slots of a PK batch
+included, as in the JAX package. The JAX package computes the batch
+variance as ``E[x^2] - mean^2`` clipped at 0; torch uses Welford, so the two
+agree to a tolerance. Parameters and buffers carry torch's names
+(``weight``, ``bias``, ``running_mean``, ``running_var``) and there is no
+``num_batches_tracked`` buffer, so a reference ``state_dict`` loads as it is
+once that counter is dropped.
 """
 
 from __future__ import annotations
@@ -19,10 +25,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+# torch convention: new = (1 - momentum) * old + momentum * batch (flax 0.9)
+MOMENTUM = 0.1
+
 
 class TorchBatchNorm(nn.Module):
-    """BatchNorm over the channel axis (dim 1) of an (N, C, ...) tensor,
-    eval mode only."""
+    """BatchNorm over the channel axis (dim 1) of an (N, C, ...) tensor."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, dtype: torch.dtype | None = None):
         super().__init__()
@@ -34,10 +42,11 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # one fused pass: the eval batch_norm kernel reads a bf16 input, does
-        # its arithmetic in f32 against the f32 statistics, writes x's dtype
+        # one fused pass: batch_norm reads a bf16 input, does its arithmetic in
+        # f32 against the f32 parameters and statistics, writes x's dtype; in
+        # train mode it updates the f32 running buffers in place
         y = torch.nn.functional.batch_norm(
-            x, self.running_mean.float(), self.running_var.float(),
-            self.weight.float(), self.bias.float(), training=False, eps=self.eps,
+            x, self.running_mean, self.running_var, self.weight, self.bias,
+            training=self.training, momentum=MOMENTUM, eps=self.eps,
         )
         return y.to(self.dtype or x.dtype)

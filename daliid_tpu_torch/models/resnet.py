@@ -1,4 +1,4 @@
-"""ResNet-50 ReID backbone: last-stride-1, GAP+GMP, BN neck, eval mode.
+"""ResNet-50 ReID backbone: last-stride-1, GAP+GMP, BN neck.
 
 Port of ``daliid_tpu/models/resnet.py``: :class:`Bottleneck` (``:49-87``),
 the trunk of ``_resnet_trunk`` (``:90-117``) and :class:`ResNet50ReID`
@@ -10,6 +10,10 @@ survive:
 - GAP + GMP summed, with ``feature`` = gap, gmp or both (``:147-154``);
 - an f32 BN neck ``last_bn`` (``:156-160``);
 - ``stage_sizes`` is a parameter.
+
+The module runs in eval mode (running BN statistics) or, after
+``module.train()``, in train mode (batch statistics, running statistics
+updated), the JAX package's ``train=True``.
 
 Layout: inputs are NCHW-logical in ``channels_last`` memory. Parameters are
 f32; convolutions run in the compute ``dtype`` (bf16 on the GPU by default)

@@ -9,13 +9,17 @@ The port's ``state_dict`` keys are the reference's torch keys, the scheme
   'batch_stats'}`` tree of numpy arrays into that ``state_dict``:
   convolution kernels HWIO → OIHW, BN ``scale/bias/mean/var`` →
   ``weight/bias/running_mean/running_var``;
+- :func:`params_from_jax` does the same for a tree of the params' structure
+  alone: the params, or optax's Adam moments ``mu`` and ``nu``;
 - :func:`read_jax_npz` reads the ``.npz`` that the JAX package's
   ``train/checkpoint.py::save_variables`` writes, whose keys are
   ``jax.tree_util.keystr`` paths such as
   ``['params']['layer1_0']['conv1']['kernel']``, parsed here as strings;
 - :func:`load_torch_checkpoint` reads a reference ``state_dict`` pickle
   (``daliid_tpu/models/torch_port.py:39-44``), which already has the
-  port's layout once DataParallel's ``module.`` prefix is dropped.
+  port's layout once DataParallel's ``module.`` prefix is dropped, and the
+  ``model_{online,momentum}_<name>_<version>.pt`` files the port's trainer
+  writes.
 """
 
 from __future__ import annotations
@@ -58,25 +62,14 @@ def read_jax_npz(path: str) -> Dict[str, object]:
     return tree
 
 
-def variables_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """JAX ``ResNet50ReID`` variables (numpy leaves) → the port's
-    ``state_dict`` in the reference's torch key scheme."""
-    params = variables["params"]
-    stats = variables["batch_stats"]
-    out: Dict[str, torch.Tensor] = {}
-
-    def put_conv(tk, leaf):
-        out[tk + ".weight"] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(leaf["kernel"], np.float32).transpose(3, 2, 0, 1)))
-
-    def put_bn(tk, p, s):
-        for name, arr in (("weight", p["scale"]), ("bias", p["bias"]),
-                          ("running_mean", s["mean"]), ("running_var", s["var"])):
-            out[f"{tk}.{name}"] = torch.from_numpy(np.array(arr, np.float32))
-
+def _walk_resnet(params, put_conv, put_bn) -> None:
+    """Visit the JAX ``ResNet50ReID`` tree in the reference's torch names:
+    ``put_conv(torch_prefix, jax_node)`` per convolution and
+    ``put_bn(torch_prefix, jax_path)`` per BN (``jax_path`` the tuple of
+    names to that BN's node)."""
     put_conv("conv1", params["conv1"])
-    put_bn("bn1", params["bn1"], stats["bn1"])
-    put_bn("last_bn", params["last_bn"], stats["last_bn"])
+    put_bn("bn1", ("bn1",))
+    put_bn("last_bn", ("last_bn",))
     for name, p in params.items():
         if not name.startswith("layer"):
             continue
@@ -85,10 +78,55 @@ def variables_from_jax(variables) -> Dict[str, torch.Tensor]:
         for ci in ("conv1", "conv2", "conv3"):
             put_conv(f"{t}.{ci}", p[ci])
         for bi in ("bn1", "bn2", "bn3"):
-            put_bn(f"{t}.{bi}", p[bi], stats[name][bi])
+            put_bn(f"{t}.{bi}", (name, bi))
         if "downsample_conv" in p:
             put_conv(f"{t}.downsample.0", p["downsample_conv"])
-            put_bn(f"{t}.downsample.1", p["downsample_bn"], stats[name]["downsample_bn"])
+            put_bn(f"{t}.downsample.1", (name, "downsample_bn"))
+
+
+def _node(tree, path):
+    for name in path:
+        tree = tree[name]
+    return tree
+
+
+def _conv_oihw(kernel) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(kernel, np.float32).transpose(3, 2, 0, 1)))
+
+
+def params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A JAX ``ResNet50ReID`` ``params`` tree (numpy leaves) → the port's
+    parameters by ``state_dict`` key: kernels HWIO → OIHW, BN ``scale`` /
+    ``bias`` → ``weight`` / ``bias``. Any tree of the params' structure
+    converts the same way, so it also maps optax's Adam moments ``mu`` and
+    ``nu`` onto ``torch.optim.Adam``'s ``exp_avg`` and ``exp_avg_sq``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put_conv(tk, leaf):
+        out[tk + ".weight"] = _conv_oihw(leaf["kernel"])
+
+    def put_bn(tk, path):
+        p = _node(params, path)
+        out[tk + ".weight"] = torch.from_numpy(np.array(p["scale"], np.float32))
+        out[tk + ".bias"] = torch.from_numpy(np.array(p["bias"], np.float32))
+
+    _walk_resnet(params, put_conv, put_bn)
+    return out
+
+
+def variables_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``ResNet50ReID`` variables (numpy leaves) → the port's
+    ``state_dict`` in the reference's torch key scheme: the parameters of
+    :func:`params_from_jax` plus BN ``mean/var`` → ``running_mean/var``."""
+    out = params_from_jax(variables["params"])
+    stats = variables["batch_stats"]
+
+    def put_bn(tk, path):
+        s = _node(stats, path)
+        out[tk + ".running_mean"] = torch.from_numpy(np.array(s["mean"], np.float32))
+        out[tk + ".running_var"] = torch.from_numpy(np.array(s["var"], np.float32))
+
+    _walk_resnet(variables["params"], lambda tk, leaf: None, put_bn)
     return out
 
 

@@ -1,0 +1,116 @@
+"""Checkpoints of the full training state with ``torch.save``.
+
+Counterpart of ``daliid_tpu/train/checkpoint.py``, whose orbax manager the
+port replaces. A checkpoint ``<directory>/<epoch>.pt`` holds the online and
+momentum ``state_dict`` (the reference's torch keys), the optimizer state,
+the epoch, the host RNG state (:meth:`Trainer.rng_state`) and the eval
+metrics it was saved with. :class:`CheckpointManager` keeps either the best
+``max_to_keep`` steps by ``rank1`` (the best-metric manager of
+``cli/train.py:312``) or the newest ones (the crash-resume ``latest/``
+manager, ``:316-319``). :func:`save_weights` writes the weights-only
+``model_{online,momentum}_<name>_<version>.pt`` files that
+``models/torch_port.load_state`` reads.
+
+Files are written to a temporary name and renamed into place, so a crash
+never leaves a half-written checkpoint under its final name.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+_INDEX = "index.json"
+
+
+def _rng_to_tensors(rng: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    # uint64 words travel as their int64 bit patterns (torch.load's
+    # weights_only reader takes plain tensors)
+    out = {}
+    for k, v in rng.items():
+        a = np.asarray(v)
+        out[k] = torch.from_numpy(a.view(np.int64).copy() if a.dtype == np.uint64 else a.copy())
+    return out
+
+
+def _rng_from_tensors(rng: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: (v.numpy().view(np.uint64) if v.dtype == torch.int64 else v.numpy())
+            for k, v in rng.items()}
+
+
+def _atomic_save(obj, path: str) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+class CheckpointManager:
+    """Numbered epochs under one directory, retained best-first by
+    ``rank1`` (``track_best=True``) or newest-first."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3, track_best: bool = True):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        self.track_best = track_best
+        os.makedirs(self.directory, exist_ok=True)
+        index = os.path.join(self.directory, _INDEX)
+        self._metrics: Dict[int, Dict[str, float]] = {}
+        if os.path.exists(index):
+            with open(index) as f:
+                self._metrics = {int(k): v for k, v in json.load(f).items()}
+
+    def _path(self, epoch: int) -> str:
+        return os.path.join(self.directory, f"{epoch}.pt")
+
+    def save(self, epoch: int, state: dict, metrics: Dict[str, float] | None = None,
+             rng: Dict[str, np.ndarray] | None = None) -> None:
+        """``state`` is :meth:`Trainer.state_dict`; ``rng`` its
+        :meth:`~Trainer.rng_state` (a resumed run then replays the stream)."""
+        metrics = {k: float(v) for k, v in (metrics or {}).items()}
+        payload = {"state": state, "epoch": int(epoch), "metrics": metrics,
+                   "rng": _rng_to_tensors(rng) if rng is not None else None}
+        _atomic_save(payload, self._path(epoch))
+        self._metrics[int(epoch)] = metrics
+        if self.track_best:
+            keep = sorted(self._metrics, key=lambda e: (self._metrics[e].get("rank1", 0.0), e),
+                          reverse=True)[:self.max_to_keep]
+        else:
+            keep = sorted(self._metrics, reverse=True)[:self.max_to_keep]
+        for e in set(self._metrics) - set(keep):
+            os.remove(self._path(e))
+            del self._metrics[e]
+        tmp = os.path.join(self.directory, f"{_INDEX}.{os.getpid()}.tmp")
+        with open(tmp, "w") as f:
+            json.dump({str(k): v for k, v in self._metrics.items()}, f)
+        os.replace(tmp, os.path.join(self.directory, _INDEX))
+
+    def restore(self, epoch: int | None = None) -> Tuple[dict, int, dict | None]:
+        """→ (state, epoch, rng or None); ``epoch=None`` takes the latest."""
+        step = epoch if epoch is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        rng = payload["rng"]
+        return (payload["state"], int(payload["epoch"]),
+                _rng_from_tensors(rng) if rng is not None else None)
+
+    def metrics(self, step: int) -> Dict[str, float]:
+        return dict(self._metrics.get(int(step), {}))
+
+    def latest_step(self):
+        return max(self._metrics) if self._metrics else None
+
+    def best_step(self):
+        if not self._metrics:
+            return None
+        return max(self._metrics, key=lambda e: (self._metrics[e].get("rank1", 0.0), e))
+
+
+def save_weights(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Weights-only export (the reference's ``torch.save(state_dict)``,
+    ``mainKIT.py:169-170``), on the CPU."""
+    _atomic_save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
