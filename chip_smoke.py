@@ -82,7 +82,16 @@ TRAIN_STEPS = EPOCHS * (TRAIN_IDS // P)
 PIPELINE_BATCHES = 10
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "f32": 67e12}
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# K4 against its plain version: TransReID-JPM's train shapes (the trunk and
+# b1 at 211 tokens, the shared b2 at 1 + 52), ViT-B/16's 129 tokens at the
+# extraction batch, vit_small's 96-wide heads, and ragged small cases
+K4_SHAPES = [(384, 211, 12, 64), (384, 53, 12, 64), (512, 129, 12, 64), (64, 129, 8, 96),
+             (3, 7, 2, 32), (2, 1, 1, 64), (5, 70, 3, 96)]
+K4_TRAIN_SHAPES = K4_SHAPES[:2]
+# K4 launches per forward: JPM's 11 trunk blocks, b1 and 4 x b2; ViT-B's 12 blocks
+K4_PER_FORWARD = {"transreid_jpm": 16, "vit": 12}
+EXTRACT_BATCH = 512
 
 
 def fail(msg: str) -> None:
@@ -536,7 +545,217 @@ def phase_train(torch, counts, root):
     return launched
 
 
-# ---------------------------------------------------------------- phase 9
+# ---------------------------------------------------------------- phase 9: K4
+def _qkv_views(torch, gen, dev, shape, dtype):
+    """q, k, v as the (B, N, H, D) column blocks of one (B, N, 3*H*D)
+    tensor, as the ViT's fused qkv projection hands them to K4."""
+    b, n, h, d = shape
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev).to(dtype)
+    return [t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1)]
+
+
+def k4_compare(torch, got, want, dtype, what: str) -> float:
+    """Hold a K4 output against the plain version's → max |diff|: f32 within
+    2e-5; bf16 within one bf16 ulp of the larger magnitude, or 2e-5 where
+    that ulp is finer (both round an f32 result once)."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype == dtype and got.is_contiguous(),
+          f"K4 output {tuple(got.shape)} {got.dtype} at {what}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"K4 output not finite at {what}")
+    diff = (g - w).abs()
+    tol = torch.full_like(diff, 2e-5)
+    if dtype == torch.bfloat16:
+        tol = torch.maximum(bf16_ulp(torch, torch.maximum(g.abs(), w.abs())), tol)
+    bad = int((diff > tol).sum())
+    check(bad == 0, f"K4 differs from plain at {what}: {bad} elements, max |diff| "
+                    f"{float(diff.max()):.3g}")
+    return float(diff.max())
+
+
+def phase_k4(torch, dev):
+    """K4 against its plain version, forward in f32 and bf16 at every shape of
+    ``K4_SHAPES``; the backward (the JAX VJP's, through the autograd
+    Function) against autograd through the plain version at the JPM trunk's
+    train shape in f32, within 3e-5. → (max |diff| forward, backward)."""
+    from daliid_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape in K4_SHAPES:
+        for dtype in worst:
+            q, k, v = _qkv_views(torch, gen, dev, shape, dtype)
+            worst[dtype] = max(worst[dtype], k4_compare(
+                torch, flash_attention(q, k, v), attention_plain(q, k, v), dtype,
+                f"(B, N, H, D) = {shape} {dtype}"))
+            del q, k, v
+    shape = K4_TRAIN_SHAPES[0]
+    q, k, v = (t.contiguous().requires_grad_() for t in
+               _qkv_views(torch, gen, dev, shape, torch.float32))
+    g_out = torch.randn(shape, generator=gen, device=dev)
+    flash_attention(q, k, v).backward(g_out)
+    kernel_grads = [t.grad for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    attention_plain(q, k, v).backward(g_out)
+    torch.cuda.synchronize()
+    bwd = max(float((a - t.grad).abs().max()) for a, t in zip(kernel_grads, (q, k, v)))
+    check(bwd <= 3e-5, f"K4's backward differs from autograd through the plain version by {bwd}")
+    del q, k, v, g_out, kernel_grads
+    log(f"K4 flash_attention == plain on {2 * len(K4_SHAPES)} cases (max |diff| f32 "
+        f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}), the JPM train shapes "
+        f"among them; backward at {shape} f32 max |diff| {bwd:.3g}")
+    return max(worst.values()), bwd
+
+
+def set_fused_attention(module, on: bool) -> None:
+    """Route every attention of ``module`` through K4 (``on``) or SDPA."""
+    from daliid_tpu_torch.models.vit import Attention
+
+    for m in module.modules():
+        if isinstance(m, Attention):
+            m.use_fused_attention = on
+
+
+def _forwards(*tables) -> int:
+    """Forward batches the extractor runs over these tables."""
+    return sum(-(-len(t) // EXTRACT_BATCH) for t in tables)
+
+
+# ---------------------------------------------------------------- phase 10
+def phase_transformer_evaluate(torch, dev, splits, counts):
+    """``load_bundle(model, None, (256, 128), bf16, cuda,
+    use_fused_attention=True)`` → FeatureExtractor → the validator's distance
+    matrix and K2 ranking, for ``transreid_jpm`` and ``vit``; K4 launched
+    ``K4_PER_FORWARD`` times a forward batch; the CMC equal to the numpy
+    oracle's; the K4 and SDPA routes agree in f32 on 32 query images."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli.evaluate import load_bundle
+    from daliid_tpu_torch.eval.features import FeatureExtractor
+    from daliid_tpu_torch.eval.validate import get_validator
+    from daliid_tpu_torch.metrics.ranking import evaluate_rank_numpy
+
+    queries, gallery = splits["query"], splits["gallery"]
+    validator = get_validator("Synthetic", img_size=IMG, batch_size=EXTRACT_BATCH, device=dev)
+    total = {}
+    for name, per_forward in K4_PER_FORWARD.items():
+        bundle = load_bundle(name, None, IMG, torch.bfloat16, dev, use_fused_attention=True)
+        extractor = FeatureExtractor(bundle, img_size=IMG, batch_size=EXTRACT_BATCH, device=dev)
+        counts.reset()
+        t0 = time.time()
+        q_fvs, g_fvs = extractor.extract(queries), extractor.extract(gallery)
+        distmat = validator.distance_matrix(q_fvs, g_fvs)
+        cmc, mAP = validator.rank(distmat, queries, gallery)
+        seconds = time.time() - t0
+        launched = counts.read()
+        forwards = _forwards(queries, gallery)
+        check(launched["flash_attention"] == per_forward * forwards,
+              f"{name}: K4 launched {launched['flash_attention']} times for {forwards} forwards")
+        check(launched["rank_counts"] > 0, f"{name}: the evaluation did not launch K2")
+        for fvs, table in ((q_fvs, queries), (g_fvs, gallery)):
+            check(fvs.shape == (len(table), bundle.feature_dim) and np.isfinite(fvs).all(),
+                  f"{name}: embeddings {fvs.shape}")
+        cmc_n, map_n = evaluate_rank_numpy(distmat.cpu().numpy(), queries.pids, gallery.pids,
+                                           queries.camids, gallery.camids,
+                                           max_rank=validator.max_rank)
+        check(np.array_equal(cmc, cmc_n) and abs(mAP - map_n) <= 1e-12,
+              f"{name}: CMC/mAP differ from the numpy oracle")
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+        del extractor, bundle
+        # the two attention routes on the same weights in f32 (TF32 off)
+        f32 = load_bundle(name, None, IMG, torch.float32, dev, use_fused_attention=True)
+        ex = FeatureExtractor(f32, img_size=IMG, batch_size=32, device=dev)
+        images = ex._decode_paths([str(p) for p in queries.paths[:32]])
+        k4 = ex.forward_batch(images)
+        set_fused_attention(f32.module, False)
+        sdpa = ex.forward_batch(images)
+        rel = float((k4 - sdpa).abs().max() / sdpa.abs().max())
+        check(rel <= 1e-3, f"{name}: K4 and SDPA routes differ by {rel:.3g} of the largest "
+                           f"embedding entry in f32")
+        log(f"transformer evaluate {name}: {len(queries)} query, {len(gallery)} gallery images, "
+            f"{seconds:.2f} s, R1 {cmc[0]:.4f} mAP {mAP:.6f} (random weights; oracle R1 "
+            f"{cmc_n[0]:.4f}), launches {launched}; f32 K4 vs SDPA route max |diff| "
+            f"{rel:.3g} of the largest entry")
+        del f32, ex
+    return total
+
+
+# ---------------------------------------------------------------- phase 11
+def phase_transformer_train(torch, dev, root, counts):
+    """``build_model_pair('transreid_jpm', num_classes=<train ids>,
+    use_fused_attention=True)`` in bf16 and the port's Trainer at the JAX
+    CLI's defaults (P16 K12 paired, tau 0.05, lambda_proxy 0.4): one epoch
+    of 2 steps with mining, then a validation; then ``cli.train.main`` with
+    ``--model_name transreid_jpm --num_classes -1`` for one epoch on the
+    default attention (SDPA)."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import train
+    from daliid_tpu_torch.data import load_dataset
+    from daliid_tpu_torch.eval.validate import get_validator
+    from daliid_tpu_torch.models import build_model_pair
+    from daliid_tpu_torch.train.sampler import PKBatchSampler
+    from daliid_tpu_torch.train.trainer import Trainer
+
+    splits = load_dataset("Synthetic", root=str(root))
+    table, queries, gallery = splits["train"], splits["query"], splits["gallery"]
+    online, momentum = build_model_pair(
+        "transreid_jpm", torch.Generator().manual_seed(12), img_size=IMG, dtype=torch.bfloat16,
+        device=dev, num_classes=table.num_ids, use_fused_attention=True)
+    sampler = PKBatchSampler(table, table.pids, P=P, K=K, kind_of_transform=1,
+                             turbulence_dir=str(root / "Synthetic" / "turbulence"), seed=12)
+    trainer = Trainer(online, momentum, sampler, img_size=IMG, tau=0.05, lambda_proxy=0.4,
+                      compute_dtype=torch.bfloat16, extractor_batch=EXTRACT_BATCH)
+    validator = get_validator("Synthetic", img_size=IMG, batch_size=EXTRACT_BATCH, device=dev)
+    counts.reset()
+    t0 = time.time()
+    means = trainer.train_epoch(1, verbose=True)
+    trainer.extractor.update_variables(trainer.online.state_dict())
+    cmc, mAP, _ = validator.validate(queries, gallery, trainer.extractor, verbose=False)
+    seconds = time.time() - t0
+    launched = counts.read()
+    steps = sampler.batches_per_epoch()
+    forwards = steps + _forwards(table, queries, gallery)
+    check(launched["fused_augment"] == steps,
+          f"the JPM train path launched K1 {launched['fused_augment']} times for {steps} steps")
+    check(launched["flash_attention"] == K4_PER_FORWARD["transreid_jpm"] * forwards,
+          f"the JPM train path launched K4 {launched['flash_attention']} times for "
+          f"{forwards} forwards")
+    check(launched["rank_counts"] > 0, "the JPM validation did not launch K2")
+    for key in ("loss", "center_loss", "proxy_loss"):
+        check(np.isfinite(means[key]), f"JPM epoch {key} = {means[key]}")
+    log(f"transformer train (JPM bf16, K4): {steps} steps of {2 * P * K} images with mining "
+        f"and a validation in {seconds:.1f} s; loss {means['loss']:.5f} center "
+        f"{means['center_loss']:.5f} proxy {means['proxy_loss']:.5f}, R1 {cmc[0]:.4f} (random "
+        f"init); launches {launched}")
+    del trainer, online, momentum
+
+    ckpt, metrics = WORK / "jpm_ckpt", WORK / "jpm_metrics"
+    args = train.build_argparser().parse_args(
+        ["--dataset", "Synthetic", "--data_root", str(root), "--model_name", "transreid_jpm",
+         "--num_classes", "-1", "--compute_dtype", COMPUTE_DTYPE, "--kind_of_transform", "1",
+         "--P", str(P), "--K", str(K), "--epochs", "1", "--eval_freq", "1",
+         "--skip_initial_eval", "--path_to_save_models", str(ckpt),
+         "--path_to_save_metrics", str(metrics), *_img_flags()])
+    counts.reset()
+    t0 = time.time()
+    train.main(args)
+    seconds = time.time() - t0
+    cli = counts.read()
+    check(cli["fused_augment"] == steps and cli["rank_counts"] > 0,
+          f"the JPM train CLI launched {cli}")
+    progress = json.loads((metrics / "progress_transreid_jpm_v0.json").read_text())
+    check(len(progress) == 1 and all(np.isfinite(progress[0][k]) for k in ("loss", "rank1")),
+          f"JPM train CLI progress {progress}")
+    log(f"transformer train CLI (JPM bf16, SDPA): 1 epoch of {steps} steps in {seconds:.1f} s, "
+        f"loss {progress[0]['loss']:.5f}; launches {cli}")
+    return {k: launched[k] + cli[k] for k in launched}
+
+
+# ---------------------------------------------------------------- phase 12
 def _time_k3(torch, dev, n_q: int, n_g: int, num_real: int, reps: int, plain_reps: int):
     """Time K3 SQ8 and f32 at (Q, G, D=2048, num_real, k=10) against the plain
     version and a library yardstick; → {kernel name: timing}."""
@@ -681,6 +900,93 @@ def _time_k1(torch, dev):
                    "f32", err)
 
 
+def _time_k4(torch, dev):
+    """K4 at the JPM train shapes in bf16: kernel, plain version, and
+    ``scaled_dot_product_attention`` on the same tensors as the yardstick;
+    → one timing per shape."""
+    import torch.nn.functional as F
+
+    from daliid_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    entries = []
+    for shape in K4_TRAIN_SHAPES:
+        b, n, h, d = shape
+        q, k, v = _qkv_views(torch, gen, dev, shape, torch.bfloat16)
+        what = f"B={b} N={n} H={h} D={d} bf16, q/k/v strided views of one qkv tensor"
+        err = k4_compare(torch, flash_attention(q, k, v), attention_plain(q, k, v),
+                         torch.bfloat16, what)
+        ms = cuda_ms(torch, lambda: flash_attention(q, k, v), reps=20)
+        plain_ms = cuda_ms(torch, lambda: attention_plain(q, k, v), reps=3, warmup=1)
+        lib_ms = _library_ms(torch, lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+            "F.scaled_dot_product_attention on the same bf16 views")
+        # q, k, v read once and the output written once, 2 bytes each; QK^T and PV
+        entries.append(_timing(what, ms, plain_ms, lib_ms, 4 * b * n * h * d * 2,
+                               4 * b * h * n * n * d, "bf16", err))
+        log(f"timing K4 at {shape}: {json.dumps(entries[-1])}")
+        del q, k, v
+    return entries
+
+
+def _time_jpm(torch, dev, root):
+    """One TransReID-JPM train step at 384 images (bf16), split with CUDA
+    events into K1, forward+backward and Adam+EMA, with peak device memory,
+    once with K4 and once with SDPA on the same weights; then JPM extraction
+    img/s at batch 512 both ways."""
+    from daliid_tpu_torch.augment.preprocess import normalize_images
+    from daliid_tpu_torch.data import load_dataset
+    from daliid_tpu_torch.models import build_model_pair
+    from daliid_tpu_torch.train.sampler import PKBatchSampler
+    from daliid_tpu_torch.train.trainer import Trainer
+
+    table = load_dataset("Synthetic", root=str(root))["train"]
+    online, momentum = build_model_pair(
+        "transreid_jpm", torch.Generator().manual_seed(12), img_size=IMG, dtype=torch.bfloat16,
+        device=dev, num_classes=table.num_ids, use_fused_attention=True)
+    sampler = PKBatchSampler(table, table.pids, P=P, K=K, kind_of_transform=1,
+                             turbulence_dir=str(root / "Synthetic" / "turbulence"), seed=12)
+    trainer = Trainer(online, momentum, sampler, img_size=IMG, tau=0.05, lambda_proxy=0.4,
+                      compute_dtype=torch.bfloat16, extractor_batch=EXTRACT_BATCH)
+    pset = trainer.mine_proxies()
+    put = lambda a: torch.as_tensor(a, device=dev)
+    rest = (put(pset.centers), put(pset.proxies), put(pset.proxy_labels).long(), 1)
+    batch = next(iter(sampler.epoch()))
+    images_u8, labels, distortions, mask, camids = (t.to(dev) for t in trainer._stage(batch))
+    rest = (labels, distortions, mask) + rest
+    images = trainer.augment(images_u8)
+    out = {"batch": images_u8.shape[0]}
+    for route in ("k4", "sdpa"):
+        set_fused_attention(trainer.online, route == "k4")
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = cuda_ms(torch, lambda: trainer.train_step(images_u8, *rest, camids),
+                          reps=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated(dev)
+        fb_ms = cuda_ms(torch, lambda: trainer.forward_backward(images, *rest, camids), reps=5)
+        out[route] = {"step_ms": step_ms, "img_per_s": out["batch"] / step_ms * 1e3,
+                      "augment_ms": cuda_ms(torch, lambda: trainer.augment(images_u8), reps=20),
+                      "forward_backward_ms": fb_ms,
+                      "adam_ema_ms": cuda_ms(torch, trainer.apply_update, reps=5),
+                      "peak_memory_gb": peak / 1e9}
+    model = trainer.extractor.bundle.module
+    x = torch.randint(0, 256, (EXTRACT_BATCH, *IMG, 3), dtype=torch.uint8, device=dev)
+
+    def fwd():
+        with torch.inference_mode():
+            return model(normalize_images(x, dtype=torch.bfloat16)).float()
+
+    for route in ("k4", "sdpa"):
+        set_fused_attention(model, route == "k4")
+        ms = cuda_ms(torch, fwd, reps=5, warmup=2)
+        out[route]["extract_ms_at_512"] = ms
+        out[route]["extract_img_per_s_at_512"] = EXTRACT_BATCH / ms * 1e3
+    log(f"JPM (bf16, 256x128, {out['batch']} images a step, CUDA events): {json.dumps(out)}")
+    del trainer, online, momentum, images, x
+    return out
+
+
 def _profile_steps(torch, step, steps: int) -> dict:
     """``torch.profiler`` over ``steps`` calls of ``step``: the device's busy
     time a step (the union of its kernels' spans), the share of the wall
@@ -750,12 +1056,12 @@ def _time_train_step(torch, dev, root):
     # card; timed from the second batch's arrival, after the pipeline's fill
     batches = [b for _ in range(PIPELINE_BATCHES // 2) for b in sampler.epoch()]
     arrivals = []
-    for staged in trainer.staged_batches(batches):
+    for images_u8, labels, distortions, mask, _ in trainer.staged_batches(batches):
         arrivals.append(time.time())
-        trainer.train_step(*staged, *rest)
+        trainer.train_step(images_u8, labels, distortions, mask, *rest)
     torch.cuda.synchronize(dev)
     pipeline_ms = (time.time() - arrivals[1]) / (len(batches) - 1) * 1e3
-    images_u8, labels, distortions, mask = (t.to(dev) for t in trainer._stage(batch))
+    images_u8, labels, distortions, mask, _ = (t.to(dev) for t in trainer._stage(batch))
     rest = (labels, distortions, mask) + rest
     images = trainer.augment(images_u8)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -804,6 +1110,7 @@ class Counts:
     """The launch counters of every kernel wrapper on the main path."""
 
     def __init__(self):
+        from daliid_tpu_torch.ops.flash_attention import flash_attention
         from daliid_tpu_torch.ops.fused_augment import fused_augment
         from daliid_tpu_torch.ops.rank_counts import positive_rank_counts
         from daliid_tpu_torch.ops.search_topk import f32_search_topk, sq8_search_topk
@@ -811,7 +1118,8 @@ class Counts:
         self.wrappers = {"rank_counts": positive_rank_counts,
                          "search_topk_sq8": sq8_search_topk,
                          "search_topk_f32": f32_search_topk,
-                         "fused_augment": fused_augment}
+                         "fused_augment": fused_augment,
+                         "flash_attention": flash_attention}
 
     def reset(self):
         for w in self.wrappers.values():
@@ -832,6 +1140,10 @@ KERNELS = {
     "fused_augment": {"source": "daliid_tpu_torch/csrc/fused_augment.cu",
                       "replaces": "daliid_tpu/ops/fused_augment.py:153",
                       "check": "f32 atol 2e-5; bf16 one bf16 ulp (or 2e-5)"},
+    "flash_attention": {"source": "daliid_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": "daliid_tpu/ops/flash_attention.py:55",
+                        "check": "f32 atol 2e-5; bf16 one bf16 ulp (or 2e-5); "
+                                 "backward f32 atol 3e-5"},
 }
 
 
@@ -855,6 +1167,7 @@ def main() -> int:
     phase_k2(torch, dev, (n_q, n_g, max_positives_bound(splits["gallery"].pids)))
     f32_err = phase_k3(torch, dev, (n_q, capacity, 2048, n_g))
     k1_err = phase_k1(torch, dev)
+    k4_err, k4_bwd_err = phase_k4(torch, dev)
     train_root = make_train_dataset()
 
     counts = Counts()
@@ -862,7 +1175,9 @@ def main() -> int:
     for phase in (lambda: phase_serve(torch, splits, counts)[0],
                   lambda: phase_search(torch, counts),
                   lambda: phase_evaluate(torch, counts),
-                  lambda: phase_train(torch, counts, train_root)):
+                  lambda: phase_train(torch, counts, train_root),
+                  lambda: phase_transformer_evaluate(torch, dev, splits, counts),
+                  lambda: phase_transformer_train(torch, dev, train_root, counts)):
         for name, n in phase().items():
             launches[name] += n
     counts.reset()
@@ -879,8 +1194,15 @@ def main() -> int:
                                                     f32_err)
     results["fused_augment"].update(_time_k1(torch, dev))
     results["fused_augment"]["max_abs_err"] = max(results["fused_augment"]["max_abs_err"], k1_err)
+    k4_times = _time_k4(torch, dev)
+    results["flash_attention"].update(k4_times[0])
+    results["flash_attention"]["at_n53"] = k4_times[1]
+    results["flash_attention"]["max_abs_err"] = max(k4_times[0]["max_abs_err"],
+                                                    k4_times[1]["max_abs_err"], k4_err)
+    results["flash_attention"]["backward_max_abs_err"] = k4_bwd_err
     step = _time_train_step(torch, dev, train_root)
     rates = _time_extraction(torch, dev)
+    jpm = _time_jpm(torch, dev, train_root)
     for name, r in results.items():
         r["launches"] = launches[name]
         check(r["launches"] > 0, f"{name} was not launched on the main path")
@@ -897,11 +1219,20 @@ def main() -> int:
         f"{step['profiled_device_busy_ms_per_step']:.3f} ms a step "
         f"({100 * step['profiled_busy_share']:.1f}% of the wall time), BN kernels "
         f"{step['batch_norm_kernels_ms_per_step']:.3f} ms a step")
+    k4_forward = (12 * results["flash_attention"]["ms"]
+                  + 4 * results["flash_attention"]["at_n53"]["ms"])
+    for route in ("k4", "sdpa"):
+        r = jpm[route]
+        log(f"JPM train step ({route}): {r['step_ms']:.3f} ms, {r['img_per_s']:.1f} img/s "
+            f"(K1 {r['augment_ms']:.4f} ms, forward+backward {r['forward_backward_ms']:.3f} ms, "
+            f"Adam+EMA {r['adam_ema_ms']:.3f} ms), peak {r['peak_memory_gb']:.2f} GB; "
+            f"extraction at 512: {r['extract_img_per_s_at_512']:.1f} img/s")
+    log(f"K4 in one JPM forward of {jpm['batch']}: 12 x N=211 + 4 x N=53 = {k4_forward:.3f} ms")
     log(f"card: {card}; total {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check", "shape")
-    kernels = [{k: r[k] for k in keys + ("at_path_shape", "at_max_positives_bound") if k in r}
-               for r in results.values()]
+    extra = ("at_path_shape", "at_max_positives_bound", "at_n53", "backward_max_abs_err")
+    kernels = [{k: r[k] for k in keys + extra if k in r} for r in results.values()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

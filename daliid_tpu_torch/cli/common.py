@@ -1,4 +1,5 @@
-"""Shared CLI plumbing of the port: flags of features not yet ported."""
+"""Shared CLI plumbing of the port: flags of features not yet ported, and
+the SIE camera-id check."""
 
 from __future__ import annotations
 
@@ -22,3 +23,13 @@ def add_multihost_flags(parser) -> None:
     parser.add_argument("--coordinator_address", type=str, default=None, help="not yet ported")
     parser.add_argument("--num_processes", type=int, default=None, help="not yet ported")
     parser.add_argument("--process_id", type=int, default=None, help="not yet ported")
+
+
+def check_camera_ids(sie_cameras: int, tables, what: str) -> None:
+    """Raw camids index the SIE table: refuse a table too small for them
+    (an out-of-range index would stop the GPU with a device assert)."""
+    cam_max = max((int(t.camids.max()) for t in tables if len(t.camids)), default=0)
+    if cam_max >= sie_cameras:
+        raise SystemExit(f"--sie_cameras {sie_cameras} is too small for {what}: camids run up "
+                         f"to {cam_max} and index the table directly (1-based datasets need "
+                         f"max+1 = {cam_max + 1})")

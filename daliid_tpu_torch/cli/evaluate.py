@@ -2,10 +2,12 @@
 
 Loads a backbone and weights, extracts query and gallery embeddings, builds
 the cosine distance matrix on the device and ranks CMC/mAP through kernel
-K2. Flags are the JAX CLI's (``:31-110``) plus ``--device``; the flags of
-features not ported yet (turbulence galleries, BRIAR manifests, multi-head
-ensembles, re-ranking, SIE/GELU options of the ViT family, sharded and
-multi-host evaluation, int8 extraction) exit with an error that names them.
+K2. Flags are the JAX CLI's (``:31-110``) plus ``--device``, with its
+checks (``:136-150``, ``:203-216``): ``--sie_cameras`` and ``--sie_coef`` for
+the SIE models, ``--gelu_approx`` for the ViT family. The flags of features
+not ported yet (turbulence galleries, BRIAR manifests, multi-head
+ensembles, re-ranking, sharded and multi-host evaluation, int8 extraction)
+exit with an error that names them.
 
 Example::
 
@@ -19,20 +21,24 @@ import argparse
 
 import torch
 
-from daliid_tpu_torch.cli.common import MULTIHOST_FLAGS, add_multihost_flags, reject_unported
+from daliid_tpu_torch.cli.common import (
+    MULTIHOST_FLAGS,
+    add_multihost_flags,
+    check_camera_ids,
+    reject_unported,
+)
 from daliid_tpu_torch.data.registry import load_dataset
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.eval.validate import get_validator
-from daliid_tpu_torch.models import get_model
+from daliid_tpu_torch.models.factory import GELU_APPROX_MODELS, SIE_MODELS, get_model
 from daliid_tpu_torch.models.torch_port import load_state
 
 _UNPORTED = {
     "turbulence_dir_path": None, "turbulence_strength": None,
     "train_file_path": None, "queries_file_path": None, "gallery_file_path": None,
     "multiple_output": False, "mrfuse": False, "head_weighting": "mean",
-    "rerank": False, "sie_cameras": 0, "sie_coef": 1.5, "gelu_approx": False,
-    "quantize": None, "calib_batches": 1, **MULTIHOST_FLAGS,
+    "rerank": False, "quantize": None, "calib_batches": 1, **MULTIHOST_FLAGS,
 }
 
 
@@ -57,11 +63,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--head_weighting", type=str, default="mean",
                    choices=["mean", "magnitude"], help="not yet ported")
     p.add_argument("--rerank", action="store_true", help="not yet ported")
-    p.add_argument("--sie_cameras", type=int, default=0, help="not yet ported")
+    p.add_argument("--sie_cameras", type=int, default=0,
+                   help="SIE camera-embedding table size for TransReID backbones "
+                        "(cfg.MODEL.SIE_CAMERA; must match the checkpoint)")
     p.add_argument("--sharded_eval", action=argparse.BooleanOptionalAction, default=None,
                    help="only --no-sharded_eval (the replicated path) is ported")
-    p.add_argument("--sie_coef", type=float, default=1.5, help="not yet ported")
-    p.add_argument("--gelu_approx", action="store_true", help="not yet ported")
+    p.add_argument("--sie_coef", type=float, default=1.5,
+                   help="SIE embedding scale (sie_xishu; must match the checkpoint)")
+    p.add_argument("--gelu_approx", action="store_true",
+                   help="ViT family: tanh-approximate GELU in the MLP blocks (not the "
+                        "reference's erf GELU)")
     p.add_argument("--quantize", type=str, default=None, choices=["int8"], help="not yet ported")
     p.add_argument("--calib_batches", type=int, default=1, help="not yet ported")
     add_multihost_flags(p)
@@ -69,17 +80,33 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def load_bundle(model_name: str, model_path: str | None, dtype: torch.dtype, device):
-    """Build the model on ``device`` (init seeded with 12, the JAX CLI's key)
-    and load ``model_path``: a JAX ``save_variables`` ``.npz`` or a reference
-    torch ``state_dict`` pickle. Port of
-    ``daliid_tpu/cli/evaluate.py::load_bundle`` (``:113``)."""
-    bundle = get_model(model_name, torch.Generator().manual_seed(12), dtype=dtype,
-                       device=device)
+def load_bundle(model_name: str, model_path: str | None, img_size, dtype: torch.dtype, device,
+                **model_kw):
+    """Build the model on ``device`` (init seeded with 12, the JAX CLI's key;
+    ``model_kw`` to its factory, e.g. ``sie_cameras``,
+    ``use_fused_attention``) and load ``model_path``: a JAX
+    ``save_variables`` ``.npz`` or a reference torch ``state_dict`` pickle.
+    Port of ``daliid_tpu/cli/evaluate.py::load_bundle`` (``:113``)."""
+    bundle = get_model(model_name, torch.Generator().manual_seed(12), img_size=img_size,
+                       dtype=dtype, device=device, **model_kw)
     if model_path:
-        bundle.module.load_state_dict(load_state(model_path), strict=True)
+        bundle.module.load_state_dict(load_state(model_name, model_path, bundle.module),
+                                      strict=True)
         print(f"Loaded weights from {model_path}")
     return bundle
+
+
+def check_transformer_flags(args) -> None:
+    """The JAX CLI's refusals of the ViT-family flags (``:136-150``)."""
+    if args.sie_cameras and args.model_name not in SIE_MODELS:
+        raise SystemExit(f"--sie_cameras only applies to {sorted(SIE_MODELS)}; "
+                         f"{args.model_name} has no SIE embedding")
+    if args.gelu_approx and args.model_name not in GELU_APPROX_MODELS:
+        raise SystemExit(f"--gelu_approx only applies to {sorted(GELU_APPROX_MODELS)}; "
+                         f"{args.model_name} has no GELU")
+    if args.sie_coef != 1.5 and not args.sie_cameras:
+        raise SystemExit("--sie_coef only takes effect with --sie_cameras > 0; "
+                         "without SIE embeddings the coefficient is unused")
 
 
 def main(args):
@@ -88,16 +115,20 @@ def main(args):
         raise SystemExit("--sharded_eval is not yet ported to daliid_tpu_torch")
     if "BRIAR" in args.targets:
         raise SystemExit("the BRIAR target (manifest evaluation) is not yet ported")
+    check_transformer_flags(args)
     device = resolve_device(args.device)
     img_size = (args.img_height, args.img_width)
-    bundle = load_bundle(args.model_name, args.model_path, parse_dtype(args.compute_dtype),
-                         device)
+    bundle = load_bundle(args.model_name, args.model_path, img_size,
+                         parse_dtype(args.compute_dtype), device, sie_cameras=args.sie_cameras,
+                         sie_coef=args.sie_coef, gelu_approx=args.gelu_approx)
     extractor = FeatureExtractor(bundle, img_size=img_size, batch_size=args.batch_size,
                                  device=device)
     results = {}
     for target in args.targets:
         splits = load_dataset(target, root=args.data_root)
         queries, gallery = splits["query"], splits["gallery"]
+        if args.sie_cameras:
+            check_camera_ids(args.sie_cameras, (queries, gallery), target)
         validator = get_validator(target, img_size=img_size, batch_size=args.batch_size,
                                   device=device)
         q_fvs = extractor.extract(queries, verbose=True)

@@ -67,8 +67,8 @@ def main(args):
     splits = load_dataset(args.dataset, root=args.data_root)
     gallery, queries = splits["gallery"], splits["query"]
 
-    bundle = load_bundle(args.model_name, args.model_path, parse_dtype(args.compute_dtype),
-                         device)
+    bundle = load_bundle(args.model_name, args.model_path, img_size,
+                         parse_dtype(args.compute_dtype), device)
     extractor = FeatureExtractor(bundle, img_size=img_size, batch_size=args.batch_size,
                                  device=device)
 

@@ -356,8 +356,8 @@ def main(args):
     reject_unported(args, {"quantize": None, "calib_batches": 1})
     device = resolve_device(args.device)
     img_size = (args.img_height, args.img_width)
-    bundle = load_bundle(args.model_name, args.model_path, parse_dtype(args.compute_dtype),
-                         device)
+    bundle = load_bundle(args.model_name, args.model_path, img_size,
+                         parse_dtype(args.compute_dtype), device)
     extractor = FeatureExtractor(bundle, img_size=img_size, batch_size=args.batch_size,
                                  device=device)
     server = make_server(args, extractor)

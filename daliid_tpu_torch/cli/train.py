@@ -9,9 +9,9 @@ the best rank-1 is checkpointed with its weight files, and the progress
 JSON is written; every ``--ckpt_freq`` epochs a crash-resume checkpoint goes
 under ``<save_dir>/latest``. ``--resume`` restarts from the newer of the two
 and replays the RNG stream. Flags are the JAX CLI's (``:36-145``) plus
-``--device``; the flags of features not ported yet (int8 mining, classifier
-and margin heads, SIE, remat, fault injection, multi-host) exit with an
-error that names them.
+``--device``, with its checks of the classifier, margin-head and SIE flags
+(``:214-264``); the flags of features not ported yet (int8 mining, remat,
+fault injection, multi-host) exit with an error that names them.
 
 Example::
 
@@ -28,21 +28,29 @@ import time
 
 import torch
 
-from daliid_tpu_torch.cli.common import MULTIHOST_FLAGS, add_multihost_flags, reject_unported
+from daliid_tpu_torch.cli.common import (
+    MULTIHOST_FLAGS,
+    add_multihost_flags,
+    check_camera_ids,
+    reject_unported,
+)
 from daliid_tpu_torch.config import TrainConfig
 from daliid_tpu_torch.data.registry import data_root, load_dataset, merge_train_tables
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.validate import get_validator
-from daliid_tpu_torch.models.factory import build_model_pair
+from daliid_tpu_torch.models.factory import (
+    MARGIN_HEAD_MODELS,
+    SIE_MODELS,
+    build_model_pair,
+    check_model_name,
+)
 from daliid_tpu_torch.models.torch_port import load_state
 from daliid_tpu_torch.train.checkpoint import CheckpointManager, save_weights
 from daliid_tpu_torch.train.sampler import PKBatchSampler
 from daliid_tpu_torch.train.trainer import Trainer
 
 _UNPORTED = {
-    "mining_quantize": None, "mining_calib_batches": 1, "num_classes": 0,
-    "id_loss_type": "softmax", "cosine_scale": None, "cosine_margin": None,
-    "sie_cameras": 0, "sie_coef": 1.5, "remat": "none",
+    "mining_quantize": None, "mining_calib_batches": 1, "remat": "none",
     "fault_inject_epoch": 0, "fault_inject_rank": -1, **MULTIHOST_FLAGS,
 }
 
@@ -92,14 +100,20 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--skip_initial_eval", action="store_true")
     p.add_argument("--fault_inject_epoch", type=int, default=0, help="not yet ported")
     p.add_argument("--fault_inject_rank", type=int, default=-1, help="not yet ported")
-    p.add_argument("--num_classes", type=int, default=0, help="not yet ported")
+    p.add_argument("--num_classes", type=int, default=0,
+                   help="classifier head size for JPM models; -1 = #train ids")
     p.add_argument("--id_loss_type", type=str, default="softmax",
                    choices=["softmax", "arcface", "cosface", "amsoftmax", "circle"],
-                   help="only softmax (no classifier head) is ported")
-    p.add_argument("--cosine_scale", type=float, default=None, help="not yet ported")
-    p.add_argument("--cosine_margin", type=float, default=None, help="not yet ported")
-    p.add_argument("--sie_cameras", type=int, default=0, help="not yet ported")
-    p.add_argument("--sie_coef", type=float, default=1.5, help="not yet ported")
+                   help="ID-loss head (make_models.py:260-277 equivalents)")
+    p.add_argument("--cosine_scale", type=float, default=None,
+                   help="margin-head scale s (cfg.SOLVER.COSINE_SCALE; default per head)")
+    p.add_argument("--cosine_margin", type=float, default=None,
+                   help="margin-head margin m (cfg.SOLVER.COSINE_MARGIN; default per head)")
+    p.add_argument("--sie_cameras", type=int, default=0,
+                   help="SIE camera-embedding table for TransReID backbones; -1 = one "
+                        "entry per training camera (cfg.MODEL.SIE_CAMERA)")
+    p.add_argument("--sie_coef", type=float, default=1.5,
+                   help="SIE embedding scale (sie_xishu; cfg.MODEL.SIE_COE)")
     p.add_argument("--remat", type=str, default="none", help="not yet ported")
     add_multihost_flags(p)
     add_device_flag(p)
@@ -117,25 +131,49 @@ def config_from_args(args) -> TrainConfig:
         eval_freq=args.eval_freq, ckpt_freq=args.ckpt_freq, save_dir=args.path_to_save_models,
         metrics_dir=args.path_to_save_metrics, version=args.version,
         extractor_batch=args.extractor_batch, grad_accum=args.grad_accum, device=args.device,
+        num_classes=args.num_classes, id_loss_type=args.id_loss_type,
+        margin_s=args.cosine_scale, margin_m=args.cosine_margin, sie_cameras=args.sie_cameras,
+        sie_coef=args.sie_coef,
     )
+
+
+def _head_kwargs(cfg: TrainConfig, train_table) -> dict:
+    """The JAX CLI's checks of the head and SIE flags (``:214-257``) → the
+    factory keywords (``num_classes`` and ``sie_cameras`` resolved from the
+    training set)."""
+    num_classes = cfg.num_classes if cfg.num_classes >= 0 else train_table.num_ids
+    if cfg.id_loss_type != "softmax" and num_classes == 0:
+        raise SystemExit(f"--id_loss_type {cfg.id_loss_type} needs a classifier head: "
+                         "pass --num_classes (-1 = one class per training identity)")
+    if cfg.id_loss_type == "softmax" and (cfg.margin_s is not None or cfg.margin_m is not None):
+        raise SystemExit("--cosine_scale/--cosine_margin only apply with a margin "
+                         "--id_loss_type (arcface/cosface/amsoftmax/circle)")
+    if cfg.id_loss_type != "softmax" and cfg.model_name not in MARGIN_HEAD_MODELS:
+        raise SystemExit(f"--id_loss_type {cfg.id_loss_type} is only supported by "
+                         f"{sorted(MARGIN_HEAD_MODELS)} (make_models.py:262-289); "
+                         f"{cfg.model_name} has no margin head")
+    if cfg.sie_cameras and cfg.model_name not in SIE_MODELS:
+        raise SystemExit(f"--sie_cameras only applies to {sorted(SIE_MODELS)}; "
+                         f"{cfg.model_name} has no SIE embedding")
+    if cfg.sie_coef != 1.5 and not cfg.sie_cameras:
+        raise SystemExit("--sie_coef only takes effect with --sie_cameras != 0; "
+                         "without SIE embeddings the coefficient is unused")
+    sie_cameras = cfg.sie_cameras if cfg.sie_cameras >= 0 else int(train_table.camids.max()) + 1
+    if sie_cameras:
+        check_camera_ids(sie_cameras, [train_table], cfg.dataset)
+    return dict(num_classes=num_classes, id_loss_type=cfg.id_loss_type, sie_cameras=sie_cameras,
+                sie_coef=cfg.sie_coef, margin_s=cfg.margin_s, margin_m=cfg.margin_m)
 
 
 def main(args):
     """→ (best rank-1, its epoch)."""
     reject_unported(args, _UNPORTED)
     cfg = config_from_args(args)
+    check_model_name(cfg.model_name)
     device = resolve_device(cfg.device)
     dtype = parse_dtype(cfg.compute_dtype)
     print(f"Device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-
-    online, momentum = build_model_pair(cfg.model_name, torch.Generator().manual_seed(cfg.seed),
-                                        dtype=dtype, device=device)
-    if cfg.model_path:
-        weights = load_state(cfg.model_path)
-        online.module.load_state_dict(weights, strict=True)
-        momentum.module.load_state_dict(weights, strict=True)
-        print(f"Loaded weights from {cfg.model_path}")
 
     # comma-separated datasets merge their training sets with densely
     # renumbered classes; evaluation uses the first target's query/gallery
@@ -145,6 +183,15 @@ def main(args):
     train_table = merge_train_tables([s["train"] for s in all_splits])
     gallery, queries = splits["gallery"], splits["query"]
     print(f"Number of training examples: {len(train_table)} ({train_table.num_ids} ids)")
+
+    online, momentum = build_model_pair(
+        cfg.model_name, torch.Generator().manual_seed(cfg.seed), img_size=cfg.img_size,
+        dtype=dtype, device=device, **_head_kwargs(cfg, train_table))
+    if cfg.model_path:
+        weights = load_state(cfg.model_name, cfg.model_path, online.module)
+        online.module.load_state_dict(weights, strict=True)
+        momentum.module.load_state_dict(weights, strict=True)
+        print(f"Loaded weights from {cfg.model_path}")
     turbulence_dir = cfg.turbulence_dir
     if names[0] == "Synthetic" and cfg.kind_of_transform == 1 and not turbulence_dir:
         turbulence_dir = os.path.join(data_root(cfg.data_root), "Synthetic", "turbulence")

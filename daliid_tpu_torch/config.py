@@ -3,8 +3,8 @@ eval.
 
 Copy of ``daliid_tpu/config.py::TrainConfig`` (the reference's
 ``mainKIT.py:316-344`` flags), plus ``device``. The fields of features that
-are not ported yet (the classifier and margin heads, SIE, remat, int8
-mining) are left out; ``cli/train.py`` rejects their flags.
+are not ported yet (remat, int8 mining) are left out; ``cli/train.py``
+rejects their flags.
 """
 
 from __future__ import annotations
@@ -21,6 +21,12 @@ class TrainConfig:
     img_width: int = 128                  # mainKIT.py:321
     compute_dtype: str = "bfloat16"
     model_path: Optional[str] = None      # pretrained weights (.npz or torch)
+    num_classes: int = 0                  # classifier head for JPM; -1 = #train ids
+    id_loss_type: str = "softmax"         # cfg.MODEL.ID_LOSS_TYPE (make_models.py:260-277)
+    margin_s: Optional[float] = None      # cfg.SOLVER.COSINE_SCALE (None: per-head default)
+    margin_m: Optional[float] = None      # cfg.SOLVER.COSINE_MARGIN
+    sie_cameras: int = 0                  # SIE table size; -1 = one per training camera
+    sie_coef: float = 1.5                 # SIE scale (sie_xishu)
 
     # data
     dataset: str = "Market"

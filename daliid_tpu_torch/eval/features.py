@@ -10,7 +10,10 @@ Port of ``daliid_tpu/eval/features.py``: :class:`FeatureExtractor`
 - normalize and forward run under ``torch.inference_mode()``; embeddings
   come back f32, fetched once at the end of an extract;
 - the tail batch is padded to the fixed batch size and trimmed after
-  (``:273-276``), so every forward sees one shape.
+  (``:273-276``), so every forward sees one shape;
+- a model whose forward takes ``camera_ids`` (the SIE-conditioned
+  TransReID backbones) gets each image's camera id: a table's camids, or 0
+  for bare paths and padding slots (``:98``, ``:181-184``, ``:251-255``).
 
 Not ported yet: int8 extraction (``quantize``/``calibrate``), turbulence
 galleries and the native C++ JPEG loader; the CLIs reject their flags.
@@ -19,6 +22,7 @@ galleries and the native C++ JPEG loader; the CLIs reject their flags.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import inspect
 import os
 import queue
 import threading
@@ -44,6 +48,8 @@ class FeatureExtractor:
         self.device = params.device if device is None else torch.device(device)
         bundle.module.to(self.device).eval()
         self.decode_workers = max(1, min(decode_workers, 2 * (os.cpu_count() or 1)))
+        self._takes_camera_ids = "camera_ids" in inspect.signature(
+            bundle.module.forward).parameters
 
     def update_variables(self, state_dict) -> None:
         """Copy new weights into the module in place."""
@@ -60,22 +66,30 @@ class FeatureExtractor:
             list(ex.map(work, range(len(paths))))
         return out
 
-    def forward_batch(self, images_u8: np.ndarray) -> torch.Tensor:
-        """One (B, H, W, 3) uint8 batch → (B, D) f32 embeddings on the
-        device (not synchronized)."""
+    def forward_batch(self, images_u8: np.ndarray, camera_ids: np.ndarray | None = None
+                      ) -> torch.Tensor:
+        """One (B, H, W, 3) uint8 batch (and, for SIE models, its (B,)
+        camera ids, zeros if None) → (B, D) f32 embeddings on the device
+        (not synchronized)."""
         x = torch.from_numpy(images_u8)
         if self.device.type == "cuda":
             x = x.pin_memory().to(self.device, non_blocking=True)
+        kw = {}
+        if self._takes_camera_ids:
+            cams = np.zeros(len(images_u8), np.int64) if camera_ids is None else camera_ids
+            kw["camera_ids"] = torch.as_tensor(np.asarray(cams, np.int64), device=self.device)
         with torch.inference_mode():
             x = normalize_images(x, dtype=getattr(self.bundle.module, "dtype", torch.float32))
-            return self.bundle.module(x).float()
+            return self.bundle.module(x, **kw).float()
 
     def extract(self, table_or_paths, verbose: bool = False) -> np.ndarray:
         """Embed every image → (N, feature_dim) float32 numpy array."""
         if isinstance(table_or_paths, ReidTable):
             paths = [str(p) for p in table_or_paths.paths]
+            camids = np.asarray(table_or_paths.camids, np.int64)
         else:
             paths = [str(p) for p in table_or_paths]
+            camids = np.zeros(len(paths), np.int64)
         n = len(paths)
         bs = self.batch_size
         num_batches = -(-n // bs)
@@ -90,10 +104,12 @@ class FeatureExtractor:
                         return
                     chunk = paths[b * bs:(b + 1) * bs]
                     imgs = self._decode_paths(chunk)
+                    cams = camids[b * bs:(b + 1) * bs]
                     if len(chunk) < bs:  # pad the tail to the fixed batch shape
                         imgs = np.concatenate(
                             [imgs, np.zeros((bs - len(chunk), *imgs.shape[1:]), np.uint8)])
-                    batch_q.put((imgs, len(chunk)))
+                        cams = np.pad(cams, (0, bs - len(chunk)))
+                    batch_q.put((imgs, cams, len(chunk)))
                 batch_q.put(None)
             except BaseException as exc:  # surface decode errors to the caller
                 batch_q.put(exc)
@@ -108,8 +124,8 @@ class FeatureExtractor:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                imgs, valid = item
-                outputs.append(self.forward_batch(imgs)[:valid])
+                imgs, cams, valid = item
+                outputs.append(self.forward_batch(imgs, cams)[:valid])
         except BaseException:
             # unblock a producer waiting on the full queue, then re-raise
             stop.set()

@@ -1,11 +1,14 @@
 """The training slice's losses: cosine-scheduled, distortion-weighted batch
 losses on L2-normalized embeddings.
 
-Port of the part of ``daliid_tpu/losses.py`` that the ResNet train step
-uses: :data:`N_MIN_6` and :data:`N_MIN_13` (``:26-29``),
+Port of the part of ``daliid_tpu/losses.py`` that the train steps use:
+:data:`N_MIN_6` and :data:`N_MIN_13` (``:26-29``),
 :func:`cosine_schedule_value` and :func:`distortion_weights` (``:34-48``),
 :func:`weighted_center_loss` (``:70-120``), :func:`weighted_proxy_loss`
-(``:169-232``) and :func:`paired_distortion_loss` (``:271-288``). Shapes
+(``:169-232``), :func:`weighted_cross_entropy_loss` (``:257-268``),
+:func:`paired_distortion_loss` (``:271-288``) and, for the JPM branches,
+:func:`softmax_triplet_loss` and :func:`weighted_softmax_triplet_loss`
+(``:291-327``). Shapes
 stay fixed: ragged per-class proxy counts are padded with label -1 and
 masked, and ``sample_mask`` marks the padding slots of a PK batch. Masked
 ``-inf`` slots go through ``torch.where``, so their gradients are zero, not
@@ -17,6 +20,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 # n_min ramps for the 6-level distortion weight table (losses.py:42-47)
 N_MIN_6 = (1.0, 0.8, 0.6, 0.4, 0.2, 0.1)
@@ -143,3 +147,58 @@ def paired_distortion_loss(clean_fvs, distorted_fvs, distortion_levels, epoch, n
         w = w * pair_mask.float()
     d2 = ((clean_fvs - distorted_fvs) ** 2).sum(dim=1)
     return (w * d2).sum() / w.sum().clamp_min(_EPS)
+
+
+def weighted_cross_entropy_loss(probs, labels, samples_distortion, epoch, num_epochs,
+                                sample_mask=None):
+    """Distortion-weighted cross entropy over classifier probabilities
+    (``BatchWeightedCrossEntropyLoss``, ``losses.py:152-187``): 13-level
+    weights, ``sum_i w_i (-log(p_{i, y_i} + 1e-9)) / sum_i w_i``.
+    → ``(loss, mean max probability)``."""
+    w = _weights_for(samples_distortion, epoch, num_epochs, N_MIN_13)
+    if sample_mask is not None:
+        w = w * sample_mask.float()
+    nll = -torch.log(probs.gather(1, labels.long()[:, None])[:, 0] + _EPS)
+    loss = (w * nll).sum() / w.sum().clamp_min(_EPS)
+    return loss, probs.max(dim=1).values.mean()
+
+
+def _pairwise_masks(batch_labels, sample_mask):
+    same = batch_labels[:, None] == batch_labels[None, :]
+    valid = sample_mask[:, None] & sample_mask[None, :]
+    return same & valid, (~same) & valid
+
+
+def _hardest_softplus(batch_fvs, batch_labels, mask, tau):
+    """Per anchor: p = the least similar positive (itself included), q =
+    the most similar negative, ``softplus((q - p) / tau)``
+    (= ``-log(e^{p/tau} / (e^{p/tau} + e^{q/tau}))``); → (per-anchor loss,
+    whether both exist). Anchors without either score 0 with a zero
+    gradient."""
+    sim = batch_fvs @ batch_fvs.T
+    pos_mask, neg_mask = _pairwise_masks(batch_labels, mask)
+    p = torch.where(pos_mask, sim, torch.full_like(sim, float("inf"))).amin(dim=1)
+    q = torch.where(neg_mask, sim, torch.full_like(sim, float("-inf"))).amax(dim=1)
+    found = torch.isfinite(p) & torch.isfinite(q)
+    gap = torch.where(found, q - p, torch.zeros_like(p))
+    return torch.where(found, F.softplus(gap / tau), torch.zeros_like(p)), found
+
+
+def softmax_triplet_loss(batch_fvs, batch_labels, tau=0.1, sample_mask=None):
+    """Hardest-positive/hardest-negative softmax triplet
+    (``BatchSoftmaxTripletLoss``, ``losses.py:343-382``), averaged over the
+    valid slots."""
+    mask = _mask_or_ones(sample_mask, batch_fvs.shape[0], batch_fvs.device)
+    per, found = _hardest_softplus(batch_fvs, batch_labels, mask, tau)
+    per = torch.where(found & mask, per, torch.zeros_like(per))
+    return per.sum() / mask.sum().clamp_min(1)
+
+
+def weighted_softmax_triplet_loss(batch_fvs, batch_labels, samples_distortion, epoch,
+                                  num_epochs, tau=0.1, sample_mask=None):
+    """Distortion-weighted hardest triplet (``BatchWeightedSoftmaxTripletLoss``,
+    ``losses.py:607-654``): 13-level weights, normalized by their sum."""
+    mask = _mask_or_ones(sample_mask, batch_fvs.shape[0], batch_fvs.device)
+    w = _weights_for(samples_distortion, epoch, num_epochs, N_MIN_13) * mask.float()
+    per, _ = _hardest_softplus(batch_fvs, batch_labels, mask, tau)
+    return (w * per).sum() / w.sum().clamp_min(_EPS)

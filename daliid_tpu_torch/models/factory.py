@@ -1,12 +1,25 @@
 """Backbone factory.
 
-Port of ``daliid_tpu/models/factory.py``: :class:`ModelBundle`,
-:func:`get_model` for ``resnet50`` and ``resnet50_gap`` (``:72-81``,
-``:200-220``) and :func:`build_model_pair` (``:256-266``). The other zoo
-entries are not ported yet. Weights are
-initialized from an explicit ``torch.Generator``: LeCun-normal convolution
-kernels (flax ``nn.Conv``'s default family), unit BN scale, zero BN bias,
-zero running mean and unit running variance.
+Port of ``daliid_tpu/models/factory.py``: :class:`ModelBundle`, the
+registry entries ``resnet50`` and ``resnet50_gap`` (``:72-81``), the ViT
+family ``vit``, ``vit_small``, ``deit_small``, ``tiny_vit_smoke``,
+``transreid_jpm`` and ``transreid`` (``:131-197``), the flag sets of
+``:50-61`` (``REMAT_MODELS`` waits for ``remat``), :func:`get_model`
+(``:200-220``) and :func:`build_model_pair` (``:256-266``). The other zoo
+entries are not ported yet. As in the JAX
+package every factory takes ``**kw`` and ignores what it does not use; the
+CLIs check the flags against the sets below.
+
+``use_fused_attention=True`` is the JAX factories' ``use_pallas_attention``:
+the ViT family's attention goes through the hand-written kernel K4 instead
+of ``scaled_dot_product_attention``. ``remat`` is not ported.
+
+Weights are initialized from an explicit ``torch.Generator``, in the
+families of flax's defaults: every convolution and linear kernel ~ N(0,
+1/fan_in) (LeCun-normal), zero biases, unit scale and zero bias in BN and
+LayerNorm, zero running mean and unit running variance; the ViT's cls,
+position and SIE tokens ~ truncated normal(0.02) at +-2 std; the JPM
+classifiers ~ N(0, 0.001).
 """
 
 from __future__ import annotations
@@ -20,6 +33,15 @@ import torch
 from torch import nn
 
 from daliid_tpu_torch.models.resnet import ResNet50ReID
+from daliid_tpu_torch.models.transreid_jpm import TransReIDJPM
+from daliid_tpu_torch.models.vit import (
+    ViTReID,
+    VisionTransformer,
+    deit_small_reid,
+    transreid_base,
+    vit_base_reid,
+    vit_small_reid,
+)
 
 
 @dataclasses.dataclass
@@ -33,6 +55,14 @@ class ModelBundle:
 
 MODEL_REGISTRY: Dict[str, Callable[..., tuple]] = {}
 
+# the models whose factories use these keywords (the CLIs refuse the flags
+# for the others, which would swallow them)
+MARGIN_HEAD_MODELS = frozenset({"transreid_jpm"})
+SIE_MODELS = frozenset({"transreid", "transreid_jpm"})
+GELU_APPROX_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "transreid_jpm"})
+# the ViTReID family (one state_dict scheme: base.* + bottleneck)
+VIT_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "tiny_vit_smoke"})
+
 
 def register_model(name: str):
     def deco(fn):
@@ -44,32 +74,95 @@ def register_model(name: str):
 
 @register_model("resnet50")
 def _resnet50(dtype=torch.float32, feature="both", **kw):
-    return ResNet50ReID(dtype=dtype, feature=feature, **kw), 2048
+    return ResNet50ReID(dtype=dtype, feature=feature), 2048
 
 
 @register_model("resnet50_gap")
 def _resnet50_gap(dtype=torch.float32, **kw):
-    return ResNet50ReID(dtype=dtype, feature="gap", **kw), 2048
+    return ResNet50ReID(dtype=dtype, feature="gap"), 2048
+
+
+@register_model("vit")
+def _vit(dtype=torch.float32, img_size=(256, 128), gelu_approx=False,
+         use_fused_attention=False, **kw):
+    return vit_base_reid(dtype=dtype, img_size=tuple(img_size), gelu_approx=gelu_approx,
+                         use_fused_attention=use_fused_attention), 768
+
+
+@register_model("vit_small")
+def _vit_small(dtype=torch.float32, img_size=(256, 128), gelu_approx=False,
+               use_fused_attention=False, **kw):
+    """The reference's vit_small (vit_pytorch.py:461-468): 768/8/8, mlp 3,
+    no qkv bias, qk_scale 768^-0.5."""
+    return vit_small_reid(dtype=dtype, img_size=tuple(img_size), gelu_approx=gelu_approx,
+                          use_fused_attention=use_fused_attention), 768
+
+
+@register_model("deit_small")
+def _deit_small(dtype=torch.float32, img_size=(256, 128), gelu_approx=False,
+                use_fused_attention=False, **kw):
+    """DeiT-small (vit_pytorch.py:470-476)."""
+    return deit_small_reid(dtype=dtype, img_size=tuple(img_size), gelu_approx=gelu_approx,
+                           use_fused_attention=use_fused_attention), 384
+
+
+@register_model("tiny_vit_smoke")
+def _tiny_vit_smoke(dtype=torch.float32, img_size=(32, 16), **kw):
+    """One-block 32-d ViT for pipeline smoke runs (not a reference model)."""
+    return ViTReID(img_size=tuple(img_size), patch_size=8, patch_stride=8, embed_dim=32,
+                   depth=1, num_heads=2, drop_path_rate=0.0, dtype=dtype), 32
+
+
+@register_model("transreid_jpm")
+def _transreid_jpm(dtype=torch.float32, img_size=(256, 128), sie_cameras=0, sie_views=0,
+                   sie_coef=1.5, num_classes=0, id_loss_type="softmax", margin_s=None,
+                   margin_m=None, gelu_approx=False, use_fused_attention=False, **kw):
+    """TransReID with the jigsaw patch module (make_models.py:221-389)."""
+    return TransReIDJPM(
+        img_size=tuple(img_size), sie_cameras=sie_cameras, sie_views=sie_views,
+        sie_coef=sie_coef, num_classes=num_classes, id_loss_type=id_loss_type,
+        margin_s=margin_s, margin_m=margin_m, gelu_approx=gelu_approx,
+        use_fused_attention=use_fused_attention, dtype=dtype), 5 * 768
+
+
+@register_model("transreid")
+def _transreid(dtype=torch.float32, img_size=(256, 128), sie_cameras=0, sie_views=0,
+               sie_coef=1.5, gelu_approx=False, use_fused_attention=False, **kw):
+    return transreid_base(img_size=tuple(img_size), sie_cameras=sie_cameras,
+                          sie_views=sie_views, sie_coef=sie_coef, gelu_approx=gelu_approx,
+                          use_fused_attention=use_fused_attention, dtype=dtype), 768
 
 
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init: every conv kernel ~ N(0, 1/fan_in)."""
-    for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
-            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+    """Seeded init in flax's families (see the module docstring)."""
+    for name, m in module.named_modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            std = 0.001 if name.startswith("classifier") else 1.0 / math.sqrt(fan_in)
+            m.weight.normal_(0.0, std, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, VisionTransformer):
+            for p in (m.cls_token, m.pos_embed, getattr(m, "sie_embed", None)):
+                if p is not None:
+                    nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
 
 
-def get_model(name: str, generator: torch.Generator | None = None,
-              dtype: torch.dtype = torch.float32, device="cpu", **kw) -> ModelBundle:
-    """Build one backbone in eval mode on ``device``; weights from
-    ``generator`` (seed 12 if None). The ResNet takes any input size, so
-    unlike the JAX ``get_model`` no ``img_size`` is needed."""
+def check_model_name(name: str) -> None:
+    """Raise for a model the port does not have."""
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown or not yet ported model {name!r}; "
                        f"ported: {sorted(MODEL_REGISTRY)}")
-    module, feature_dim = MODEL_REGISTRY[name](dtype=dtype, **kw)
+
+
+def get_model(name: str, generator: torch.Generator | None = None, img_size=(256, 128),
+              dtype: torch.dtype = torch.float32, device="cpu", **kw) -> ModelBundle:
+    """Build one backbone in eval mode on ``device``; weights from
+    ``generator`` (seed 12 if None). ``img_size`` sets the ViT family's
+    patch grid; the ResNet takes any input size."""
+    check_model_name(name)
+    module, feature_dim = MODEL_REGISTRY[name](dtype=dtype, img_size=img_size, **kw)
     if generator is None:
         generator = torch.Generator().manual_seed(12)
     init_weights(module, generator)
@@ -77,13 +170,13 @@ def get_model(name: str, generator: torch.Generator | None = None,
     return ModelBundle(module=module, feature_dim=feature_dim, name=name)
 
 
-def build_model_pair(name: str, generator: torch.Generator | None = None,
+def build_model_pair(name: str, generator: torch.Generator | None = None, img_size=(256, 128),
                      dtype: torch.dtype = torch.float32, device="cpu", **kw):
     """(online, momentum) pair with identical initial weights: the momentum
     model is a copy of the online one (the weight sync at
     ``Encoders.py:36-44``). Both come back in eval mode; the trainer puts
     the online model in train mode."""
-    online = get_model(name, generator, dtype=dtype, device=device, **kw)
+    online = get_model(name, generator, img_size=img_size, dtype=dtype, device=device, **kw)
     momentum = ModelBundle(module=copy.deepcopy(online.module), feature_dim=online.feature_dim,
                            name=name)
     return online, momentum

@@ -2,15 +2,27 @@
 the epoch loop.
 
 Port of ``daliid_tpu/train/trainer.py`` for models that return one (B, D)
-embedding in train mode (the ResNet family). The reference trainer
-(``Person-ReID/train_encodersKIT.py:45-249``) and its outer loop
-(``mainKIT.py:58-201``), step by step (``trainer.py:367-569``):
+embedding in train mode (the ResNet and ViT families) and for TransReID-JPM,
+which returns ``(scores, feats)``. The classifier-headed 2-tuple branch
+(``densenet121``, ``trainer.py:438-447``) waits for that model. The
+reference trainer (``Person-ReID/train_encodersKIT.py:45-249``) and its
+outer loop (``mainKIT.py:58-201``), step by step (``trainer.py:367-569``):
 
 - augment the uint8 batch through kernel K1 (``augment/train_augment.py``),
   with scalars drawn from the trainer's CPU ``torch.Generator``;
-- train-mode forward, ``out / (||out|| + 1e-9)`` (``trainer.py:448``);
-- center loss + ``lambda_proxy`` x proxy loss (+ ``lambda_distortion`` x the
-  paired loss on [clean, distorted] pairs when it is > 0);
+- train-mode forward; a model whose forward takes them also gets the
+  batch's camera ids (SIE), its labels (margin heads) and the trainer's
+  drop-path ``torch.Generator`` on the device (``trainer.py:200-204,
+  384-392``);
+- for JPM (``trainer.py:396-437``): per-branch distortion-weighted cross
+  entropy over the softmax of the scores and distortion-weighted softmax
+  triplet on the L2-normalized branch features, each mixed 0.5 global +
+  0.5 mean of the local branches; the embedding for the losses below is
+  ``concat([global, locals / 4])``, the space the miner embeds in;
+- ``out / (||out|| + 1e-9)`` (``trainer.py:448``);
+- center loss + ``lambda_proxy`` x proxy loss (+ the JPM terms, +
+  ``lambda_distortion`` x the paired loss on [clean, distorted] pairs when
+  it is > 0);
 - backward; Adam with L2 decay folded into the gradient
   (``torch.optim.Adam(weight_decay=...)``, the semantics of the JAX
   ``make_optimizer``), its LR set per epoch from the 3-phase schedule;
@@ -26,15 +38,17 @@ thread decodes the next batch into pinned memory while the device runs the
 current step. Step metrics stay on the device and are fetched once per
 epoch.
 
-The host RNG state (the torch Generator and the numpy PCG64 streams of the
-miner and the sampler) round-trips through :meth:`Trainer.rng_state`, so a
-resumed run replays the stream of an uninterrupted one.
+The RNG state (the augmentation and drop-path torch Generators and the
+numpy PCG64 streams of the miner and the sampler) round-trips through
+:meth:`Trainer.rng_state`, so a resumed run replays the stream of an
+uninterrupted one.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import copy
+import inspect
 import os
 import time
 from typing import Dict
@@ -159,6 +173,11 @@ class Trainer:
         self.decode_workers = max(1, min(decode_workers, 2 * (os.cpu_count() or 1)))
         self._rng = np.random.default_rng(seed)
         self._gen = torch.Generator().manual_seed(seed)
+        self._drop_gen = torch.Generator(device=self.device).manual_seed(seed)
+        takes = inspect.signature(self.online.forward).parameters
+        self._takes_camera_ids = "camera_ids" in takes
+        self._takes_labels = "labels" in takes
+        self._takes_generator = "generator" in takes
         self.timer = PhaseTimer()
         self._lr_values = lr_schedule_values(base_lr, num_epochs)
         self.optimizer = torch.optim.Adam(self.online.parameters(), lr=base_lr,
@@ -183,8 +202,38 @@ class Trainer:
         """K1 over a (B, H, W, 3) uint8 batch on the device."""
         return augment_mod.train_augment(images_u8, self._gen, dtype=self.compute_dtype)
 
-    def _losses(self, images, labels, distortions, mask, centers, proxies, proxy_labels, epoch):
-        out = self.online(images)
+    def _forward(self, images, labels, camids):
+        kw = {}
+        if self._takes_camera_ids:
+            kw["camera_ids"] = camids
+        if self._takes_labels:
+            kw["labels"] = labels
+        if self._takes_generator:
+            kw["generator"] = self._drop_gen
+        return self.online(images, **kw)
+
+    def _jpm_losses(self, scores, feats, labels, distortions, mask, epoch):
+        """The JPM branch losses, each mixed 0.5 global + 0.5 mean local."""
+        def mix(terms):
+            return terms[0] if len(terms) == 1 else 0.5 * terms[0] + 0.5 * torch.stack(
+                terms[1:]).mean()
+
+        ce = [L.weighted_cross_entropy_loss(torch.softmax(s, dim=-1), labels, distortions, epoch,
+                                            self.num_epochs, sample_mask=mask)[0]
+              for s in scores]
+        tri = [L.weighted_softmax_triplet_loss(
+            f / (torch.linalg.vector_norm(f, dim=1, keepdim=True) + 1e-9), labels, distortions,
+            epoch, self.num_epochs, tau=self.tau, sample_mask=mask) for f in feats]
+        return mix(ce) + mix(tri)
+
+    def _losses(self, images, labels, distortions, mask, camids, centers, proxies, proxy_labels,
+                epoch):
+        out = self._forward(images, labels, camids)
+        id_loss = None
+        if isinstance(out, tuple):  # JPM in train mode: (scores, feats)
+            scores, feats = out
+            id_loss = self._jpm_losses(scores, feats, labels, distortions, mask, epoch)
+            out = torch.cat([feats[0]] + [f / 4.0 for f in feats[1:]], dim=1)
         fvs = out / (torch.linalg.vector_norm(out, dim=1, keepdim=True) + 1e-9)
         center_loss, aux = L.weighted_center_loss(
             fvs, labels, distortions, centers, epoch, self.num_epochs, tau=self.tau,
@@ -193,6 +242,8 @@ class Trainer:
             fvs, labels, distortions, proxies, proxy_labels, epoch, self.num_epochs,
             tau=self.tau, sample_mask=mask, p_max=self.num_proxies)
         total = center_loss + self.lambda_proxy * proxy_loss
+        if id_loss is not None:
+            total = total + id_loss
         if self.lambda_distortion > 0.0 and self.paired_batches:
             # adjacent [clean, distorted] slots (train_encodersKIT.py:382-394)
             total = total + self.lambda_distortion * L.paired_distortion_loss(
@@ -202,14 +253,17 @@ class Trainer:
                             aux["avg_max_prob"]])
 
     def forward_backward(self, images, labels, distortions, mask, centers, proxies,
-                         proxy_labels, epoch) -> torch.Tensor:
+                         proxy_labels, epoch, camids=None) -> torch.Tensor:
         """Forward and backward of one batch into the parameters' ``.grad``
         → (5,) f32 on the device: loss, center, proxy, balanced accuracy,
-        mean max probability (valid-slot weighted over the chunks)."""
+        mean max probability (valid-slot weighted over the chunks).
+        ``camids`` (B,) are read by SIE models only."""
         self.optimizer.zero_grad(set_to_none=True)
+        if camids is None:
+            camids = torch.zeros_like(labels)
         n = self.grad_accum
         if n == 1:
-            m = self._losses(images, labels, distortions, mask, centers, proxies,
+            m = self._losses(images, labels, distortions, mask, camids, centers, proxies,
                              proxy_labels, epoch)
             m[0].backward()
             return m.detach()
@@ -219,8 +273,8 @@ class Trainer:
         w_sum = torch.zeros((), dtype=torch.float32, device=images.device)
         for sl in slots:
             w_c = mask[sl].float().sum()  # valid slots
-            m = self._losses(images[sl], labels[sl], distortions[sl], mask[sl], centers,
-                             proxies, proxy_labels, epoch)
+            m = self._losses(images[sl], labels[sl], distortions[sl], mask[sl], camids[sl],
+                             centers, proxies, proxy_labels, epoch)
             (w_c * m[0]).backward()
             m_sum += w_c * m.detach()
             w_sum += w_c
@@ -235,18 +289,24 @@ class Trainer:
     def apply_update(self) -> torch.Tensor:
         """Adam on the accumulated gradients, then the EMA → the weight-norm
         diagnostic ``sum p^2`` (``train_encodersKIT.py:229-233``)."""
+        for p in self._params:
+            if p.grad is None:
+                # a parameter the loss does not reach (JPM's local heads under
+                # a margin loss) still takes the decay step, as in optax;
+                # torch's Adam would skip it
+                p.grad = torch.zeros_like(p)
         self.optimizer.step()
         torch._foreach_mul_(self._ema_dst, self.beta)
         torch._foreach_add_(self._ema_dst, self._ema_src, alpha=1.0 - self.beta)
         return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self._params))) ** 2
 
     def train_step(self, images_u8, labels, distortions, mask, centers, proxies, proxy_labels,
-                   epoch) -> torch.Tensor:
+                   epoch, camids=None) -> torch.Tensor:
         """One optimizer step on a uint8 batch on the device → the step's
         metrics as a (6,) f32 device tensor, in the order of :data:`METRICS`."""
         images = self.augment(images_u8)
         m = self.forward_backward(images, labels, distortions, mask, centers, proxies,
-                                  proxy_labels, epoch)
+                                  proxy_labels, epoch, camids)
         return torch.cat([m, self.apply_update()[None]])
 
     # ------------------------------------------------------------------
@@ -292,7 +352,8 @@ class Trainer:
         if self.device.type == "cuda":
             images = images.pin_memory()
         return (images, torch.from_numpy(batch.labels).long(),
-                torch.from_numpy(batch.distortions).long(), torch.from_numpy(batch.mask))
+                torch.from_numpy(batch.distortions).long(), torch.from_numpy(batch.mask),
+                torch.from_numpy(batch.camids).long())
 
     def staged_batches(self, batches):
         """Yield each batch's tensors on the device while a prefetch thread
@@ -320,9 +381,9 @@ class Trainer:
         batches = [b for _ in range(self.num_iter) for b in self.sampler.epoch()]
         step_metrics = []
         with self.timer.span("finetuning"):
-            for staged in self.staged_batches(batches):
-                step_metrics.append(self.train_step(*staged, centers, proxies, proxy_labels,
-                                                    epoch))
+            for images_u8, labels, distortions, mask, camids in self.staged_batches(batches):
+                step_metrics.append(self.train_step(images_u8, labels, distortions, mask, centers,
+                                                    proxies, proxy_labels, epoch, camids))
             # one host sync for the whole epoch's diagnostics
             stacked = (torch.stack(step_metrics).cpu().double() if step_metrics
                        else torch.zeros((0, len(METRICS)), dtype=torch.float64))
@@ -351,15 +412,19 @@ class Trainer:
         self.optimizer.load_state_dict(state["optimizer"])
 
     def rng_state(self) -> Dict[str, np.ndarray]:
-        """All host-side randomness as fixed-shape arrays: the augmentation
-        Generator's state, the miner's and the sampler's PCG64 streams."""
+        """All randomness as fixed-shape arrays: the augmentation and the
+        drop-path Generators' states, the miner's and the sampler's PCG64
+        streams."""
         return {
             "torch": self._gen.get_state().numpy(),
+            "droppath": self._drop_gen.get_state().numpy(),
             "trainer": _encode_pcg64(self._rng),
             "sampler": _encode_pcg64(self.sampler._rng),
         }
 
     def set_rng_state(self, rng: Dict[str, np.ndarray]) -> None:
         self._gen.set_state(torch.from_numpy(np.asarray(rng["torch"], np.uint8)))
+        if "droppath" in rng:  # absent from checkpoints of the ResNet-only trainer
+            self._drop_gen.set_state(torch.from_numpy(np.asarray(rng["droppath"], np.uint8)))
         self._rng = _decode_pcg64(rng["trainer"])
         self.sampler._rng = _decode_pcg64(rng["sampler"])

@@ -166,3 +166,56 @@ def test_paired_distortion_loss_value_and_grad(masked):
     got.backward()
     _close(got.item(), want)
     _grad_close(f.grad.numpy(), jg)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_weighted_cross_entropy_loss_value_and_grad(masked):
+    rng, _, labels, dist, mask = _batch(5)
+    logits = rng.normal(size=(len(labels), 4)).astype(np.float32) * 3.0
+    mask = mask if masked else None
+
+    def jloss(z):
+        return JL.weighted_cross_entropy_loss(
+            jax.nn.softmax(z, axis=-1), jnp.asarray(labels), jnp.asarray(dist), 2.0, 10.0,
+            sample_mask=None if mask is None else jnp.asarray(mask))
+
+    (want, want_max), jg = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(logits))
+    z = torch.from_numpy(logits).requires_grad_(True)
+    got, got_max = L.weighted_cross_entropy_loss(
+        torch.softmax(z, dim=-1), torch.from_numpy(labels), torch.from_numpy(dist), 2.0, 10.0,
+        sample_mask=None if mask is None else torch.from_numpy(mask))
+    got.backward()
+    _close(got.item(), want)
+    _close(got_max.item(), want_max)
+    _grad_close(z.grad.numpy(), jg)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_softmax_triplet_losses_value_and_grad(weighted, masked):
+    """Hardest positive / hardest negative, with a pair whose identity has
+    no other sample in the batch and, masked, padding slots that have
+    neither."""
+    rng, fvs, labels, dist, mask = _batch(6)
+    labels[2:4] = 9  # a lone pair: its positives are itself and its twin
+    mask = mask if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    if weighted:
+        jfn = lambda f: JL.weighted_softmax_triplet_loss(
+            f, jnp.asarray(labels), jnp.asarray(dist), 2.0, 10.0, tau=TAU, sample_mask=jmask)
+        tfn = lambda f: L.weighted_softmax_triplet_loss(
+            f, torch.from_numpy(labels), torch.from_numpy(dist), 2.0, 10.0, tau=TAU,
+            sample_mask=tmask)
+    else:
+        jfn = lambda f: JL.softmax_triplet_loss(f, jnp.asarray(labels), tau=TAU,
+                                                sample_mask=jmask)
+        tfn = lambda f: L.softmax_triplet_loss(f, torch.from_numpy(labels), tau=TAU,
+                                               sample_mask=tmask)
+    want, jg = jax.value_and_grad(jfn)(jnp.asarray(fvs))
+    f = torch.from_numpy(fvs).requires_grad_(True)
+    got = tfn(f)
+    got.backward()
+    _close(got.item(), want)
+    assert torch.isfinite(f.grad).all()
+    _grad_close(f.grad.numpy(), jg)

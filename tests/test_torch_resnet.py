@@ -77,7 +77,7 @@ def test_variables_from_jax_matches_flax(feature, size):
     module, variables = _flax_variables(feature, size)
     images = _images(size)
     want = _flax_embed(module, variables, images)
-    got = _port_embed(variables_from_jax(variables), feature, images)
+    got = _port_embed(variables_from_jax("resnet50", variables), feature, images)
     assert got.shape == want.shape == (3, 2048) and got.dtype == np.float32
     err = np.abs(got - want).max() / np.abs(want).max()
     assert err <= REL_TOL, err
@@ -92,7 +92,7 @@ def test_jax_npz_loads_into_the_port(tmp_path):
     save_variables(path, variables)
     assert "['params']['layer1_0']['conv1']['kernel']" in np.load(path).files
     tree = read_jax_npz(path)
-    direct, loaded = variables_from_jax(variables), load_state(path)
+    direct, loaded = variables_from_jax("resnet50", variables), load_state("resnet50", path)
     assert direct.keys() == loaded.keys()
     for key in direct:
         assert torch.equal(direct[key], loaded[key]), key

@@ -75,7 +75,7 @@ def world(tmp_path_factory):
             "root": str(root), "weights": weights, "splits": splits,
             "jax_extractor": JaxExtractor(bundle, img_size=IMG, batch_size=16),
             "port_extractor": FeatureExtractor(
-                port_evaluate.load_bundle("resnet50", weights, torch.float32, "cpu"),
+                port_evaluate.load_bundle("resnet50", weights, IMG, torch.float32, "cpu"),
                 img_size=IMG, batch_size=16, device="cpu"),
         }
 

@@ -115,7 +115,7 @@ def jax_side(synth, flax_variables):
 def _port_trainer(synth, variables, **over):
     table, turb = synth
     model = ResNet50ReID(stage_sizes=STAGES)
-    model.load_state_dict(variables_from_jax(variables), strict=True)
+    model.load_state_dict(variables_from_jax("resnet50", variables), strict=True)
     online = ModelBundle(module=model, feature_dim=2048, name="tiny")
     momentum = ModelBundle(module=copy.deepcopy(model), feature_dim=2048, name="tiny")
     sampler = PKBatchSampler(table, table.pids, P=P_, K=K_, kind_of_transform=1,
@@ -139,7 +139,7 @@ def _adam_moments(opt_state):
 
     walk(opt_state)
     assert len(found) == 1
-    return params_from_jax(found[0].mu), params_from_jax(found[0].nu)
+    return params_from_jax("resnet50", found[0].mu), params_from_jax("resnet50", found[0].nu)
 
 
 def _max_err(port_sd, jax_sd, keys):
@@ -233,11 +233,11 @@ def test_resnet_train_mode_output_and_stats_match_flax(flax_variables):
     want, upd = jax.jit(lambda v, x: module.apply(v, x, train=True, mutable=["batch_stats"]))(
         variables, jnp.asarray(x))
     model = ResNet50ReID(stage_sizes=STAGES).train()
-    model.load_state_dict(variables_from_jax(variables), strict=True)
+    model.load_state_dict(variables_from_jax("resnet50", variables), strict=True)
     got = model(torch.from_numpy(x).permute(0, 3, 1, 2))
     want = np.asarray(want)
     assert np.abs(got.detach().numpy() - want).max() <= 1e-4 * np.abs(want).max()
-    sd_want = variables_from_jax({"params": variables["params"],
+    sd_want = variables_from_jax("resnet50", {"params": variables["params"],
                                   "batch_stats": jax.device_get(upd["batch_stats"])})
     running = [k for k in sd_want if "running" in k]
     assert _max_err(model.state_dict(), sd_want, running) <= 1e-5
@@ -289,8 +289,8 @@ def test_one_step_lockstep_with_the_jax_train_step(synth, flax_variables, jax_si
     state = tr.optimizer.state
     assert max(float((state[names[k]]["exp_avg"] - mu[k]).abs().max()) for k in mu) <= 1e-5
     assert max(float((state[names[k]]["exp_avg_sq"] - nu[k]).abs().max()) for k in nu) <= 1e-5
-    online = variables_from_jax({"params": new.params, "batch_stats": new.batch_stats})
-    ema = variables_from_jax({"params": new.momentum_params,
+    online = variables_from_jax("resnet50", {"params": new.params, "batch_stats": new.batch_stats})
+    ema = variables_from_jax("resnet50", {"params": new.momentum_params,
                               "batch_stats": new.momentum_batch_stats})
     port_online, port_ema = tr.online.state_dict(), tr.momentum.state_dict()
     running = [k for k in online if "running" in k]
@@ -340,7 +340,7 @@ def test_one_epoch_lockstep_with_the_jax_trainer(synth, flax_variables, jax_side
     assert not queue
     for name in ("loss", "center_loss", "proxy_loss"):
         assert got[name] == pytest.approx(want[name], rel=1e-3), name
-    params = params_from_jax(jax.device_get(jtr.state.params))
+    params = params_from_jax("resnet50", jax.device_get(jtr.state.params))
     port = tr.online.state_dict()
     diffs = torch.cat([(port[k] - params[k]).abs().flatten() for k in params])
     assert float(diffs.max()) <= 2 * TRAIN_KW["base_lr"] * len(tables)
@@ -452,7 +452,7 @@ def test_saved_weights_reload_through_load_state(synth, flax_variables, tmp_path
     path = str(tmp_path / "model_online_tiny_v0.pt")
     ckpt_mod.save_weights(path, tr.online.state_dict())
     fresh = ResNet50ReID(stage_sizes=STAGES).eval()
-    fresh.load_state_dict(load_state(path), strict=True)
+    fresh.load_state_dict(load_state("resnet50", path), strict=True)
     x = normalize_images(torch.from_numpy(
         np.random.default_rng(3).integers(0, 256, (4, *IMG, 3), dtype=np.uint8)))
     with torch.inference_mode():
@@ -478,16 +478,16 @@ def test_train_cli_on_the_cpu_trains_validates_and_checkpoints(tmp_path):
     assert [p["epoch"] for p in progress] == [1, 2]
     assert all(np.isfinite(p["loss"]) and 0.0 <= p["rank1"] <= 1.0 for p in progress)
     assert (ckpt / "latest" / "2.pt").exists() and any(ckpt.glob("*.pt"))
-    weights = load_state(str(ckpt / "model_online_resnet50_v0.pt"))
+    weights = load_state("resnet50", str(ckpt / "model_online_resnet50_v0.pt"))
     ResNet50ReID().load_state_dict(weights, strict=True)
 
 
 def test_train_cli_rejects_unported_flags(tmp_path):
     from daliid_tpu_torch.cli import train
 
-    for flags in (["--mining_quantize", "int8"], ["--num_classes", "5"],
-                  ["--id_loss_type", "arcface"], ["--remat", "full"],
-                  ["--fault_inject_epoch", "1"], ["--multihost"], ["--sie_cameras", "2"]):
+    # the head and SIE flags are ported (their refusals: test_torch_train_vit.py)
+    for flags in (["--mining_quantize", "int8"], ["--mining_calib_batches", "2"],
+                  ["--remat", "full"], ["--fault_inject_epoch", "1"], ["--multihost"]):
         args = train.build_argparser().parse_args(["--dataset", "Synthetic", *flags])
         with pytest.raises(SystemExit, match="not yet ported"):
             train.main(args)
