@@ -5,7 +5,9 @@ Phases, in order; any failed check exits non-zero and prints no result:
 
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
    build every ``daliid_tpu_torch/csrc/*.cu`` with nvcc (one process per
-   source, in parallel); generate the synthetic set (100 identities).
+   source, in parallel) and print each kernel's registers, static shared
+   memory and spills from ``-Xptxas=-v``; generate the synthetic set (100
+   identities).
 2. K2 ``rank_counts`` against its plain version on the card: random and
    tie-fuzzed distances, ragged shapes, the evaluate path's shape,
    ``ignore_camera`` both ways; counts must be equal.
@@ -33,22 +35,34 @@ Phases, in order; any failed check exits non-zero and prints no result:
    with turbulence copies (4 gallery, 2 query each). The K1 counter must
    equal the number of steps (4), the K2 counter must rise (validation), the
    epoch losses must be finite and the checkpoints written.
-9. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64, D=2048,
-   k=10 over 2^20 gallery rows, and at the serve path's shape; K2 at the
-   Market-1501 protocol shape (Q=3368, G=15913) at P=48 and, kernel only,
-   P=2800; K1 at the train shape; one train step split into augment,
-   forward+backward and Adam+EMA, with img/s, peak device memory, the host
-   decode time of one batch (with 1, 4 and the trainer's default number of
-   threads), the train loop's steady rate with decode on its prefetch thread
-   (``PIPELINE_BATCHES`` steps, timed after the first batch has arrived)
-   and a ``torch.profiler`` view of three steps
-   (the device's busy time, its share of the wall time, the largest
-   kernels); ResNet-50 extraction img/s at batch 64 and 512 in bf16.
+9. K4 ``flash_attention`` against its plain version on the card (f32 within
+   2e-5, bf16 within one bf16 ulp, at the JPM, ViT-B and vit_small shapes
+   and ragged small ones) and its backward (3e-5, f32).
+10. transformer evaluate: JPM and ViT-B through ``load_bundle(...,
+    use_fused_attention=True)``, K4 16 and 12 launches a forward; the K4 and
+    SDPA routes agree within 1e-3 in f32.
+11. transformer train: a JPM ``Trainer`` epoch with K4, then the train CLI
+    with ``--model_name transreid_jpm`` on SDPA.
+12. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
+    D=2048, k=10 over 2^20 gallery rows (the f32 bound is the tensor
+    cores': bytes, or 3 TF32 products a multiply-add), and at the serve
+    path's shape; K2 at the Market-1501 protocol shape (Q=3368, G=15913) at
+    P=48 and, kernel only, P=2800; K1 at the train shape; K4 and SDPA at the
+    JPM train shapes in bf16, with the attention backward (plain f32 torch)
+    alone; one ResNet-50 train step split into augment, forward+backward and
+    Adam+EMA, with img/s, peak device memory, the host decode time of one
+    batch (with 1, 4 and the trainer's default number of threads), the train
+    loop's steady rate with decode on its prefetch thread
+    (``PIPELINE_BATCHES`` steps, timed after the first batch has arrived)
+    and a ``torch.profiler`` view of three steps (the device's busy time,
+    its share of the wall time, the largest kernels); ResNet-50 extraction
+    img/s at batch 64 and 512 in bf16; the JPM train step and extraction at
+    512 with K4 and with SDPA.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. Counts of launches are set to 0 just
-before each of the serve, search, evaluate and train phases and read just
-after.
+before each of the serve, search, evaluate, train, transformer evaluate and
+transformer train phases and read just after.
 
 Run from the repository root: ``python3 chip_smoke.py``. The kernels,
 the synthetic sets, the saved index and the checkpoints go under ``build/``.
@@ -82,7 +96,10 @@ TRAIN_STEPS = EPOCHS * (TRAIN_IDS // P)
 PIPELINE_BATCHES = 10
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12,
+            # K3's f32 mode on the tensor cores: three TF32 products a multiply-add
+            # at 495 TFLOP/s (as much as its six bf16 piece products at 989)
+            "tf32x3": 495e12 / 3}
 # K4 against its plain version: TransReID-JPM's train shapes (the trunk and
 # b1 at 211 tokens, the shared b2 at 1 + 52), ViT-B/16's 129 tokens at the
 # extraction batch, vit_small's 96-wide heads, and ragged small cases
@@ -140,11 +157,54 @@ def phase_device(torch):
     t0 = time.time()
     libs = _build.build_all()
     log(f"built {sorted(libs)} in {time.time() - t0:.1f} s")
-    for name in sorted(libs):
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
-    return card, dev
+    ptxas = {name: ptxas_report(_build.build_log(name)) for name in sorted(libs)}
+    for name, kernels in ptxas.items():
+        for kernel, r in kernels.items():
+            log(f"ptxas {name}: {kernel}: {r['registers']} registers, {r['static_smem']} bytes "
+                f"static shared memory, spill stores {r['spill_stores']} / loads "
+                f"{r['spill_loads']} bytes")
+    return card, dev, ptxas
+
+
+def ptxas_report(text: str) -> dict:
+    """``nvcc -Xptxas=-v`` output → {kernel: registers, static shared
+    memory and spill bytes}. Kernels of the anonymous namespace are named
+    ``name<template arguments>`` (``topk_pass1<1>`` is SQ8); dynamic shared
+    memory is set at launch and does not show here."""
+    import re
+
+    def name(mangled: str) -> str:
+        # _ZN <length><namespace> <length><name> [I<template arguments>E] ...
+        if not mangled.startswith("_ZN"):
+            return mangled
+        pos, last = 3, mangled
+        while (m := re.match(r"\d+", mangled[pos:])):
+            n = int(m.group())
+            last = mangled[pos + m.end():pos + m.end() + n]
+            pos += m.end() + n
+        args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+        return last + ("<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+                       if args else "")
+
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = name(m.group(1))
+            out[current] = {"registers": None, "static_smem": 0, "spill_stores": None,
+                            "spill_loads": None}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[current]["spill_stores"], out[current]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[current]["static_smem"] = int(s.group(1)) if s else 0
+    return out
 
 
 def make_dataset():
@@ -797,7 +857,7 @@ def _time_k3(torch, dev, n_q: int, n_g: int, num_real: int, reps: int, plain_rep
     lib_ms = _library_ms(torch, lambda: torch.topk(qf @ gf[:num_real].T, k, dim=1),
                          "torch.topk(q @ g.T)")
     bytes_ = 4 * num_real * d + 4 * n_q * d + 8 * n_q * k
-    timings["search_topk_f32"] = _timing(shape, ms, plain_ms, lib_ms, bytes_, ops, "f32", err)
+    timings["search_topk_f32"] = _timing(shape, ms, plain_ms, lib_ms, bytes_, ops, "tf32x3", err)
     del gf
     return timings
 
@@ -906,7 +966,11 @@ def _time_k4(torch, dev):
     → one timing per shape."""
     import torch.nn.functional as F
 
-    from daliid_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+    from daliid_tpu_torch.ops.flash_attention import (
+        attention_backward,
+        attention_plain,
+        flash_attention,
+    )
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
@@ -925,8 +989,13 @@ def _time_k4(torch, dev):
         # q, k, v read once and the output written once, 2 bytes each; QK^T and PV
         entries.append(_timing(what, ms, plain_ms, lib_ms, 4 * b * n * h * d * 2,
                                4 * b * h * n * n * d, "bf16", err))
+        # the K4 route's gradient, the JAX VJP's backward in plain f32 torch,
+        # as autograd calls it on the saved bf16 views
+        g_out = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        entries[-1]["backward_ms"] = cuda_ms(torch, lambda: attention_backward(q, k, v, g_out),
+                                             reps=5, warmup=1)
         log(f"timing K4 at {shape}: {json.dumps(entries[-1])}")
-        del q, k, v
+        del q, k, v, g_out
     return entries
 
 
@@ -1147,6 +1216,13 @@ KERNELS = {
 }
 
 
+# the kernels each timed wrapper launches on the main path, for their
+# ptxas report: K4 bf16 takes 8 warps a block at N = 211, 4 at N = 53 and 129
+PATH_KERNELS = {"search_topk_sq8": ("topk_pass1<1>", "topk_pass2"),
+                "search_topk_f32": ("topk_pass1<0>", "topk_pass2"),
+                "flash_attention": ("attention_mma<64,8>", "attention_mma<64,4>")}
+
+
 def main() -> int:
     import torch
 
@@ -1158,7 +1234,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     t_start = time.time()
-    card, dev = phase_device(torch)
+    card, dev, ptxas = phase_device(torch)
     splits = make_dataset()
     n_g, n_q = len(splits["gallery"]), len(splits["query"])
     capacity = 1 << (n_g - 1).bit_length()
@@ -1200,6 +1276,9 @@ def main() -> int:
     results["flash_attention"]["max_abs_err"] = max(k4_times[0]["max_abs_err"],
                                                     k4_times[1]["max_abs_err"], k4_err)
     results["flash_attention"]["backward_max_abs_err"] = k4_bwd_err
+    for name, kernels in PATH_KERNELS.items():
+        lib = Path(KERNELS[name]["source"]).stem
+        results[name]["ptxas"] = {k: ptxas.get(lib, {}).get(k) for k in kernels}
     step = _time_train_step(torch, dev, train_root)
     rates = _time_extraction(torch, dev)
     jpm = _time_jpm(torch, dev, train_root)
@@ -1228,10 +1307,16 @@ def main() -> int:
             f"Adam+EMA {r['adam_ema_ms']:.3f} ms), peak {r['peak_memory_gb']:.2f} GB; "
             f"extraction at 512: {r['extract_img_per_s_at_512']:.1f} img/s")
     log(f"K4 in one JPM forward of {jpm['batch']}: 12 x N=211 + 4 x N=53 = {k4_forward:.3f} ms")
+    k4 = results["flash_attention"]
+    bwd = (k4["backward_ms"], k4["at_n53"]["backward_ms"])
+    log(f"attention_backward alone (bf16, plain f32 torch): N=211 {bwd[0]:.4f} ms, N=53 "
+        f"{bwd[1]:.4f} ms; one JPM step of {jpm['batch']}: 12 x N=211 + 4 x N=53 = "
+        f"{12 * bwd[0] + 4 * bwd[1]:.3f} ms")
     log(f"card: {card}; total {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check", "shape")
-    extra = ("at_path_shape", "at_max_positives_bound", "at_n53", "backward_max_abs_err")
+    extra = ("at_path_shape", "at_max_positives_bound", "at_n53", "backward_max_abs_err",
+             "backward_ms", "ptxas")
     kernels = [{k: r[k] for k in keys + extra if k in r} for r in results.values()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,65 +14,308 @@
 // projection. The TPU kernel's transposes and its padding of N and D to
 // multiples of 128 are Mosaic artefacts and are not carried over.
 //
-// Design (simple first, CUDA cores, f32): one block of 128 threads per
-// (b, h, 64-query tile). The query tile is staged in shared memory as f32;
-// the block then walks the keys in tiles of 64: it stages the K and V tile
-// as f32, each thread computes a 4 x 8 register tile of scores (4 query
-// rows x 8 keys, float4 loads along D), the block keeps a running row max and
-// row sum (online softmax, each row's 8 threads reduce with warp shuffles),
-// writes exp(s - max) to shared memory and adds P.V into a register tile of
-// 4 rows x D/8 output columns, rescaled when the row max grows. The result is
-// divided by the row sum at the end. Keys past N score -inf and their K and
-// V rows are zero, so any N >= 1 works; a row always has a valid key in
-// every tile it visits, because a tile starts below N.
-//
 // Bound on the H100 at the JPM trunk's shape (384, 211, 12, 64) in bf16:
 // q, k, v read once and the output written once, 498 MB over 3.35 TB/s =
 // 0.149 ms; the 4*B*H*N^2*D = 5.25e10 operations take 0.053 ms at the bf16
-// tensor-core rate, so the bytes bound it. This kernel runs its products on
-// the CUDA cores in f32 (67 TFLOP/s), which alone costs 0.78 ms at that
-// shape, so it is compute-bound, far above the bytes; wgmma is the next step
-// (PERF.md has the times).
+// tensor-core rate, so the bytes bound it.
+//
+// bf16 (every timed and main path): products on the tensor cores.
+//   - One block of NW warps per (b, h, 16 * NW-query tile): 8 warps where
+//     128-row tiles pad N no more than 64-row ones (N = 211: two blocks a
+//     head), else 4 (N = 53, N = 129). The blocks of one head are launched
+//     together, so the head's K and V come from L2 after the first. Each warp
+//     owns 16 query rows and keeps their Q fragments in registers
+//     (ldmatrix); at D <= 64 the kernel is held to 128 registers, so two
+//     blocks of 8 warps (or four of 4) share an SM.
+//   - K and V walk in 64-key tiles, double-buffered in shared memory by
+//     16-byte cp.async copies straight from the strided views; rows past N
+//     are zero-filled by the copy (source size 0). Rows are padded to D + 8
+//     elements so that ldmatrix reads hit distinct banks.
+//   - S = Q . K^T on mma.sync m16n8k16 (bf16 in, f32 accumulate), times
+//     scale * log2(e) (the softmax takes exp2); keys >= N score -inf at
+//     8-key granularity, and key tiles past the last valid key are skipped,
+//     so N = 211 computes 216 scores a row (224 keys in P.V), not 256.
+//   - Online softmax over the key tiles with the scores in registers: row
+//     max and row sum reduce over the 4 threads of a quad with shuffles; the
+//     row sum l is taken from the f32 P. P never goes through shared memory:
+//     its accumulator fragments are the A fragments of P . V.
+//   - P . V with P split as P_hi = bf16(P), P_lo = bf16(P - P_hi), both on
+//     mma.sync against V (ldmatrix.trans), so P enters with about 2^-17
+//     relative error where one bf16 rounding (2^-9) would break the one-ulp
+//     check under cancellation in V (PERF.md; tests/test_torch_attention.py
+//     emulates both).
+//   - The output is multiplied by 1/l, rounded to bf16 once, staged in the
+//     warp's rows of the Q tile and written with 16-byte stores.
+// The work at N = 211 is 332 mma.sync per warp (108 for S, 224 for the split
+// P . V), 1.75e11 operations: 0.27 ms at two thirds of the bf16 peak, so the
+// tensor-core work, not the bytes, sets this kernel's pace; the split gives
+// it 1.5x the work of attention that rounds P once (PERF.md has the times).
+//
+// f32 (checks only: the K4-vs-SDPA route comparison and phase_k4's f32
+// cases): products on the CUDA cores, exact f32. One block of 128 threads
+// per (b, h, 64-query tile) stages Q and 64-key tiles of K and V in shared
+// memory, computes a 4 x 8 register tile of scores with FMAs, keeps an
+// online softmax and moves P through shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int QT = 64;  // query rows per block
+constexpr int kThreads = 128;  // threads of an f32 block
+constexpr int QT = 64;  // query rows of an f32 block
 constexpr int KT = 64;  // keys per tile
-constexpr int PT = KT + 4;  // row stride of the P tile (floats)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+constexpr int PT = KT + 4;  // row stride of the f32 kernel's P tile (floats)
 
 struct View {
   long long sb, sn, sh;  // element strides of batch, token and head; D is unit-stride
 };
 
-// Rows [row0, row0 + 64) of one head of `src` → f32 tile `dst` with row
-// stride D + 4; rows at or past N are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, View s, int b,
-                                      int h, int row0, int N) {
-  constexpr int S = D + 4;
-  const T* base = src + b * s.sb + h * s.sh;
-  for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
-    const int r = e / D, d = e % D;
+// ---------------------------------------------------------------- bf16, tensor cores
+
+// Rows [row0, row0 + ROWS) of one head of `src` → bf16 tile `dst` with row
+// stride D + 8, by 16-byte cp.async copies; rows at or past N are zero.
+// The view's base and strides are 16-byte aligned (the wrapper ensures it).
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                            View s, int b, int h, int row0, int N) {
+  constexpr int RS = D + 8, CPR = D / 8;  // row stride; 16-byte chunks a row
+  const __nv_bfloat16* base = src + b * s.sb + h * s.sh;
+  for (int e = threadIdx.x; e < ROWS * CPR; e += blockDim.x) {
+    const int r = e / CPR, c = e % CPR;
     const int n = row0 + r;
-    dst[r * S + d] = n < N ? to_f32(base[(long long)n * s.sn + d]) : 0.0f;
+    mma::cp_async16(dst + r * RS + c * 8, base + (long long)min(n, N - 1) * s.sn + c * 8,
+                    n < N ? 16 : 0);
   }
 }
 
-template <typename T, int D>
+// NW warps, 16 query rows each; at most 128 registers a thread where D <= 64
+// (two blocks of 8 warps, or four of 4, on an SM)
+template <int D, int NW>
+__global__ void __launch_bounds__(32 * NW, D <= 64 ? 16 / NW : 1)
+    attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, View qs, View ks, View vs, int H, int N,
+                  int n_qt, float scale, __nv_bfloat16* __restrict__ out) {
+  constexpr int QR = 16 * NW;  // query rows per block
+  constexpr int RS = D + 8;   // row stride of every tile (elements)
+  constexpr int KC = D / 16;  // k16 chunks of S = Q . K^T
+  constexpr int DT = D / 8;   // n8 tiles of the output
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* Ks = Qs + QR * RS;      // two buffers of KT rows
+  __nv_bfloat16* Vs = Ks + 2 * KT * RS;  // two buffers of KT rows
+
+  const int bh = blockIdx.x / n_qt;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x % n_qt) * QR;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const bool active = q0 + warp * 16 < N;  // warp-uniform
+
+  stage_async<D, QR>(Qs, q, qs, b, h, q0, N);
+  stage_async<D, KT>(Ks, k, ks, b, h, 0, N);
+  stage_async<D, KT>(Vs, v, vs, b, h, 0, N);
+  mma::cp_async_commit();
+
+  uint32_t qf[KC][4];
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;  // rows g and g + 8
+
+  const int n_tiles = (N + KT - 1) / KT;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {
+      stage_async<D, KT>(Ks + (buf ^ 1) * KT * RS, k, ks, b, h, (it + 1) * KT, N);
+      stage_async<D, KT>(Vs + (buf ^ 1) * KT * RS, v, vs, b, h, (it + 1) * KT, N);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // this tile (and Q) have landed
+    __syncthreads();
+
+    if (active) {
+      if (it == 0) {
+#pragma unroll
+        for (int c = 0; c < KC; ++c)
+          mma::ldmatrix_x4(qf[c], Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * RS +
+                                      16 * c + 8 * (lane >> 4));
+      }
+      const __nv_bfloat16* Kt = Ks + buf * KT * RS;
+      const __nv_bfloat16* Vt = Vs + buf * KT * RS;
+      const int k0 = it * KT;
+      const int kvalid = min(KT, N - k0);
+      const int nt = (kvalid + 7) / 8;    // n8 key tiles holding a valid key
+      const int kc = (kvalid + 15) / 16;  // k16 key chunks of P . V
+
+      // S = Q . K^T: 16 rows x 64 keys, 8 n8 tiles of 4 f32 each
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        if (2 * jp < nt) {
+#pragma unroll
+          for (int c = 0; c < KC; ++c) {
+            uint32_t kb[4];
+            mma::ldmatrix_x4(kb, Kt + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * RS + 16 * c +
+                                     8 * ((lane >> 3) & 1));
+            mma::mma_bf16(s[2 * jp], qf[c], kb[0], kb[1]);
+            mma::mma_bf16(s[2 * jp + 1], qf[c], kb[2], kb[3]);
+          }
+        }
+      }
+
+      // scale (times log2 e: exp2 below), mask keys >= N, online softmax
+      // (rows g: s[.][0..1], g + 8: s[.][2..3])
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+      const bool ragged = kvalid < KT;  // only the last tile holds keys >= N
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          s[j][e] = ragged && key >= N ? -INFINITY : s[j][e] * scale;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: key k0 < N
+      const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] = exp2f(s[j][0] - mn0);
+        s[j][1] = exp2f(s[j][1] - mn0);
+        s[j][2] = exp2f(s[j][2] - mn1);
+        s[j][3] = exp2f(s[j][3] - mn1);
+        sum0 += s[j][0] + s[j][1];
+        sum1 += s[j][2] + s[j][3];
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+      }
+      l0 = l0 * a0 + sum0;
+      l1 = l1 * a1 + sum1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        o[j][0] *= a0;
+        o[j][1] *= a0;
+        o[j][2] *= a1;
+        o[j][3] *= a1;
+      }
+
+      // O += (P_hi + P_lo) . V; the S fragments of keys 16c .. 16c + 15 are
+      // the A fragment of chunk c
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c < kc) {
+          uint32_t ph[4], pl[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)  // rows g, g + 8; keys 2t, 2t + 8 of the chunk
+            mma::split2_bf16(s[2 * c + (r >> 1)][2 * (r & 1)],
+                             s[2 * c + (r >> 1)][2 * (r & 1) + 1], ph[r], pl[r]);
+#pragma unroll
+          for (int dp = 0; dp < DT / 2; ++dp) {
+            uint32_t vb[4];
+            mma::ldmatrix_x4_trans(vb, Vt + (16 * c + (lane & 7) + 8 * ((lane >> 3) & 1)) * RS +
+                                           16 * dp + 8 * (lane >> 4));
+            mma::mma_bf16(o[2 * dp], pl, vb[0], vb[1]);
+            mma::mma_bf16(o[2 * dp], ph, vb[0], vb[1]);
+            mma::mma_bf16(o[2 * dp + 1], pl, vb[2], vb[3]);
+            mma::mma_bf16(o[2 * dp + 1], ph, vb[2], vb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this buffer is consumed before tile it + 2 refills it
+  }
+
+  if (!active) return;
+  // out = O / l in bf16, through the warp's own 16 rows of the Q tile
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  __nv_bfloat16* rows = Qs + warp * 16 * RS;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    *reinterpret_cast<uint32_t*>(rows + g * RS + 8 * j + 2 * t) =
+        mma::pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
+    *reinterpret_cast<uint32_t*>(rows + (g + 8) * RS + 8 * j + 2 * t) =
+        mma::pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
+  }
+  __syncwarp();
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  for (int e = lane; e < 16 * CPR; e += 32) {
+    const int r = e / CPR, c = e % CPR;
+    const int n = q0 + warp * 16 + r;
+    if (n < N)
+      *reinterpret_cast<float4*>(out + (((long long)b * N + n) * H + h) * D + c * 8) =
+          *reinterpret_cast<const float4*>(rows + r * RS + c * 8);
+  }
+}
+
+template <int D, int NW>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, View qs, View ks, View vs,
+                       int B, int N, int H, float scale, void* out, cudaStream_t stream) {
+  constexpr int QR = 16 * NW;
+  constexpr size_t smem = sizeof(__nv_bfloat16) * (size_t)(QR + 4 * KT) * (D + 8);
+  auto kernel = attention_mma<D, NW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (N + QR - 1) / QR;
+  // one flat grid, the query tiles of a head next to each other (K and V
+  // from L2 after the first); the scores are taken in log2 units
+  kernel<<<(unsigned)(B * H) * n_qt, 32 * NW, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), qs, ks, vs, H, N, n_qt, scale * 1.4426950408889634f,
+      static_cast<__nv_bfloat16*>(out));
+  return cudaGetLastError();
+}
+
+// 128 query rows a block (K and V staged half as often) where that pads N
+// no more than 64 rows do: N = 211 takes two blocks of 8 warps, N = 53 and
+// N = 129 blocks of 4
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, View qs, View ks, View vs,
+                        int B, int N, int H, float scale, void* out, cudaStream_t s) {
+  const bool wide = (N + 127) / 128 * 128 == (N + 63) / 64 * 64;
+  return wide ? launch_mma<D, 8>(q, k, v, qs, ks, vs, B, N, H, scale, out, s)
+              : launch_mma<D, 4>(q, k, v, qs, ks, vs, B, N, H, scale, out, s);
+}
+
+// ---------------------------------------------------------------- f32, CUDA cores
+
+// Rows [row0, row0 + 64) of one head of `src` → f32 tile `dst` with row
+// stride D + 4; rows at or past N are zero.
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, View s, int b,
+                                      int h, int row0, int N) {
+  constexpr int S = D + 4;
+  const float* base = src + b * s.sb + h * s.sh;
+  for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
+    const int r = e / D, d = e % D;
+    const int n = row0 + r;
+    dst[r * S + d] = n < N ? base[(long long)n * s.sn + d] : 0.0f;
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, View qs, View ks, View vs, int H, int N,
-                     float scale, T* __restrict__ out) {
+    attention_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, View qs, View ks, View vs, int H, int N,
+                  float scale, float* __restrict__ out) {
   constexpr int S = D + 4;   // row stride of the Q, K and V tiles (floats)
   constexpr int DC = D / 32; // float4 output chunks per thread
   extern __shared__ float4 smem4[];
@@ -87,7 +330,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x % 8;  // key group (scores) / column group (output)
   const int ty = threadIdx.x / 8;  // 4-row group
   // the 8 threads of a row group are 8 consecutive lanes of one warp
-  stage<T, D>(Qs, q, qs, b, h, q0, N);
+  stage<D>(Qs, q, qs, b, h, q0, N);
 
   float m[4], l[4], o[4][DC * 4];
 #pragma unroll
@@ -100,8 +343,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = 0; k0 < N; k0 += KT) {
     __syncthreads();  // the previous tile's K, V and P are consumed
-    stage<T, D>(Ks, k, ks, b, h, k0, N);
-    stage<T, D>(Vs, v, vs, b, h, k0, N);
+    stage<D>(Ks, k, ks, b, h, k0, N);
+    stage<D>(Vs, v, vs, b, h, k0, N);
     __syncthreads();
 
     // scores: rows ty*4 + i, keys tx + 8*j of this tile
@@ -186,53 +429,51 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // out[b, n, h, :] = o / l, in the input type
+  // out[b, n, h, :] = o / l
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int n = q0 + ty * 4 + i;
     if (n >= N) continue;
     const float inv = 1.0f / l[i];
-    T* row = out + (((long long)b * N + n) * H + h) * D + tx * 4;
+    float* row = out + (((long long)b * N + n) * H + h) * D + tx * 4;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store(row + 32 * c + e, o[i][c * 4 + e] * inv);
+      for (int e = 0; e < 4; ++e) row[32 * c + e] = o[i][c * 4 + e] * inv;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, View qs, View ks, View vs,
-                   int B, int N, int H, float scale, void* out, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, View qs, View ks, View vs,
+                       int B, int N, int H, float scale, void* out, cudaStream_t stream) {
   constexpr int S = D + 4;
   constexpr size_t smem = sizeof(float) * (size_t)(QT * S + 2 * KT * S + QT * PT);
-  auto kernel = attention_kernel<T, D>;
+  auto kernel = attention_f32<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (N + QT - 1) / QT);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qs, ks, vs,
-      H, N, scale, static_cast<T*>(out));
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      qs, ks, vs, H, N, scale, static_cast<float*>(out));
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v, View qs, View ks,
-                     View vs, int B, int N, int H, float scale, void* out, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, qs, ks, vs, B, N, H, scale, out, s);
-    case 64: return launch<T, 64>(q, k, v, qs, ks, vs, B, N, H, scale, out, s);
-    case 96: return launch<T, 96>(q, k, v, qs, ks, vs, B, N, H, scale, out, s);
-    default: return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v, View qs, View ks,
+                   View vs, int B, int N, int H, float scale, void* out, cudaStream_t s) {
+  return is_bf16 ? launch_bf16<D>(q, k, v, qs, ks, vs, B, N, H, scale, out, s)
+                 : launch_f32<D>(q, k, v, qs, ks, vs, B, N, H, scale, out, s);
 }
 
 }  // namespace
 
 // Attention over (B, N, H, D) views q, k, v (strides in elements, D
 // unit-stride) into the contiguous (B, N, H, D) `out`, on `stream`.
-// D in {32, 64, 96}; is_bf16 selects bf16 inputs and output, else f32.
-// Returns cudaGetLastError() (or the error of the launch's set-up).
+// D in {32, 64, 96}; is_bf16 selects bf16 inputs and output, else f32. In
+// bf16 the three bases and every stride of a dimension longer than 1 are
+// multiples of 16 bytes. Returns cudaGetLastError() (or the error of the
+// launch's set-up).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                long long q_sb, long long q_sn, long long q_sh,
                                long long k_sb, long long k_sn, long long k_sh,
@@ -241,8 +482,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const View qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
   if (B <= 0 || N <= 0 || H <= 0) return (int)cudaGetLastError();
-  cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, qs, ks, vs, B, N, H, scale, out, s)
-              : dispatch<float>(D, q, k, v, qs, ks, vs, B, N, H, scale, out, s);
-  return (int)err;
+  switch (D) {
+    case 32: return (int)launch<32>(is_bf16, q, k, v, qs, ks, vs, B, N, H, scale, out, s);
+    case 64: return (int)launch<64>(is_bf16, q, k, v, qs, ks, vs, B, N, H, scale, out, s);
+    case 96: return (int)launch<96>(is_bf16, q, k, v, qs, ks, vs, B, N, H, scale, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

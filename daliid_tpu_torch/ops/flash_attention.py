@@ -17,16 +17,21 @@ dS, dQ and dK. The JAX package runs that backward in XLA, outside any Pallas
 kernel, so here it is plain PyTorch (:func:`attention_backward`) too.
 
 Kernel note (``csrc/flash_attention.cu``, replaces the TPU kernel above):
-one block per (batch row, head, 64-query tile) stages the query tile and
-then 64-key tiles of K and V in shared memory as f32, keeps an online
-softmax per row and a register tile of the output, and writes the
-contiguous (B, N, H, D) result. q, k and v may be strided (B, N, H, D) views,
-such as the column blocks of the ViT's fused qkv projection, so no copy is
-made around the kernel. On the H100 the least time at the JPM trunk's shape
-(384, 211, 12, 64) in bf16 is the bytes, 0.149 ms; this simple kernel runs
-its products on the CUDA cores in f32 and is bound by them (PERF.md has its
-times). The TPU kernel's transposes and its padding of N and D to multiples
-of 128 are not carried over.
+one block of 4 or 8 warps, 16 query rows each, per (batch row, head, query
+tile). On the H100 the least time at the JPM trunk's shape (384, 211, 12,
+64) in bf16 is the bytes, 0.149 ms. In bf16, the type of every timed and
+main path, both products run on the tensor cores (``mma.sync`` m16n8k16, f32
+accumulate): K and V come into shared memory in 64-key tiles by 16-byte
+``cp.async`` copies (double-buffered, rows past N zero-filled), the scores
+stay in registers through an online softmax, and P enters P·V as two bf16
+parts (``P_hi = bf16(P)``, ``P_lo = bf16(P - P_hi)``) so that the result
+stays within one bf16 ulp of the f32 plain version; it is rounded once, at
+the store. In f32 (checks only) the products run on the CUDA cores. q, k and
+v may be strided (B, N, H, D) views, such as the column blocks of the ViT's
+fused qkv projection; the wrapper copies only a view the kernel cannot read
+(a non-unit D stride, or in bf16 a base or stride that is not a multiple of
+16 bytes). PERF.md has the times. The TPU kernel's transposes and its
+padding of N and D to multiples of 128 are not carried over.
 
 On CPU tensors :func:`flash_attention` computes the plain version; on CUDA
 tensors it launches the kernel or raises. The kernel takes D in {32, 64, 96}
@@ -97,6 +102,19 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k and v must be on one device")
 
 
+def _kernel_reads(t: torch.Tensor) -> bool:
+    """Whether the kernel takes the view ``t`` as it is: unit stride on D,
+    and in bf16 (16-byte ``cp.async`` copies of rows) a 16-byte-aligned base
+    and 16-byte strides on every dimension longer than 1. The ViT's qkv
+    column blocks are (row stride 3·H·D·2 bytes, head offsets 128·h)."""
+    if t.stride(-1) != 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(
+        (s * t.element_size()) % 16 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
 def _forward(q, k, v) -> torch.Tensor:
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -109,7 +127,8 @@ def _forward(q, k, v) -> torch.Tensor:
         raise RuntimeError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the attention kernel takes head dims {HEAD_DIMS}, got {d}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (t if _kernel_reads(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     status = _fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, b, n, h, d, _scale(d),

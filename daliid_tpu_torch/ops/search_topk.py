@@ -14,19 +14,20 @@ Order: value descending, then gallery index ascending. Slots beyond
 ``num_real`` candidates are ``(-inf, -1)``.
 
 Kernel note (``csrc/search_topk.cu``, replaces the TPU kernel above): pass 1
-streams the gallery once per 64-probe tile through a shared-memory tiled
-dp4a / FMA product and keeps each probe's top-k in warp registers; pass 2
-merges the per-chunk candidates. On the H100 the least time for SQ8 is the
-gallery's bytes over 3.35 TB/s (0.64 ms for 2^20 rows of 2048 int8); for
-f32 at Q = 64 it is the products at the f32 rate of 67 TFLOP/s (4.1 ms),
-above the f32 gallery's bytes (2.6 ms). The products run on the CUDA cores
-(dp4a / FMA), not the tensor cores, so this simple design is bound by
-instruction issue well above those bounds (PERF.md); wgmma is later work.
-The SQ8 score is one rounded f32 multiply of an exact int32, so SQ8 is
-bit-exact against :func:`search_topk_plain` and the JAX kernel; f32 agrees
-to summation order. Ties order by gallery index, as the TPU kernel's
-first-lane argmax does. The TPU kernel's ``< 2^24``-row cap, ``MAX_PROBES``
-and f32-encoded index lane are gone.
+streams the gallery once per 64-probe tile, 128 rows at a time, through a
+ring of shared-memory stages filled by 16-byte ``cp.async`` copies ahead of
+the products, which run on the tensor cores: ``mma.sync`` s8 x s8 -> s32 in
+SQ8 mode, and in f32 mode bf16 ``mma.sync`` on each element split exactly
+into three bf16 pieces (six piece products, f32 sums). Each probe's top-k
+stays in warp registers; pass 2 merges the per-chunk candidates. On the H100
+the least time is the gallery's bytes over 3.35 TB/s in both modes: 0.64 ms
+for 2^20 rows of 2048 int8, 2.56 ms in f32, where the six bf16 piece
+products need 1.67 ms at 989 TFLOP/s (PERF.md has the times). The SQ8 score
+is one rounded f32 multiply of an exact int32, so SQ8 is bit-exact against
+:func:`search_topk_plain` and the JAX kernel; f32 agrees to summation order
+(the dropped piece products are below 2^-23 of each product). Ties order by
+gallery index, as the TPU kernel's first-lane argmax does. The TPU kernel's
+``< 2^24``-row cap, ``MAX_PROBES`` and f32-encoded index lane are gone.
 
 On a CPU tensor the wrappers compute the plain version; on a CUDA tensor
 they launch the kernel or raise.
@@ -41,7 +42,8 @@ import torch
 from daliid_tpu_torch.ops import _build
 
 MAX_K = 64
-_TILE = 64
+# gallery rows per kernel tile: a chunk is a whole number of them
+_TILE = 128
 # the plain version sorts at most this many gallery rows at a time
 _PLAIN_ROWS = 1 << 16
 
@@ -120,7 +122,7 @@ def _launch(q, g, g_scale, num_real: int, k: int, wrapper):
     d = q.shape[1]
     vals = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
-    # about four chunks per SM, each a whole number of 64-row tiles
+    # about four chunks per SM, each a whole number of gallery tiles
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     rows = -(-num_real // (4 * sms))
     rows = max(_TILE, -(-rows // _TILE) * _TILE)

@@ -9,7 +9,11 @@
   package loads the other's ``.npz``. The JAX index on the CPU scores with
   ``acc * q_scale * g_scale`` where the port (like the TPU kernel) takes
   ``(acc * g_scale) * q_scale``, so SQ8 values agree within rtol 1e-6 and
-  indices exactly.
+  indices exactly;
+- the CUDA kernel's f32 arithmetic (exact three-piece bf16 split, six piece
+  products, f32 sums a 16-element stage at a time) emulated in plain torch
+  against the plain version with ``chip_smoke.py``'s f32 check, and 3xTF32
+  beside it, which misses that check on scores near zero.
 """
 
 import jax.numpy as jnp
@@ -152,3 +156,87 @@ def test_empty_search_counts_no_launch(data, n_q, num_real):
         assert vals.shape == idx.shape == (n_q, 5)
         assert idx.dtype == torch.int32 and vals.dtype == torch.float32
     assert sq8_search_topk.launches == 0 and f32_search_topk.launches == 0
+
+
+# ---- the f32 tensor-core kernel's arithmetic, emulated in plain torch ----
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32``."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _bf16_pieces(x: torch.Tensor):
+    """x = x0 + x1 + x2 in bf16 pieces (each rounding takes the next 8 bits)."""
+    x0 = x.bfloat16().float()
+    x1 = (x - x0).bfloat16().float()
+    return x0, x1, (x - x0 - x1).bfloat16().float()
+
+
+def _pieces_dot(q, g, scheme: str) -> torch.Tensor:
+    """q . g^T from piece products, each exact, summed in float64: '3xtf32'
+    (hi = tf32(x), lo = tf32(x - hi); lo.hi + hi.lo + hi.hi) or 'bf16x3'
+    (the six products of bf16 pieces whose orders sum to at most 2)."""
+    dot = lambda a, b: a.double() @ b.double().T
+    if scheme == "3xtf32":
+        qh, gh = _tf32(q), _tf32(g)
+        ql, gl = _tf32(q - qh), _tf32(g - gh)
+        return dot(ql, gh) + dot(qh, gl) + dot(qh, gh)
+    a, b = _bf16_pieces(q), _bf16_pieces(g)
+    return sum(dot(a[i], b[j]) for i in range(3) for j in range(3) if i + j <= 2)
+
+
+def _kernel_f32_scores(q, g) -> torch.Tensor:
+    """K3's f32 arithmetic: the bf16-piece products of each 16-element stage
+    summed (rounded to f32 once), the stages added in f32 in order."""
+    a, b = _bf16_pieces(q), _bf16_pieces(g)
+    stages = lambda x: x.double().unflatten(1, (-1, 16))  # (rows, stages, 16)
+    parts = sum(torch.einsum("qsd,gsd->sqg", stages(a[i]), stages(b[j]))
+                for i in range(3) for j in range(3) if i + j <= 2).float()
+    acc = torch.zeros(parts.shape[1:], dtype=torch.float32)
+    for part in parts:
+        acc = acc + part
+    return acc
+
+
+def _topk(scores: torch.Tensor, k: int):
+    v, i = torch.sort(scores, dim=1, descending=True, stable=True)
+    return v[:, :k], i[:, :k]
+
+
+def test_three_bf16_pieces_are_exact():
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=4096).astype(np.float32))
+    x = x * torch.from_numpy(np.exp2(np.random.default_rng(6).integers(-20, 20, 4096))).float()
+    assert torch.equal(sum(_bf16_pieces(x)), x)
+
+
+@pytest.mark.parametrize("k", [10, 64])
+def test_f32_tensor_core_arithmetic_matches_plain(k):
+    """At the timed shape's width (D = 2048) over a few thousand rows, the
+    kernel's stage-wise bf16-piece arithmetic, and 3xTF32 too, hold
+    chip_smoke's f32 check against the plain version: values within 1e-5
+    relative, equal index sets."""
+    rng = np.random.default_rng(12)
+    q = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(8, 2048))).float(), dim=1)
+    g = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(3000, 2048))).float(), dim=1)
+    vp, ip = f32_search_topk(q, g, 3000, k)
+    for scores in (_kernel_f32_scores(q, g), _pieces_dot(q, g, "3xtf32").float()):
+        v, i = _topk(scores, k)
+        assert float(((v - vp).abs() / vp.abs()).max()) <= 1e-5
+        assert torch.equal(torch.sort(i, dim=1).values, torch.sort(ip.long(), dim=1).values)
+
+
+def test_3xtf32_misses_scores_near_zero_that_bf16_pieces_keep():
+    """Why K3's f32 mode takes three bf16 pieces and not 3xTF32: on short
+    rows (D = 16, k = 64 over 40 rows, as in chip_smoke's phase 3) some
+    score lies near zero, where 3xTF32's 2^-21 error
+    relative to |q||g| is more than 1e-5 of the score; the bf16 pieces are
+    exact and drop only products below 2^-23. Both held against the float64
+    dot of the same f32 inputs."""
+    rng = np.random.default_rng(4)
+    q = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(3, 16))).float(), dim=1)
+    g = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(40, 16))).float(), dim=1)
+    exact = q.double() @ g.double().T
+    rel = {s: float(((_pieces_dot(q, g, s) - exact).abs() / exact.abs()).max())
+           for s in ("3xtf32", "bf16x3")}
+    assert rel["3xtf32"] > 1e-5 > 10 * rel["bf16x3"]
