@@ -9,7 +9,9 @@ Phases, in order; any failed check exits non-zero and prints no result:
    memory and spills from ``-Xptxas=-v``; generate the synthetic set (100
    identities).
 2. K2 ``rank_counts`` against its plain version on the card: random and
-   tie-fuzzed distances, ragged shapes, the evaluate path's shape,
+   tie-fuzzed distances, ragged and odd G, the evaluate path's shape, Q=64
+   G=5,000 with P=4,096 all valid (many passes of sorted keys), rows whose
+   every column is junk, rows whose every slot is invalid,
    ``ignore_camera`` both ways; counts must be equal.
 3. K3 ``search_topk`` against its plain version on the card: SQ8 bit-exact,
    f32 values within 1e-5 relative with equal index sets; k in {1, 10, 64};
@@ -26,9 +28,11 @@ Phases, in order; any failed check exits non-zero and prints no result:
    exactly and mAP within 1e-12 (float64 summation order).
 7. K1 ``fused_augment`` against its plain version on the card: random
    uint8 batches at the train shape (384, 256, 128, 3) and at (3, 32, 16)
-   and (2, 37, 19), pad 10 and 4, crop offsets at 0 and 2*pad, erase
+   and (2, 37, 19), pad 10 and 4, and (2, 512, 256), whose bands overflow
+   one stage of shared memory; crop offsets at 0 and 2*pad, erase
    rectangles touching each border; f32 within 2e-5, bf16 within one bf16
-   ulp (or 2e-5 where that ulp is finer).
+   ulp (or 2e-5 where that ulp is finer); two launches on the same inputs
+   must give the same bits.
 8. train: ``cli.train.main`` in-process: ResNet-50 at 256x128, bf16,
    ``--kind_of_transform 1``, P16 K12 (384 images a step), 2 epochs with
    ``--eval_freq 1`` on a synthetic set of 32 identities x 12 train images
@@ -47,7 +51,8 @@ Phases, in order; any failed check exits non-zero and prints no result:
     D=2048, k=10 over 2^20 gallery rows (the f32 bound is the tensor
     cores': bytes, or 3 TF32 products a multiply-add), and at the serve
     path's shape; K2 at the Market-1501 protocol shape (Q=3368, G=15913) at
-    P=48 and, kernel only, P=2800; K1 at the train shape; K4 and SDPA at the
+    P=48, at the evaluate path's P (``queried_positives_bound``) and, kernel
+    only, at ``max_positives_bound``'s P=2800; K1 at the train shape; K4 and SDPA at the
     JPM train shapes in bf16, with the attention backward (plain f32 torch)
     alone; one ResNet-50 train step split into augment, forward+backward and
     Adam+EMA, with img/s, peak device memory, the host decode time of one
@@ -66,6 +71,11 @@ transformer train phases and read just after.
 
 Run from the repository root: ``python3 chip_smoke.py``. The kernels,
 the synthetic sets, the saved index and the checkpoints go under ``build/``.
+``python3 chip_smoke.py --compare <dir>`` instead times K2 (Market-like
+table, P = 48, the evaluate path's P, ``max_positives_bound``'s P) and K1
+(the train shape, bf16) of this tree and of the tree unpacked at ``<dir>``
+(for example the parent commit's ``git archive``) on one card, in turns:
+parent, this, this, parent.
 """
 
 from __future__ import annotations
@@ -169,7 +179,8 @@ def phase_device(torch):
 def ptxas_report(text: str) -> dict:
     """``nvcc -Xptxas=-v`` output → {kernel: registers, static shared
     memory and spill bytes}. Kernels of the anonymous namespace are named
-    ``name<template arguments>`` (``topk_pass1<1>`` is SQ8); dynamic shared
+    ``name<template arguments>`` (``topk_pass1<1>`` is SQ8,
+    ``fused_augment_kernel<__nv_bfloat16>`` K1's bf16 output); dynamic shared
     memory is set at launch and does not show here."""
     import re
 
@@ -183,8 +194,11 @@ def ptxas_report(text: str) -> dict:
             last = mangled[pos + m.end():pos + m.end() + n]
             pos += m.end() + n
         args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
-        return last + ("<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
-                       if args else "")
+        if args:
+            return last + "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+        # one type argument: f (float) or a <length><name> class
+        arg = re.match(r"I(?:(f)|\d+(\w+?))E", mangled[pos:])
+        return last + (f"<{'float' if arg.group(1) else arg.group(2)}>" if arg else "")
 
     out, current = {}, None
     for line in text.splitlines():
@@ -222,9 +236,12 @@ def make_dataset():
 
 
 # ---------------------------------------------------------------- phase 2
-def _k2_inputs(torch, gen, dev, n_q, n_g, n_p, ties, n_ids=7, n_cams=3):
+def _k2_inputs(torch, gen, dev, n_q, n_g, n_p, ties, n_ids=7, n_cams=3, keep=0.8,
+               invalid_rows=False):
     """Random problem with P positive slots per query: distinct gallery
-    columns, some slots invalid (+inf / int32 max)."""
+    columns, a ``keep`` share of the slots valid and the rest invalid (+inf
+    / int32 max); with ``invalid_rows`` every slot of the even rows is
+    invalid."""
     if ties:
         dist = torch.randint(0, 6, (n_q, n_g), generator=gen, device=dev).float() / 8.0
     else:
@@ -238,9 +255,11 @@ def _k2_inputs(torch, gen, dev, n_q, n_g, n_p, ties, n_ids=7, n_cams=3):
     cols = torch.sort(cols, dim=1).values
     p_idx = torch.full((n_q, n_p), 2 ** 31 - 1, dtype=torch.int32, device=dev)
     p_dist = torch.full((n_q, n_p), float("inf"), device=dev)
-    keep = torch.rand((n_q, n_take), generator=gen, device=dev) < 0.8
-    p_idx[:, :n_take] = torch.where(keep, cols, 2 ** 31 - 1).int()
-    p_dist[:, :n_take] = torch.where(keep, torch.gather(dist, 1, cols), float("inf"))
+    kept = torch.rand((n_q, n_take), generator=gen, device=dev) < keep
+    if invalid_rows:
+        kept[::2] = False
+    p_idx[:, :n_take] = torch.where(kept, cols, 2 ** 31 - 1).int()
+    p_dist[:, :n_take] = torch.where(kept, torch.gather(dist, 1, cols), float("inf"))
     return dist, p_dist, p_idx, q_pids, q_cams, g_pids, g_cams
 
 
@@ -249,19 +268,27 @@ def phase_k2(torch, dev, path_shape):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
+    # (Q, G, P, ties, extra): extra keywords of _k2_inputs
     cases = [
-        (1, 1, 1, False), (37, 211, 9, False), (13, 57, 16, True), (129, 1537, 33, True),
-        (300, 5000, 24, False), (17, 513, 64, True), (1000, 3000, 7, True),
-        (*path_shape, False), (*path_shape, True),
+        (1, 1, 1, False, {}), (37, 211, 9, False, {}), (13, 57, 16, True, {}),
+        (129, 1537, 33, True, {}), (300, 5000, 24, False, {}), (17, 513, 64, True, {}),
+        (1000, 3000, 7, True, {}), (65, 10001, 40, False, {}),
+        (*path_shape, False, {}), (*path_shape, True, {}),
+        # more valid slots than one pass of sorted keys holds
+        (64, 5000, 4096, False, {"keep": 1.0}), (8, 4099, 300, True, {"keep": 1.0}),
+        # every column junk (one pid, one camera), every slot of half the rows invalid
+        (40, 777, 16, True, {"n_ids": 1, "n_cams": 1}),
+        (40, 777, 16, False, {"invalid_rows": True}),
     ]
-    for n_q, n_g, n_p, ties in cases:
-        args = _k2_inputs(torch, gen, dev, n_q, n_g, n_p, ties)
+    for n_q, n_g, n_p, ties, extra in cases:
+        args = _k2_inputs(torch, gen, dev, n_q, n_g, n_p, ties, **extra)
         for ignore in (False, True):
             got = positive_rank_counts(*args, ignore_camera=ignore)
             want = rank_counts_plain(*args, ignore_camera=ignore)
             torch.cuda.synchronize()
             check(torch.equal(got, want),
-                  f"K2 counts differ at Q={n_q} G={n_g} P={n_p} ties={ties} ignore_camera={ignore}")
+                  f"K2 counts differ at Q={n_q} G={n_g} P={n_p} ties={ties} {extra} "
+                  f"ignore_camera={ignore}")
     log(f"K2 rank_counts == plain on {2 * len(cases)} cases (exact), "
         f"the evaluate path's (Q, G, P) = {path_shape} among them")
 
@@ -538,20 +565,27 @@ def phase_k1(torch, dev):
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n_cases = 0
     for (b, h, w), pad in [((384, 256, 128), 10), ((3, 32, 16), 10), ((3, 32, 16), 4),
-                           ((2, 37, 19), 10), ((2, 37, 19), 4), ((5, 256, 128), 10)]:
+                           ((2, 37, 19), 10), ((2, 37, 19), 4), ((5, 256, 128), 10),
+                           ((2, 512, 256), 10)]:
         images = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8).to(dev)
         drawn = draw_scalars(b, h, w, pad, 0.4, 0.3, 0.4, (0.05, 0.30), (0.3, 3.3), gen)
         for edge in (False, True):
             scal = (k1_edge_scalars(torch, drawn, h, w, pad) if edge else drawn).to(dev)
             for dtype in (torch.float32, torch.bfloat16):
                 what = f"B={b} H={h} W={w} pad={pad} edge={edge} {dtype}"
+                got = fused_augment(images, scal, pad, dtype)
                 worst[dtype] = max(worst[dtype], k1_compare(
-                    torch, fused_augment(images, scal, pad, dtype),
-                    fused_augment_plain(images, scal, pad, dtype), dtype, what))
+                    torch, got, fused_augment_plain(images, scal, pad, dtype), dtype, what))
+                again = fused_augment(images, scal, pad, dtype)
+                torch.cuda.synchronize()
+                check(torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                                  again.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)),
+                      f"K1 differs between two launches at {what}")
                 n_cases += 1
     log(f"K1 fused_augment == plain on {n_cases} cases (max |diff| f32 "
         f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}), the train path's "
-        f"(384, 256, 128, 3) among them")
+        f"(384, 256, 128, 3) and the two-stage (2, 512, 256, 3) among them; two launches "
+        f"give the same bits")
     return max(worst.values())
 
 
@@ -881,11 +915,11 @@ def _timing(shape, ms, plain_ms, lib_ms, bytes_, ops, op_type, err):
             "bytes": bytes_, "ops": ops, "max_abs_err": err}
 
 
-def market_like(torch, dev, seed: int = 5):
-    """Market-1501's test protocol shape with a pid table like its own:
-    750 query identities, 13,115 gallery rows of those identities, 2,798
-    distractor rows of pid 0 (kept, as ``parse_market_duke_dir`` keeps
-    them), 6 cameras, 3,368 queries; uniform random distances."""
+def market_ids(seed: int = 5):
+    """Market-1501's test protocol ids: 750 query identities, 13,115 gallery
+    rows of those identities, 2,798 distractor rows of pid 0 (kept, as
+    ``parse_market_duke_dir`` keeps them), 6 cameras, 3,368 queries →
+    (q_pids, g_pids, q_cams, g_cams)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -894,6 +928,13 @@ def market_like(torch, dev, seed: int = 5):
     g_cams = rng.integers(1, 7, g_pids.size)
     q_pids = rng.integers(1, 751, 3368)
     q_cams = rng.integers(1, 7, q_pids.size)
+    return q_pids, g_pids, q_cams, g_cams
+
+
+def market_like(torch, dev, seed: int = 5):
+    """The ids of :func:`market_ids` and a (3368, 15913) distance matrix of
+    uniform random distances."""
+    q_pids, g_pids, q_cams, g_cams = market_ids(seed)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dist = torch.rand((q_pids.size, g_pids.size), generator=gen, device=dev)
@@ -905,6 +946,7 @@ def _time_k2(torch, dev, results):
         _positive_prologue,
         max_positives_bound,
         positive_columns,
+        queried_positives_bound,
     )
     from daliid_tpu_torch.ops.rank_counts import positive_rank_counts, rank_counts_plain
 
@@ -912,8 +954,12 @@ def _time_k2(torch, dev, results):
     n_q, n_g = dist.shape
     ids = [torch.as_tensor(a, dtype=torch.int32, device=dev) for a in (q_pids, q_cams, g_pids, g_cams)]
     bound_p = max_positives_bound(g_pids)
-    log(f"K2 Market-like table: max_positives_bound = {bound_p} (distractor pid 0 kept)")
-    for n_p, with_plain in ((48, True), (bound_p, False)):
+    path_p = queried_positives_bound(q_pids, g_pids)
+    log(f"K2 Market-like table: max_positives_bound = {bound_p} (distractor pid 0 kept), "
+        f"the evaluate path's queried_positives_bound = {path_p}")
+    # the P=48 row is the kernel's main entry, as in earlier runs
+    for role, n_p, with_plain in (("main", 48, True), ("at_path_p", path_p, True),
+                                  ("at_max_positives_bound", bound_p, False)):
         q_cols = torch.as_tensor(positive_columns(q_pids, g_pids, n_p), device=dev)
         posmask, num_rel, p_dist, p_idx = _positive_prologue(dist, q_cols, ids[1], ids[3], False)
         args = (dist, p_dist, p_idx, ids[0], ids[1], ids[2], ids[3])
@@ -929,11 +975,12 @@ def _time_k2(torch, dev, results):
         bytes_ = 4 * n_q * n_g + 8 * n_q * n_p + 8 * (n_q + n_g) + 4 * n_q * n_p
         entry = _timing(f"Q={n_q} G={n_g} P={n_p} valid positives {valid}", ms, plain_ms, None,
                         bytes_, n_g * valid, "f32", err)
-        if n_p == 48:
+        if role == "main":
             results["rank_counts"].update(entry)
         else:
-            entry["plain"] = "skipped at this P"
-            results["rank_counts"]["at_max_positives_bound"] = entry
+            if not with_plain:
+                entry["plain"] = "skipped at this P"
+            results["rank_counts"][role] = entry
         log(f"K2 at P={n_p}: {json.dumps(entry)}")
     del dist
 
@@ -958,6 +1005,56 @@ def _time_k1(torch, dev):
     ops = 30 * b * h * w
     return _timing(f"B={b} H={h} W={w} pad={pad} bf16 out", ms, plain_ms, None, bytes_, ops,
                    "f32", err)
+
+
+def kernel_times(torch, root: str, ps) -> dict:
+    """K2 on the Market-like table at each P of ``ps`` and K1 at the train
+    shape in bf16, through the kernels of the tree at ``root`` (imported in
+    a process of its own: every tree's package is ``daliid_tpu_torch``)."""
+    sys.path.insert(0, root)
+    from daliid_tpu_torch.metrics.ranking import _positive_prologue, positive_columns
+    from daliid_tpu_torch.ops.fused_augment import draw_scalars, fused_augment
+    from daliid_tpu_torch.ops.rank_counts import positive_rank_counts
+
+    dev = torch.device("cuda")
+    dist, q_pids, g_pids, q_cams, g_cams = market_like(torch, dev)
+    ids = [torch.as_tensor(a, dtype=torch.int32, device=dev) for a in (q_pids, q_cams, g_pids, g_cams)]
+    out = {}
+    for n_p in ps:
+        q_cols = torch.as_tensor(positive_columns(q_pids, g_pids, n_p), device=dev)
+        _, _, p_dist, p_idx = _positive_prologue(dist, q_cols, ids[1], ids[3], False)
+        args = (dist, p_dist, p_idx, ids[0], ids[1], ids[2], ids[3])
+        out[f"rank_counts P={n_p}"] = cuda_ms(torch, lambda: positive_rank_counts(*args), reps=50)
+    del dist
+    b, (h, w), pad = 2 * P * K, IMG, 10
+    gen = torch.Generator().manual_seed(9)
+    images = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8).to(dev)
+    scal = draw_scalars(b, h, w, pad, 0.4, 0.3, 0.4, (0.05, 0.30), (0.3, 3.3), gen).to(dev)
+    out["fused_augment bf16"] = cuda_ms(
+        torch, lambda: fused_augment(images, scal, pad, torch.bfloat16), reps=100)
+    return out
+
+
+def compare(parent_root: str) -> dict:
+    """K2 and K1 of this tree against the tree at ``parent_root`` on one
+    card, in turns (parent, this, this, parent), each tree in its own
+    process that builds its own kernels → {tree: [times, times]}."""
+    from daliid_tpu_torch.metrics.ranking import max_positives_bound, queried_positives_bound
+
+    q_pids, g_pids, _, _ = market_ids()
+    ps = (48, queried_positives_bound(q_pids, g_pids), max_positives_bound(g_pids))
+    runs = {"parent": [], "this": []}
+    for tree, root in (("parent", parent_root), ("this", str(REPO)), ("this", str(REPO)),
+                       ("parent", parent_root)):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--kernel-times", root,
+             ",".join(map(str, ps))], capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"kernel times of {root} failed:\n{proc.stdout[-3000:]}"
+                                    f"{proc.stderr[-3000:]}")
+        times = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs[tree].append(times)
+        log(f"compare: {tree} ({root}): {json.dumps(times)}")
+    return runs
 
 
 def _time_k4(torch, dev):
@@ -1218,7 +1315,9 @@ KERNELS = {
 
 # the kernels each timed wrapper launches on the main path, for their
 # ptxas report: K4 bf16 takes 8 warps a block at N = 211, 4 at N = 53 and 129
-PATH_KERNELS = {"search_topk_sq8": ("topk_pass1<1>", "topk_pass2"),
+PATH_KERNELS = {"rank_counts": ("rank_counts_kernel",),
+                "fused_augment": ("fused_augment_kernel<__nv_bfloat16>",),
+                "search_topk_sq8": ("topk_pass1<1>", "topk_pass2"),
                 "search_topk_f32": ("topk_pass1<0>", "topk_pass2"),
                 "flash_attention": ("attention_mma<64,8>", "attention_mma<64,4>")}
 
@@ -1232,15 +1331,24 @@ def main() -> int:
     if not (REPO / "daliid_tpu_torch" / "__init__.py").exists():
         print("[chip_smoke] daliid_tpu_torch not found beside chip_smoke.py", flush=True)
         return 2
+    if sys.argv[1:2] == ["--kernel-times"]:
+        root, ps = sys.argv[2], [int(x) for x in sys.argv[3].split(",")]
+        print(json.dumps(kernel_times(torch, root, ps)), flush=True)
+        return 0
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--compare"]:
+        phase_device(torch)
+        print(json.dumps({"compare": compare(sys.argv[2])}), flush=True)
+        return 0
     t_start = time.time()
     card, dev, ptxas = phase_device(torch)
     splits = make_dataset()
     n_g, n_q = len(splits["gallery"]), len(splits["query"])
     capacity = 1 << (n_g - 1).bit_length()
-    from daliid_tpu_torch.metrics.ranking import max_positives_bound
+    from daliid_tpu_torch.metrics.ranking import queried_positives_bound
 
-    phase_k2(torch, dev, (n_q, n_g, max_positives_bound(splits["gallery"].pids)))
+    phase_k2(torch, dev, (n_q, n_g, queried_positives_bound(splits["query"].pids,
+                                                            splits["gallery"].pids)))
     f32_err = phase_k3(torch, dev, (n_q, capacity, 2048, n_g))
     k1_err = phase_k1(torch, dev)
     k4_err, k4_bwd_err = phase_k4(torch, dev)
@@ -1315,7 +1423,8 @@ def main() -> int:
     log(f"card: {card}; total {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check", "shape")
-    extra = ("at_path_shape", "at_max_positives_bound", "at_n53", "backward_max_abs_err",
+    extra = ("at_path_shape", "at_path_p", "at_max_positives_bound", "at_n53",
+             "backward_max_abs_err",
              "backward_ms", "ptxas")
     kernels = [{k: r[k] for k in keys + extra if k in r} for r in results.values()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,6 +4,7 @@ from daliid_tpu_torch.metrics.ranking import (
     evaluate_rank_numpy,
     max_positives_bound,
     positive_columns,
+    queried_positives_bound,
 )
 
 __all__ = [
@@ -12,4 +13,5 @@ __all__ = [
     "evaluate_rank_numpy",
     "max_positives_bound",
     "positive_columns",
+    "queried_positives_bound",
 ]

@@ -7,6 +7,15 @@ Port of ``daliid_tpu/metrics/ranking.py``: :func:`cosine_distance_matrix`
 ``:410-461``, with ``count_all`` and ``ignore_camera``) and
 :func:`evaluate_rank_numpy` (``:744``, copied, the oracle).
 
+The positive-slot bound P differs from the JAX package's on purpose:
+:func:`evaluate_rank` takes :func:`queried_positives_bound`, the largest
+gallery multiplicity of a pid that some query asks for, where the JAX
+package takes :func:`max_positives_bound` over every gallery pid. On
+Market-1501 that drops the 2,798 rows of distractor pid 0, which no query
+asks for, from P = 2,800 to a few dozen. ``positive_columns`` refuses a
+bound below a queried multiplicity, so no positive is dropped and the CMC
+and mAP are the same.
+
 Ranking is sort-free: each positive's kept rank is the count of kept
 gallery entries before it in the stable (distance, gallery index) order,
 computed by kernel K2 (``ops/rank_counts.py``) over the whole distance
@@ -83,6 +92,16 @@ def max_positives_bound(g_pids) -> int:
     return int(min(gp.size, 8 * np.ceil(counts.max() / 8)))
 
 
+def queried_positives_bound(q_pids, g_pids) -> int:
+    """Per-query positive-count bound over the queried pids only: the
+    largest gallery multiplicity of a pid in ``q_pids``, rounded up to 8,
+    and at least 8."""
+    qp, gp = np.asarray(q_pids), np.asarray(g_pids)
+    uniq, counts = np.unique(gp, return_counts=True)
+    queried = counts[np.isin(uniq, qp)]
+    return int(8 * max(1, np.ceil(queried.max() / 8))) if queried.size else 8
+
+
 def positive_columns(q_pids, g_pids, max_positives: int) -> np.ndarray:
     """(num_q, max_positives) int32 table of each query's same-pid gallery
     column indices (ascending), -1 padded; all -1 for queries whose pid is
@@ -129,7 +148,8 @@ def evaluate_rank(distmat, q_pids, g_pids, q_camids, g_camids, max_rank: int = 5
     g_camids)``. Queries whose every same-pid gallery entry shares their
     camera are excluded from both averages. ``ignore_camera`` drops the
     junk filter and ``count_all`` averages over every query (the BRIAR
-    convention). The counting core is kernel K2 on a CUDA distmat."""
+    convention). ``max_positives`` defaults to :func:`queried_positives_bound`.
+    The counting core is kernel K2 on a CUDA distmat."""
     if not torch.is_tensor(distmat):
         distmat = torch.as_tensor(np.asarray(distmat, np.float32))
     distmat = distmat.float()
@@ -138,7 +158,7 @@ def evaluate_rank(distmat, q_pids, g_pids, q_camids, g_camids, max_rank: int = 5
     g_pids_np = np.asarray(g_pids.cpu() if torch.is_tensor(g_pids) else g_pids)
     q_pids_np = np.asarray(q_pids.cpu() if torch.is_tensor(q_pids) else q_pids)
     if max_positives is None:
-        max_positives = max_positives_bound(g_pids_np)
+        max_positives = queried_positives_bound(q_pids_np, g_pids_np)
     q_cols = torch.as_tensor(positive_columns(q_pids_np, g_pids_np, max_positives), device=dev)
     qp, qc = _ids(q_pids, dev), _ids(q_camids, dev)
     gp, gc = _ids(g_pids, dev), _ids(g_camids, dev)

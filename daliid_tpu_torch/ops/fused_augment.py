@@ -15,13 +15,20 @@ clipped; erase of ``[ey, ey + eh) x [ex, ex + ew)`` to 0; ImageNet
 normalize; a cast to ``dtype``. The zero border is not zero after contrast:
 it becomes ``(1 - fc) * mean_gray``.
 
-Kernel note (``csrc/fused_augment.cu``, replaces the TPU kernel above): one
-block per image; pass 1 recomputes crop, flip, /255 and brightness per pixel
-and block-reduces the gray sum, pass 2 recomputes each pixel and writes it.
-On the H100 the least time is the bytes: uint8 in, f32/bf16 out, 0.034 ms at
-the train shape (384, 256, 128, 3) in bf16. The flip and gray matmuls of the
-TPU kernel are index arithmetic here; its roll/mask crop and lane padding
-are not carried over.
+Kernel note (``csrc/fused_augment.cu``, replaces the TPU kernel above): on
+the H100 the least time is the bytes, uint8 in and f32/bf16 out, 0.034 ms
+at the train shape (384, 256, 128, 3) in bf16, with the f32 operations
+(three IEEE divisions a pixel among them) not far behind. The crop is a
+shift and the flip a reversal within a row, so a band of output rows reads
+one band of source rows: a cluster of 4 CTAs takes an image, each CTA
+staging its band in shared memory once (16-byte ``cp.async``). Pass 1
+sums the band's gray from shared memory in double; the 4 band sums are
+added in rank order through distributed shared memory, so the mean gray is
+the same bits on every run. Pass 2 writes 8 pixels a thread as 16-byte
+stores where W is a multiple of 8. A band too large for one stage goes in
+sub-bands (and is then read twice). The flip and gray matmuls of the TPU
+kernel are index arithmetic here; its roll/mask crop and lane padding are
+not carried over.
 
 The table is drawn on the CPU from an explicit ``torch.Generator``, so the
 CPU tests and the card see the same stream for a seed; the caller copies it

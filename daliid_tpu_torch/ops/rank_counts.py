@@ -13,20 +13,20 @@ must be finite, as a cosine distance matrix is. Invalid slots
 (``p_dist == +inf``) count 0 here, where the JAX kernel leaves garbage that
 its caller masks.
 
-Kernel note (``csrc/rank_counts.cu``, replaces the TPU kernel above): one
-block per (16-query tile, 512-column gallery block) stages the distance
-tile in shared memory with the junk mask applied once; each thread counts
-groups of 4 positive slots of one query over the block and adds into a
-zeroed (Q, P) output with atomicAdd, so the integer counts are exact in any
-block order. The tie rule becomes one compare per column: ``d <= t``, which
-is ``d < nextafter(t, +inf)``, before column ``p_idx`` and ``d < t`` from it
-on. Groups of invalid slots are skipped. On the H100 the least time
-is the bytes: the distmat's 4 * Q * G once over 3.35 TB/s (0.065 ms at the
-Market-1501 shape, Q=3368, G=15913); the compares, G per valid positive,
-are 7.8e8 there, 0.012 ms at the f32 rate. The simple design reads each
-distance once from device memory but keeps most threads idle when a query
-has few valid slots (PERF.md has its times). The TPU kernel's
-transposed layout and +inf row padding are not carried over.
+Kernel note (``csrc/rank_counts.cu``, replaces the TPU kernel above): on
+the H100 the least time is the bytes, the distmat's 4 * Q * G once over
+3.35 TB/s (0.065 ms at the Market-1501 shape, Q=3368, G=15913). The kernel
+does work per valid positive, not per padded slot: one block per query
+sorts the query's valid slots in shared memory (rank by counting), builds
+a lookup table of distance buckets between the least and largest key, then
+its warps stream the distmat row once with 16-byte loads and put each
+column in the bin of the sorted keys at or before it (the table, plus a
+compare with the key of its own bucket; a column past the largest key is
+skipped). A scan of the gallery pids takes the junk columns back out of
+their bins, and a prefix sum of the bins gives each positive's count,
+exact in any order of the additions, written once. A query with more valid
+slots than one pass holds takes them in passes over its row. The TPU
+kernel's transposed layout and +inf row padding are not carried over.
 
 On a CPU tensor :func:`positive_rank_counts` computes the plain version; on
 a CUDA tensor it launches the kernel or raises.

@@ -8,7 +8,9 @@ the mean gray in different orders; measured about 1e-6); bf16 within one
 bf16 ulp of the larger magnitude, or 2e-5 where that ulp is finer (values
 near zero, where both round f32 values that differ by the f32 tolerance).
 The CUDA kernel itself is held against the same plain version on the card
-by ``chip_smoke.py``.
+by ``chip_smoke.py``. Its design (bands of rows, a mean gray summed in
+double and combined in a fixed order) is emulated here in plain torch and
+numpy and held against the interpret-mode kernel within 2e-5 (f32).
 """
 
 import re
@@ -173,3 +175,135 @@ def test_ctypes_signature_matches_the_c_entry_point():
     params = re.search(r'extern "C" int fused_augment\(([^)]*)\)', src).group(1).split(",")
     kinds = ["ptr" if "*" in p else "int" for p in params]
     assert kinds == ["ptr" if t.__name__ == "c_void_p" else "int" for t in fa.ARGTYPES]
+
+
+# ---- the CUDA kernel's design, emulated in plain torch and numpy ----
+def _kernel_constant(name: str) -> int:
+    src = (REPO / "daliid_tpu_torch" / "csrc" / "fused_augment.cu").read_text()
+    return eval(re.search(rf"constexpr int {name} = ([^;]+);", src).group(1))
+
+
+def _brightened(images, scal):
+    """Steps 3-4 of every source pixel, f32 in the kernel's order → (v, gray)."""
+    fb = scal[:, 3].view(-1, 1, 1, 1)
+    v = torch.clamp(images.float() * (1.0 / 255.0) * fb, 0.0, 1.0)
+    gray = v[..., 0] * 0.299 + v[..., 1] * 0.587 + v[..., 2] * 0.114
+    return v, gray
+
+
+def _band_sums(gray, scal, pad):
+    """Per image, the kernel's band sums of the gray over the source pixels
+    inside the crop: each CTA's band (and sub-bands) in row-major order,
+    thread t taking elements t, t + T, ... in double, a warp tree
+    (``__shfl_down_sync`` 16, 8, 4, 2, 1), then the warps in order."""
+    n_cl, n_thr, cap = (_kernel_constant(k) for k in ("kCluster", "kThreads", "kStageBytes"))
+    b, h, w = gray.shape
+    band = -(-h // n_cl)
+    sub = max(1, min(band, cap // (3 * w)))
+    out = np.zeros((b, n_cl))
+    for i in range(b):
+        dy, dx = int(scal[i, 0]) - pad, int(scal[i, 1]) - pad
+        g = gray[i].double().numpy()
+        for rank in range(n_cl):
+            y0 = min(h, rank * band)
+            y1 = min(h, y0 + band)
+            acc = np.zeros(n_thr)
+            for ys in range(y0, y1, sub):
+                rows = g[max(ys + dy, 0):max(min(min(y1, ys + sub) + dy, h), 0),
+                         max(0, dx):min(w, w + dx)].reshape(-1)
+                for t in range(n_thr):
+                    for x in rows[t::n_thr]:
+                        acc[t] += x
+            for w_ in range(n_thr // 32):
+                lanes = acc[32 * w_:32 * w_ + 32].copy()
+                for off in (16, 8, 4, 2, 1):
+                    lanes[:off] = lanes[:off] + lanes[off:2 * off]
+                acc[w_] = lanes[0]
+            s = 0.0
+            for w_ in range(n_thr // 32):
+                s += acc[w_]
+            out[i, rank] = s
+    return out
+
+
+def _k1_emulation(images, scal, pad):
+    """``csrc/fused_augment.cu`` in f32: the mean gray from the band sums
+    added in rank order, every other step the plain version's."""
+    b, h, w, _ = images.shape
+    sums = _band_sums(_brightened(images, scal)[1], scal, pad)
+    total = np.zeros(b)
+    for k in range(sums.shape[1]):
+        total = total + sums[:, k]
+    mean_gray = torch.from_numpy(total / (h * w)).float().view(b, 1, 1, 1)
+    # the plain version on the crop, with this mean gray in place of its own
+    oy, ox = scal[:, 0].long(), scal[:, 1].long()
+    flip = scal[:, 2] > 0.5
+    fc, fs = scal[:, 4].view(b, 1, 1, 1), scal[:, 5].view(b, 1, 1, 1)
+    ys, xs = torch.arange(h), torch.arange(w)
+    src_x = torch.where(flip[:, None], w - 1 - xs[None, :], xs[None, :]) + ox[:, None] - pad
+    src_y = ys[None, :] + oy[:, None] - pad
+    valid = (((src_y >= 0) & (src_y < h))[:, :, None] & ((src_x >= 0) & (src_x < w))[:, None, :])
+    bi = torch.arange(b).view(b, 1, 1)
+    crop = images[bi, src_y.clamp(0, h - 1)[:, :, None], src_x.clamp(0, w - 1)[:, None, :]]
+    crop = torch.where(valid[..., None], crop, torch.zeros((), dtype=torch.uint8))
+    x, gray = _brightened(crop, scal)
+    gray = gray[..., None]
+    x = torch.clamp(mean_gray + fc * (x - mean_gray), 0.0, 1.0)
+    x = torch.clamp(gray + fs * (x - gray), 0.0, 1.0)
+    ey, ex, eh, ew = (scal[:, k].long().view(b, 1, 1) for k in (6, 7, 8, 9))
+    inside = ((ys.view(1, h, 1) >= ey) & (ys.view(1, h, 1) < ey + eh)
+              & (xs.view(1, 1, w) >= ex) & (xs.view(1, 1, w) < ex + ew))
+    x = torch.where(inside[..., None], torch.zeros(()), x)
+    mean = torch.tensor([0.485, 0.456, 0.406])
+    std = torch.tensor([0.229, 0.224, 0.225])
+    return (x - mean) / std, total
+
+
+@pytest.mark.parametrize("shape,pad", [((3, 32, 16), 10), ((2, 37, 19), 4),
+                                       ((1, 512, 256), 10)])
+def test_kernel_design_emulation_matches_interpret_mode_pallas(shape, pad):
+    """Bands, sub-bands (512 x 256 overflows one stage) and the fixed-order
+    double combine, within 2e-5 (f32) of the interpret-mode kernel."""
+    b, h, w = shape
+    band = -(-h // _kernel_constant("kCluster"))
+    assert (band * 3 * w > _kernel_constant("kStageBytes")) == (h == 512)
+    rng = np.random.default_rng(b * 1000 + h)
+    drawn = draw_scalars(b, h, w, pad, *DEFAULTS, torch.Generator().manual_seed(h)).numpy()
+    scal = np.concatenate([drawn, _edge_rows(np.tile(drawn, (2, 1)), h, w, pad)])
+    images = rng.integers(0, 256, (scal.shape[0], h, w, 3), dtype=np.uint8)
+    want = np.asarray(_augment_core(jnp.asarray(images), jnp.asarray(scal), pad, jnp.float32,
+                                    interpret=True))
+    got, _ = _k1_emulation(torch.from_numpy(images), torch.from_numpy(scal), pad)
+    _assert_k1_close(got.numpy(), want, "float32")
+
+
+def test_default_knobs_gray_sum_is_exact_in_any_band_order():
+    """With the train defaults (fb >= 0.6) every nonzero gray is an f32 of at
+    least 2^-12, so a multiple of 2^-35, and a 2^15-pixel image sums below
+    2^15: 50 bits, inside double's 53. The double sum is then exact, the same
+    bits in the kernel's order, the bands reversed, or any order."""
+    b, h, w, pad = 4, 256, 128, 10
+    scal = draw_scalars(b, h, w, pad, *DEFAULTS, torch.Generator().manual_seed(3))
+    scal[0, 3] = 0.6  # the least brightness factor the defaults draw
+    images = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (b, h, w, 3),
+                                                                dtype=np.uint8))
+    images[0, 0, 0] = torch.tensor([0, 0, 1], dtype=torch.uint8)  # the least nonzero gray
+    gray = _brightened(images, scal)[1]
+    nz = gray[gray > 0].double().numpy()
+    assert nz.min() >= 2.0 ** -12
+    assert np.all(np.floor(nz * 2.0 ** 35) == nz * 2.0 ** 35)
+    sums = _band_sums(gray, scal, pad)
+    in_order = np.zeros(b)
+    for k in range(sums.shape[1]):
+        in_order = in_order + sums[:, k]
+    reversed_ = np.zeros(b)
+    for k in reversed(range(sums.shape[1])):
+        reversed_ = reversed_ + sums[:, k]
+    rng = np.random.default_rng(4)
+    for i in range(b):
+        dy, dx = int(scal[i, 0]) - pad, int(scal[i, 1]) - pad
+        g = gray[i, max(dy, 0):min(h + dy, h), max(dx, 0):min(w + dx, w)].double().numpy()
+        shuffled = 0.0
+        for x in rng.permutation(g.reshape(-1)):
+            shuffled += x
+        assert in_order[i] == reversed_[i] == shuffled == float(np.sum(g))
