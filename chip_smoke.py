@@ -6,7 +6,9 @@ Phases, in order; any failed check exits non-zero and prints no result:
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
    build every ``daliid_tpu_torch/csrc/*.cu`` with nvcc (one process per
    source, in parallel) and print each kernel's registers, static shared
-   memory and spills from ``-Xptxas=-v``; generate the synthetic set (100
+   memory and spills from ``-Xptxas=-v``; build the native JPEG loader
+   (``g++``, libjpeg) and print which decoder the host path takes, with the
+   compiler's message if the build failed; generate the synthetic set (100
    identities).
 2. K2 ``rank_counts`` against its plain version on the card: random and
    tie-fuzzed distances, ragged and odd G, the evaluate path's shape, Q=64
@@ -47,7 +49,22 @@ Phases, in order; any failed check exits non-zero and prints no result:
     SDPA routes agree within 1e-3 in f32.
 11. transformer train: a JPM ``Trainer`` epoch with K4, then the train CLI
     with ``--model_name transreid_jpm`` on SDPA.
-12. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
+12. evaluate-fusion: ``cli.evaluate_fusion.main`` on two ResNet-50
+    checkpoints written from seeds 21 and 22 (bf16, 256x128), with the ROC
+    dump: 7 rankings (concat, clean, distortion, average, magnitude under
+    gap / gmp / both), K2 launched exactly 7 times, every CMC equal to the
+    numpy oracle on the distmat it ranked and mAP within 1e-12.
+13. evaluate-ensemble: ``cli.evaluate_ensemble.main`` over the seed-21
+    ResNet-50 and a seeded ``resnet50IBN``: 3 rankings, K2 3 times.
+14. multi-head evaluate: ``cli.evaluate.main --model_name
+    multipart_resnet50 --multiple_output --mrfuse``: 4 heads, the ensemble
+    and the meta-recognition fusion, K2 6 times, each against the oracle.
+15. search past K3's cap: ``cli.search.main --topk 100`` launches no K3; an
+    SQ8 index on the card answers k = 100 bit-exactly like the same index
+    on the CPU; a serve batch (``IdentificationService``) mixing topk 100
+    and topk 5 answers both like their own searches, and K3 runs only for
+    the topk-5 search made alone.
+16. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
     D=2048, k=10 over 2^20 gallery rows (the f32 bound is the tensor
     cores': bytes, or 3 TF32 products a multiply-add), and at the serve
     path's shape; K2 at the Market-1501 protocol shape (Q=3368, G=15913) at
@@ -56,18 +73,21 @@ Phases, in order; any failed check exits non-zero and prints no result:
     JPM train shapes in bf16, with the attention backward (plain f32 torch)
     alone; one ResNet-50 train step split into augment, forward+backward and
     Adam+EMA, with img/s, peak device memory, the host decode time of one
-    batch (with 1, 4 and the trainer's default number of threads), the train
-    loop's steady rate with decode on its prefetch thread
-    (``PIPELINE_BATCHES`` steps, timed after the first batch has arrived)
+    batch (with 1, 4 and the trainer's default number of threads) and the
+    train loop's steady rate with decode on its prefetch thread
+    (``PIPELINE_BATCHES`` steps, timed after the first batch has arrived),
+    each with the native loader and with PIL
     and a ``torch.profiler`` view of three steps (the device's busy time,
     its share of the wall time, the largest kernels); ResNet-50 extraction
     img/s at batch 64 and 512 in bf16; the JPM train step and extraction at
-    512 with K4 and with SDPA.
+    512 with K4 and with SDPA; ``magnitude_weighted_distmat`` and the 7
+    rankings of evaluate-fusion at Market-1501's protocol shape.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. Counts of launches are set to 0 just
-before each of the serve, search, evaluate, train, transformer evaluate and
-transformer train phases and read just after.
+before each of the serve, search, evaluate, train, transformer evaluate,
+transformer train, fusion, ensemble, multi-head and k > 64 search phases
+and read just after.
 
 Run from the repository root: ``python3 chip_smoke.py``. The kernels,
 the synthetic sets, the saved index and the checkpoints go under ``build/``.
@@ -477,38 +497,19 @@ def phase_search(torch, counts):
 
 # ---------------------------------------------------------------- phase 6
 def phase_evaluate(torch, counts):
-    import numpy as np
-
     from daliid_tpu_torch.cli import evaluate
-    from daliid_tpu_torch.eval import validate
-    from daliid_tpu_torch.metrics.ranking import evaluate_rank_numpy
-
-    seen = {}
-    ranked = validate.evaluate_rank
-
-    def recording_rank(distmat, q_pids, g_pids, q_camids, g_camids, **kw):
-        seen.update(distmat=distmat.cpu().numpy(), ids=(q_pids, g_pids, q_camids, g_camids),
-                    max_rank=kw["max_rank"])
-        return ranked(distmat, q_pids, g_pids, q_camids, g_camids, **kw)
 
     args = evaluate.build_argparser().parse_args(
         ["--targets", "Synthetic", "--data_root", str(WORK / "data"), "--model_name", "resnet50",
          "--compute_dtype", COMPUTE_DTYPE, *_img_flags()])
-    validate.evaluate_rank = recording_rank
     counts.reset()
-    try:
+    with RankRecorder() as rec:
         cmc, mAP = evaluate.main(args)["Synthetic"]
-    finally:
-        validate.evaluate_rank = ranked
     launched = counts.read()
     check(launched["rank_counts"] > 0, "the evaluate path did not launch K2")
-    cmc_n, map_n = evaluate_rank_numpy(seen["distmat"], *seen["ids"], max_rank=seen["max_rank"])
-    check(np.isfinite(seen["distmat"]).all(), "distance matrix is not finite")
-    check(np.array_equal(cmc, cmc_n), f"CMC {cmc[:5]} != numpy oracle {cmc_n[:5]}")
-    check(abs(mAP - map_n) <= 1e-12, f"mAP {mAP!r} != numpy oracle {map_n!r}")
-    log(f"evaluate: R1 {cmc[0]:.4f} mAP {mAP:.6f} (oracle R1 {cmc_n[0]:.4f} mAP {map_n:.6f}, "
-        f"|mAP diff| {abs(mAP - map_n):.3g}), distmat {seen['distmat'].shape}, "
-        f"launches {launched}")
+    err = rec.check_oracle("evaluate")
+    log(f"evaluate: R1 {cmc[0]:.4f} mAP {mAP:.6f} (CMC equal to the numpy oracle, |mAP diff| "
+        f"{err:.3g}), distmat {rec.calls[0][0].shape}, launches {launched}")
     return launched
 
 
@@ -847,6 +848,267 @@ def phase_transformer_train(torch, dev, root, counts):
     log(f"transformer train CLI (JPM bf16, SDPA): 1 epoch of {steps} steps in {seconds:.1f} s, "
         f"loss {progress[0]['loss']:.5f}; launches {cli}")
     return {k: launched[k] + cli[k] for k in launched}
+
+
+# ---------------------------------------------------------------- phases 12-15
+class RankRecorder:
+    """Records every ``evaluate_rank`` call of the validators (the distmat
+    on the host, the id tables, the result) while it is active, so each
+    ranking of a CLI is held against the numpy oracle afterwards."""
+
+    def __init__(self):
+        from daliid_tpu_torch.eval import validate
+
+        self.validate, self.ranked, self.calls = validate, validate.evaluate_rank, []
+
+    def __enter__(self):
+        def rank(distmat, q_pids, g_pids, q_camids, g_camids, **kw):
+            out = self.ranked(distmat, q_pids, g_pids, q_camids, g_camids, **kw)
+            self.calls.append((distmat.cpu().numpy(), (q_pids, g_pids, q_camids, g_camids),
+                               kw["max_rank"], out))
+            return out
+
+        self.validate.evaluate_rank = rank
+        return self
+
+    def __exit__(self, *exc):
+        self.validate.evaluate_rank = self.ranked
+
+    def check_oracle(self, what: str) -> float:
+        """Every recorded CMC equal to ``evaluate_rank_numpy``'s on its
+        distmat, mAP within 1e-12; → the largest |mAP diff|."""
+        import numpy as np
+
+        from daliid_tpu_torch.metrics.ranking import evaluate_rank_numpy
+
+        worst = 0.0
+        for i, (distmat, ids, max_rank, (cmc, mAP)) in enumerate(self.calls):
+            check(np.isfinite(distmat).all(), f"{what}: ranking {i} has a non-finite distmat")
+            cmc_n, map_n = evaluate_rank_numpy(distmat, *ids, max_rank=max_rank)
+            check(np.array_equal(cmc, cmc_n), f"{what}: ranking {i} CMC != numpy oracle")
+            check(abs(mAP - map_n) <= 1e-12, f"{what}: ranking {i} mAP {mAP} != oracle {map_n}")
+            worst = max(worst, abs(mAP - map_n))
+        return worst
+
+
+def write_checkpoint(torch, name: str, seed: int) -> str:
+    """A ``state_dict`` of ``name`` with weights from ``seed``, as a torch
+    checkpoint the evaluate CLIs load."""
+    from daliid_tpu_torch.models import get_model
+
+    module = get_model(name, torch.Generator().manual_seed(seed), img_size=IMG).module
+    path = WORK / f"{name}_seed{seed}.pt"
+    torch.save(module.state_dict(), path)
+    return str(path)
+
+
+def _eval_flags() -> list:
+    return ["--data_root", str(WORK / "data"), "--compute_dtype", COMPUTE_DTYPE,
+            "--batch_size", str(EXTRACT_BATCH), *_img_flags()]
+
+
+def phase_fusion(torch, counts):
+    """``cli.evaluate_fusion.main`` (the paper's clean + distorted fusion) on
+    two ResNet-50 checkpoints written from different seeds, with the ROC
+    dump; 7 rankings, K2 once each, every CMC equal to the numpy oracle."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import evaluate_fusion
+
+    clean, dist = write_checkpoint(torch, "resnet50", 21), write_checkpoint(torch, "resnet50", 22)
+    args = evaluate_fusion.build_argparser().parse_args(
+        ["--dataset", "Synthetic", "--model_path_clean", clean, "--model_path_distortion", dist,
+         "--roc_version", "chip_smoke", *_eval_flags()])
+    cwd = os.getcwd()
+    os.chdir(WORK)  # the ROC files go to the working directory
+    counts.reset()
+    t0 = time.time()
+    try:
+        with RankRecorder() as rec:
+            results = evaluate_fusion.main(args)
+    finally:
+        os.chdir(cwd)
+    seconds = time.time() - t0
+    launched = counts.read()
+    tags = ["concat", "clean", "distortion", "average", "magnitude_gap", "magnitude_gmp",
+            "magnitude_both"]
+    check(list(results) == tags, f"evaluate-fusion reported {list(results)}")
+    check(launched["rank_counts"] == len(tags),
+          f"evaluate-fusion launched K2 {launched['rank_counts']} times for {len(tags)} rankings")
+    err = rec.check_oracle("evaluate-fusion")
+    d_clean, d_dist = rec.calls[1][0], rec.calls[2][0]
+    check(float(np.abs(d_clean - d_dist).max()) > 1e-3, "the two checkpoints rank alike")
+    fpr = np.load(WORK / "FPR_chip_smoke.npy")
+    tpr = np.load(WORK / "TPR_chip_smoke.npy")
+    check(fpr[0] == tpr[0] == 0 and fpr[-1] == tpr[-1] == 1 and (np.diff(fpr) >= 0).all(),
+          "the ROC dump is not a curve from (0, 0) to (1, 1)")
+    log(f"evaluate-fusion: {seconds:.2f} s, "
+        + ", ".join(f"{t} R1 {r['rank1']:.4f} mAP {r['mAP']:.6f}" for t, r in results.items())
+        + f"; every CMC equal to the numpy oracle (|mAP diff| <= {err:.3g}); ROC {fpr.size} "
+          f"points; launches {launched}")
+    return launched, seconds
+
+
+def phase_ensemble(torch, counts):
+    """``cli.evaluate_ensemble.main`` over a ResNet-50 checkpoint and a
+    seeded ``resnet50IBN``: 3 rankings through K2."""
+    from daliid_tpu_torch.cli import evaluate_ensemble
+
+    args = evaluate_ensemble.build_argparser().parse_args(
+        ["--dataset", "Synthetic", "--model_name01", "resnet50", "--model_path01",
+         write_checkpoint(torch, "resnet50", 21), "--model_name02", "resnet50IBN",
+         *_eval_flags()])
+    counts.reset()
+    t0 = time.time()
+    with RankRecorder() as rec:
+        results = evaluate_ensemble.main(args)
+    seconds = time.time() - t0
+    launched = counts.read()
+    check(list(results) == ["model01", "model02", "ensemble"],
+          f"evaluate-ensemble reported {list(results)}")
+    check(launched["rank_counts"] == 3, f"evaluate-ensemble launched K2 {launched}")
+    err = rec.check_oracle("evaluate-ensemble")
+    log(f"evaluate-ensemble (resnet50 + resnet50IBN): {seconds:.2f} s, "
+        + ", ".join(f"{t} R1 {r['rank1']:.4f} mAP {r['mAP']:.6f}" for t, r in results.items())
+        + f"; CMC equal to the numpy oracle (|mAP diff| <= {err:.3g}); launches {launched}")
+    return launched, seconds
+
+
+def phase_multihead(torch, counts):
+    """``cli.evaluate.main --model_name multipart_resnet50 --multiple_output
+    --mrfuse``: 4 heads, the ensemble and the meta-recognition fusion, K2
+    once each."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import evaluate
+
+    args = evaluate.build_argparser().parse_args(
+        ["--targets", "Synthetic", "--model_name", "multipart_resnet50", "--multiple_output",
+         "--mrfuse", *_eval_flags()])
+    counts.reset()
+    t0 = time.time()
+    with RankRecorder() as rec:
+        results = evaluate.main(args)
+    seconds = time.time() - t0
+    launched = counts.read()
+    check(list(results) == ["Synthetic", "Synthetic:mrfuse"], f"evaluate reported {list(results)}")
+    check(launched["rank_counts"] == 6,
+          f"multipart --multiple_output --mrfuse launched K2 {launched['rank_counts']} times, "
+          f"not 6 (4 heads, the ensemble, mrfuse)")
+    err = rec.check_oracle("evaluate --multiple_output --mrfuse")
+    check(all(np.isfinite(cmc).all() for _, _, _, (cmc, _) in rec.calls), "non-finite CMC")
+    log(f"evaluate multipart_resnet50 --multiple_output --mrfuse: {seconds:.2f} s, "
+        + ", ".join(f"R1 {cmc[0]:.4f} mAP {mAP:.6f}" for _, _, _, (cmc, mAP) in rec.calls)
+        + f" (heads 0-3, ensemble, mrfuse); CMC equal to the numpy oracle (|mAP diff| <= "
+          f"{err:.3g}); launches {launched}")
+    return launched, seconds
+
+
+def phase_search_k100(torch, dev, counts):
+    """``search --topk 100`` (past K3's cap: the library route, K3 not
+    launched), the SQ8 route at k = 100 bit-exact against the index on the
+    CPU, and a serve batch mixing topk 100 and 5: both answered like their
+    own searches, K3 launched only for the search with k <= 64."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import search, serve
+    from daliid_tpu_torch.eval.matcher import GalleryIndex
+
+    args = search.build_argparser().parse_args(
+        ["--dataset", "Synthetic", "--data_root", str(WORK / "data"), "--model_name", "resnet50",
+         "--batch_size", "64", "--topk", "100", "--compute_dtype", COMPUTE_DTYPE, *_img_flags()])
+    counts.reset()
+    sims, ids, pids = search.main(args)
+    cli = counts.read()
+    check(sims.shape[1] == 100 and np.isfinite(sims).all() and (np.diff(sims, axis=1) <= 0).all(),
+          f"search --topk 100 gave sims {sims.shape}")
+    check(cli["search_topk_f32"] == 0 and cli["search_topk_sq8"] == 0,
+          f"search --topk 100 launched K3: {cli}")
+
+    rng = np.random.default_rng(6)
+    g = rng.normal(size=(400, 2048)).astype(np.float32)
+    on_card = GalleryIndex(g, np.arange(400), quantize="int8", device=dev)
+    on_cpu = GalleryIndex(g, np.arange(400), quantize="int8", device="cpu")
+    probes = g[:64] + 0.1 * rng.normal(size=(64, 2048)).astype(np.float32)
+    (v, i, _), (v_c, i_c, _) = on_card.search(probes, k=100), on_cpu.search(probes, k=100)
+    check(np.array_equal(i, i_c) and np.array_equal(v, v_c),
+          "SQ8 search at k = 100 on the card differs from the CPU index")
+
+    service = serve.IdentificationService(None, None, index_quantize="int8", device=dev)
+    check(service.handle({"op": "enroll", "embeddings": g.tolist(),
+                          "pids": list(range(400))})["ok"], "enroll by embeddings failed")
+    reqs = [{"op": "search", "embeddings": probes[:3].tolist(), "topk": 100},
+            {"op": "search", "embeddings": probes[3:5].tolist(), "topk": 5}]
+    counts.reset()
+    alone = [service.handle(r) for r in reqs]
+    alone_launches = counts.read()
+    entries = [{"req": r, "event": threading.Event(), "result": None} for r in reqs]
+    counts.reset()
+    with service._lock:
+        service._serve_search_batch(entries)
+    mixed = counts.read()
+    check(alone_launches["search_topk_sq8"] == 1 and mixed["search_topk_sq8"] == 0,
+          f"K3 launches: alone {alone_launches}, mixed batch {mixed}")
+    for e, a in zip(entries, alone):
+        r = e["result"]
+        check(r["ok"] and a["ok"] and r["indices"] == a["indices"] and r["pids"] == a["pids"]
+              and np.abs(np.asarray(r["sims"]) - np.asarray(a["sims"])).max() <= 1e-6,
+              f"the mixed batch answered {e['req']['topk']} unlike its own search")
+    log(f"search --topk 100: sims {sims.shape}, K3 launches {cli}; SQ8 k=100 on the card == "
+        f"CPU index (bit-exact); serve batch of topk 100 + 5: both answered like alone, K3 "
+        f"launches alone {alone_launches['search_topk_sq8']}, mixed "
+        f"{mixed['search_topk_sq8']}")
+    return {k: cli[k] + alone_launches[k] + mixed[k] for k in cli}
+
+
+def loader_status() -> dict:
+    """Which decoder the port's host path takes, and why."""
+    import ctypes.util
+
+    from daliid_tpu_torch.data import native_loader
+
+    t0 = time.time()
+    ok = native_loader.native_loader_available()
+    pillow = native_loader.pillow_libjpeg()
+    status = {"native_loader": ok, "linked_libjpeg": native_loader.linked(),
+              "build_s": time.time() - t0, "gxx": shutil.which("g++"),
+              "system_libjpeg": ctypes.util.find_library("jpeg"),
+              "system_jpeglib_h": os.path.exists("/usr/include/jpeglib.h"),
+              "pillow_libjpeg": str(pillow) if pillow else None,
+              "build_error": native_loader.build_error()}
+    log(f"host decoder: {'native C++ loader' if ok else 'PIL'}; {json.dumps(status)}")
+    return status
+
+
+def _time_fusion_at_market(torch, dev):
+    """``magnitude_weighted_distmat`` (CUDA events) and the 7 rankings of
+    evaluate-fusion (host clock, each ending in its CMC on the host) at
+    Market-1501's protocol shape."""
+    from daliid_tpu_torch.eval.fusion import magnitude_weighted_distmat
+    from daliid_tpu_torch.metrics.ranking import evaluate_rank
+
+    dist_a, q_pids, g_pids, q_cams, g_cams = market_like(torch, dev, seed=5)
+    dist_b = market_like(torch, dev, seed=6)[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    n_q, n_g = dist_a.shape
+    mags = [torch.rand((n, 1), generator=gen, device=dev) + 0.5 for n in (n_q, n_g, n_q, n_g)]
+    fused = magnitude_weighted_distmat(dist_a, dist_b, *mags)
+    ms = cuda_ms(torch, lambda: magnitude_weighted_distmat(dist_a, dist_b, *mags), reps=20)
+    bytes_ = 3 * 4 * n_q * n_g + 8 * (n_q + n_g)
+    ids = (q_pids, g_pids, q_cams, g_cams)
+    evaluate_rank(fused, *ids)  # warm
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for d in (dist_a, dist_b, fused, dist_a, fused, dist_b, fused):
+        evaluate_rank(d, *ids)
+    rank_s = (time.time() - t0) / 7
+    out = {"shape": f"Q={n_q} G={n_g}", "magnitude_weighted_distmat_ms": ms,
+           "magnitude_bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
+           "ranking_ms_each": rank_s * 1e3, "seven_rankings_ms": 7 * rank_s * 1e3}
+    log(f"fusion at Market-1501's shape (CUDA events; rankings host clock): {json.dumps(out)}")
+    del dist_a, dist_b, fused
+    return out
 
 
 # ---------------------------------------------------------------- phase 12
@@ -1189,8 +1451,12 @@ def _profile_steps(torch, step, steps: int) -> dict:
 def _time_train_step(torch, dev, root):
     """One train step at the path's shape, split with CUDA events into K1
     augment, forward+backward and Adam+EMA; the whole step's img/s and peak
-    device memory; the host decode time of one batch."""
-    from daliid_tpu_torch.data import load_dataset
+    device memory; the host decode time of one batch and the prefetching
+    loop's steady rate with the native loader and with PIL (the native
+    loader's batch held against PIL's, mean |diff| < 1.5, p99 <= 6)."""
+    import numpy as np
+
+    from daliid_tpu_torch.data import load_dataset, native_loader
     from daliid_tpu_torch.models import build_model_pair
     from daliid_tpu_torch.train.sampler import PKBatchSampler
     from daliid_tpu_torch.train.trainer import Trainer
@@ -1207,26 +1473,48 @@ def _time_train_step(torch, dev, root):
     centers, proxies, proxy_labels = put(pset.centers), put(pset.proxies), \
         put(pset.proxy_labels).long()
     batch = next(iter(sampler.epoch()))
-    trainer._decode_batch(batch.paths)  # warm the decode path
-    decode_ms = {}
-    default_workers = trainer.decode_workers
-    for workers in sorted({1, 4, default_workers}):
-        trainer.decode_workers = workers
-        t0 = time.time()
-        for _ in range(2):
-            trainer._decode_batch(batch.paths)
-        decode_ms[workers] = (time.time() - t0) / 2 * 1e3
-    trainer.decode_workers = default_workers
     rest = (centers, proxies, proxy_labels, 1)
-    # the train loop as it runs: decode on the prefetch thread, steps on the
-    # card; timed from the second batch's arrival, after the pipeline's fill
     batches = [b for _ in range(PIPELINE_BATCHES // 2) for b in sampler.epoch()]
-    arrivals = []
-    for images_u8, labels, distortions, mask, _ in trainer.staged_batches(batches):
-        arrivals.append(time.time())
-        trainer.train_step(images_u8, labels, distortions, mask, *rest)
-    torch.cuda.synchronize(dev)
-    pipeline_ms = (time.time() - arrivals[1]) / (len(batches) - 1) * 1e3
+    default_workers = trainer.decode_workers
+    decoders = {"pil": False}
+    if native_loader.native_loader_available():
+        decoders = {"native": True, "pil": False}
+        native = trainer._decode_batch(batch.paths)
+    host = {}
+    available = native_loader.native_loader_available
+    try:
+        for decoder, on in decoders.items():
+            # PIL takes over the same decode calls while the loader is switched off
+            native_loader.native_loader_available = available if on else (lambda: False)
+            decoded = trainer._decode_batch(batch.paths)  # warm the decode path
+            if decoder == "pil" and "native" in decoders:
+                diff = np.abs(native.astype(np.int32) - decoded.astype(np.int32))
+                check(diff.mean() < 1.5 and np.percentile(diff, 99) <= 6,
+                      f"the native loader differs from PIL: mean |diff| {diff.mean():.3f}")
+                host["native_vs_pil_mean_abs_diff"] = float(diff.mean())
+            decode_ms = {}
+            for workers in sorted({1, 4, default_workers}):
+                trainer.decode_workers = workers
+                t0 = time.time()
+                for _ in range(2):
+                    trainer._decode_batch(batch.paths)
+                decode_ms[workers] = (time.time() - t0) / 2 * 1e3
+            trainer.decode_workers = default_workers
+            # the train loop as it runs: decode on the prefetch thread, steps on
+            # the card; timed from the second batch's arrival, after the fill
+            arrivals = []
+            for images_u8, labels, distortions, mask, _ in trainer.staged_batches(batches):
+                arrivals.append(time.time())
+                trainer.train_step(images_u8, labels, distortions, mask, *rest)
+            torch.cuda.synchronize(dev)
+            pipeline_ms = (time.time() - arrivals[1]) / (len(batches) - 1) * 1e3
+            host[decoder] = {"host_decode_ms_per_batch": decode_ms[default_workers],
+                             "host_decode_ms_by_threads": decode_ms,
+                             "pipeline_ms_per_step": pipeline_ms,
+                             "pipeline_img_per_s": len(batch.paths) / pipeline_ms * 1e3}
+    finally:
+        native_loader.native_loader_available = available
+    path = host["native" if "native" in decoders else "pil"]
     images_u8, labels, distortions, mask, _ = (t.to(dev) for t in trainer._stage(batch))
     rest = (labels, distortions, mask) + rest
     images = trainer.augment(images_u8)
@@ -1239,11 +1527,8 @@ def _time_train_step(torch, dev, root):
     b = images_u8.shape[0]
     split = {"batch": b, "step_ms": step_ms, "img_per_s": b / step_ms * 1e3,
              "augment_ms": aug_ms, "forward_backward_ms": fb_ms, "adam_ema_ms": upd_ms,
-             "peak_memory_gb": peak / 1e9,
-             "host_decode_ms_per_batch": decode_ms[default_workers],
-             "host_decode_ms_by_threads": decode_ms, "host_cpus": os.cpu_count(),
-             "pipeline_steps": len(batches) - 1, "pipeline_ms_per_step": pipeline_ms,
-             "pipeline_img_per_s": b / pipeline_ms * 1e3,
+             "peak_memory_gb": peak / 1e9, **path, "host_by_decoder": host,
+             "host_cpus": os.cpu_count(), "pipeline_steps": len(batches) - 1,
              **_profile_steps(torch, lambda: trainer.train_step(images_u8, *rest), steps=3)}
     log(f"train step (ResNet-50 bf16, {b} images of 256x128, CUDA events): {json.dumps(split)}")
     del trainer, online, momentum, images
@@ -1342,6 +1627,7 @@ def main() -> int:
         return 0
     t_start = time.time()
     card, dev, ptxas = phase_device(torch)
+    decoder = loader_status()
     splits = make_dataset()
     n_g, n_q = len(splits["gallery"]), len(splits["query"])
     capacity = 1 << (n_g - 1).bit_length()
@@ -1356,12 +1642,23 @@ def main() -> int:
 
     counts = Counts()
     launches = {name: 0 for name in KERNELS}
+    walls = {}
+
+    def timed(name, phase):
+        launched, walls[name] = phase()
+        return launched
+
     for phase in (lambda: phase_serve(torch, splits, counts)[0],
                   lambda: phase_search(torch, counts),
                   lambda: phase_evaluate(torch, counts),
                   lambda: phase_train(torch, counts, train_root),
                   lambda: phase_transformer_evaluate(torch, dev, splits, counts),
-                  lambda: phase_transformer_train(torch, dev, train_root, counts)):
+                  lambda: phase_transformer_train(torch, dev, train_root, counts),
+                  lambda: timed("evaluate-fusion", lambda: phase_fusion(torch, counts)),
+                  lambda: timed("evaluate-ensemble", lambda: phase_ensemble(torch, counts)),
+                  lambda: timed("evaluate multipart --multiple_output --mrfuse",
+                                lambda: phase_multihead(torch, counts)),
+                  lambda: phase_search_k100(torch, dev, counts)):
         for name, n in phase().items():
             launches[name] += n
     counts.reset()
@@ -1388,6 +1685,7 @@ def main() -> int:
         lib = Path(KERNELS[name]["source"]).stem
         results[name]["ptxas"] = {k: ptxas.get(lib, {}).get(k) for k in kernels}
     step = _time_train_step(torch, dev, train_root)
+    fusion_times = _time_fusion_at_market(torch, dev)
     rates = _time_extraction(torch, dev)
     jpm = _time_jpm(torch, dev, train_root)
     for name, r in results.items():
@@ -1406,6 +1704,19 @@ def main() -> int:
         f"{step['profiled_device_busy_ms_per_step']:.3f} ms a step "
         f"({100 * step['profiled_busy_share']:.1f}% of the wall time), BN kernels "
         f"{step['batch_norm_kernels_ms_per_step']:.3f} ms a step")
+    for name, h in step["host_by_decoder"].items():
+        if isinstance(h, dict):
+            log(f"host decode ({name}): {h['host_decode_ms_per_batch']:.1f} ms a batch of "
+                f"{step['batch']} (by threads {json.dumps(h['host_decode_ms_by_threads'])}); "
+                f"the loop with decode prefetched {h['pipeline_ms_per_step']:.1f} ms a step, "
+                f"{h['pipeline_img_per_s']:.1f} img/s")
+    log(f"host decoder on the main path: "
+        f"{'native C++ loader, ' + decoder['linked_libjpeg'] + ' libjpeg' if decoder['native_loader'] else 'PIL'}")
+    log("evaluation wall times (bf16, 256x128, 600 images, seconds): " + json.dumps(walls))
+    log(f"fusion at Market-1501's shape: magnitude_weighted_distmat "
+        f"{fusion_times['magnitude_weighted_distmat_ms']:.4f} ms (bound "
+        f"{fusion_times['magnitude_bound_ms']:.4f} ms, bytes), 7 rankings "
+        f"{fusion_times['seven_rankings_ms']:.1f} ms")
     k4_forward = (12 * results["flash_attention"]["ms"]
                   + 4 * results["flash_attention"]["at_n53"]["ms"])
     for route in ("k4", "sdpa"):

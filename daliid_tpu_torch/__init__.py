@@ -1,12 +1,15 @@
 """daliid_tpu_torch — the PyTorch/CUDA port of ``daliid_tpu``.
 
-The port trains, serves and evaluates ResNet-50 ReID and the ViT /
+The port trains, serves and evaluates the ResNet ReID family and the ViT /
 TransReID-JPM family on an NVIDIA H100: the training loop
 (``cli/train.py``, turbulence-paired PK batches, center and proxy losses,
 Adam, the EMA momentum model, per-epoch proxy mining), the identification
-daemon (``cli/serve.py``), the one-shot search CLI
-(``cli/search.py``) and single-model evaluation (``cli/evaluate.py``). Its
-layout mirrors ``daliid_tpu`` module for module. It imports nothing of
+daemon (``cli/serve.py``), the one-shot search CLI (``cli/search.py``),
+single-model evaluation with multi-head ensembles and meta-recognition
+(``cli/evaluate.py``), and the DaliID clean + distorted fusion and the
+two-model ensemble (``cli/evaluate_fusion.py``,
+``cli/evaluate_ensemble.py``). Its layout mirrors ``daliid_tpu`` module for
+module. It imports nothing of
 ``daliid_tpu`` and no JAX: what it needs from there is copied.
 
 The four kernels the JAX package wrote in Pallas are hand-written CUDA for

@@ -13,6 +13,10 @@ import sys
 COMMANDS = {
     "serve": ("cli.serve", "persistent identification daemon (TCP JSON protocol)"),
     "evaluate": ("cli.evaluate", "single-model evaluation (evaluate.py)"),
+    "evaluate-ensemble": ("cli.evaluate_ensemble",
+                          "two-model ensemble evaluation (evaluate_ensembled_models.py)"),
+    "evaluate-fusion": ("cli.evaluate_fusion",
+                        "clean+distorted magnitude fusion (evaluateCleanATModels.py)"),
     "search": ("cli.search", "gallery search service"),
     "train": ("cli.train", "training loop (mainKIT.py)"),
 }

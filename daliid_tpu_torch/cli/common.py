@@ -12,6 +12,13 @@ def reject_unported(args, defaults: dict) -> None:
             raise SystemExit(f"--{name} is not yet ported to daliid_tpu_torch")
 
 
+def reject_briar(*datasets: str) -> None:
+    """The BRIAR manifests are not ported yet."""
+    if "BRIAR" in datasets:
+        raise SystemExit("the BRIAR dataset (manifest evaluation) is not yet ported to "
+                         "daliid_tpu_torch")
+
+
 MULTIHOST_FLAGS = {"multihost": False, "coordinator_address": None,
                    "num_processes": None, "process_id": None}
 

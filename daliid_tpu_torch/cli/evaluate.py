@@ -3,10 +3,14 @@
 Loads a backbone and weights, extracts query and gallery embeddings, builds
 the cosine distance matrix on the device and ranks CMC/mAP through kernel
 K2. Flags are the JAX CLI's (``:31-110``) plus ``--device``, with its
-checks (``:136-150``, ``:203-216``): ``--sie_cameras`` and ``--sie_coef`` for
-the SIE models, ``--gelu_approx`` for the ViT family. The flags of features
-not ported yet (turbulence galleries, BRIAR manifests, multi-head
-ensembles, re-ranking, sharded and multi-host evaluation, int8 extraction)
+checks (``:136-150``, ``:170``, ``:203-216``): ``--sie_cameras`` and
+``--sie_coef`` for the SIE models, ``--gelu_approx`` for the ViT family,
+``--head_weighting`` only with ``--multiple_output``. A multi-head model
+with ``--multiple_output`` reports each head, then the heads' ensemble
+(``--head_weighting``), then with ``--mrfuse`` the meta-recognition fusion
+of the first three heads' similarities (``:278-317``, the replicated path).
+The flags of features not ported yet (turbulence galleries, BRIAR
+manifests, re-ranking, sharded and multi-host evaluation, int8 extraction)
 exit with an error that names them.
 
 Example::
@@ -25,11 +29,13 @@ from daliid_tpu_torch.cli.common import (
     MULTIHOST_FLAGS,
     add_multihost_flags,
     check_camera_ids,
+    reject_briar,
     reject_unported,
 )
 from daliid_tpu_torch.data.registry import load_dataset
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
+from daliid_tpu_torch.eval.meta_recognition import mrfuse
 from daliid_tpu_torch.eval.validate import get_validator
 from daliid_tpu_torch.models.factory import GELU_APPROX_MODELS, SIE_MODELS, get_model
 from daliid_tpu_torch.models.torch_port import load_state
@@ -37,7 +43,6 @@ from daliid_tpu_torch.models.torch_port import load_state
 _UNPORTED = {
     "turbulence_dir_path": None, "turbulence_strength": None,
     "train_file_path": None, "queries_file_path": None, "gallery_file_path": None,
-    "multiple_output": False, "mrfuse": False, "head_weighting": "mean",
     "rerank": False, "quantize": None, "calib_batches": 1, **MULTIHOST_FLAGS,
 }
 
@@ -58,10 +63,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--train_file_path", type=str, default=None, help="not yet ported")
     p.add_argument("--queries_file_path", type=str, default=None, help="not yet ported")
     p.add_argument("--gallery_file_path", type=str, default=None, help="not yet ported")
-    p.add_argument("--multiple_output", action="store_true", help="not yet ported")
-    p.add_argument("--mrfuse", action="store_true", help="not yet ported")
+    p.add_argument("--multiple_output", action="store_true",
+                   help="multi-head models: report every head and their ensemble")
+    p.add_argument("--mrfuse", action="store_true",
+                   help="with --multiple_output: Weibull meta-recognition fusion of the "
+                        "first three heads")
     p.add_argument("--head_weighting", type=str, default="mean",
-                   choices=["mean", "magnitude"], help="not yet ported")
+                   choices=["mean", "magnitude"],
+                   help="head ensemble of --multiple_output: the mean distmat (the "
+                        "reference's active merge) or the per-pair max-norm weighting")
     p.add_argument("--rerank", action="store_true", help="not yet ported")
     p.add_argument("--sie_cameras", type=int, default=0,
                    help="SIE camera-embedding table size for TransReID backbones "
@@ -113,9 +123,10 @@ def main(args):
     reject_unported(args, _UNPORTED)
     if args.sharded_eval:
         raise SystemExit("--sharded_eval is not yet ported to daliid_tpu_torch")
-    if "BRIAR" in args.targets:
-        raise SystemExit("the BRIAR target (manifest evaluation) is not yet ported")
+    reject_briar(*args.targets)
     check_transformer_flags(args)
+    if args.head_weighting != "mean" and not args.multiple_output:
+        raise SystemExit("--head_weighting applies only with --multiple_output")
     device = resolve_device(args.device)
     img_size = (args.img_height, args.img_width)
     bundle = load_bundle(args.model_name, args.model_path, img_size,
@@ -133,12 +144,32 @@ def main(args):
                                   device=device)
         q_fvs = extractor.extract(queries, verbose=True)
         g_fvs = extractor.extract(gallery, verbose=True)
-        cmc, mAP = validator.rank(validator.distance_matrix(q_fvs, g_fvs), queries, gallery)
-        print(f"[{target}] mAP: {mAP:.2%}")
-        for r in (1, 5, 10, 20):
-            if r <= len(cmc):
-                print(f"[{target}] Rank-{r:<3}: {cmc[r - 1]:.2%}")
-        results[target] = (cmc, mAP)
+
+        def report(tag, distmat):
+            cmc, mAP = validator.rank(distmat, queries, gallery)
+            print(f"[{target}{tag}] mAP: {mAP:.2%}")
+            for r in (1, 5, 10, 20):
+                if r <= len(cmc):
+                    print(f"[{target}{tag}] Rank-{r:<3}: {cmc[r - 1]:.2%}")
+            return cmc, mAP
+
+        if args.multiple_output and not isinstance(q_fvs, tuple):
+            raise SystemExit(f"--multiple_output requires a multi-head model; "
+                             f"{args.model_name} returns a single embedding")
+        if args.multiple_output:
+            distmats = []
+            for h, (qh, gh) in enumerate(zip(q_fvs, g_fvs)):
+                distmats.append(validator.distance_matrix(qh, gh))
+                report(f":head{h}", distmats[-1])
+            results[target] = report(":ensemble", validator.multihead_distance_matrix(
+                q_fvs, g_fvs, args.head_weighting, distmats=distmats))
+            if args.mrfuse and len(distmats) >= 3:
+                fused_sim = mrfuse(*[1.0 - d for d in distmats[:3]])
+                results[target + ":mrfuse"] = report(":mrfuse", 1.0 - fused_sim)
+        else:  # a multi-head model without --multiple_output ranks its heads' mean
+            results[target] = report("", validator.multihead_distance_matrix(q_fvs, g_fvs)
+                                     if isinstance(q_fvs, tuple)
+                                     else validator.distance_matrix(q_fvs, g_fvs))
     return results
 
 

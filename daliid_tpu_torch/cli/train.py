@@ -11,7 +11,8 @@ under ``<save_dir>/latest``. ``--resume`` restarts from the newer of the two
 and replays the RNG stream. Flags are the JAX CLI's (``:36-145``) plus
 ``--device``, with its checks of the classifier, margin-head and SIE flags
 (``:214-264``); the flags of features not ported yet (int8 mining, remat,
-fault injection, multi-host) exit with an error that names them.
+fault injection, multi-host) exit with an error that names them, and so
+does a multi-head model, whose tuple of embeddings the losses do not take.
 
 Example::
 
@@ -40,6 +41,7 @@ from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.validate import get_validator
 from daliid_tpu_torch.models.factory import (
     MARGIN_HEAD_MODELS,
+    MULTIHEAD_MODELS,
     SIE_MODELS,
     build_model_pair,
     check_model_name,
@@ -170,6 +172,10 @@ def main(args):
     reject_unported(args, _UNPORTED)
     cfg = config_from_args(args)
     check_model_name(cfg.model_name)
+    if cfg.model_name in MULTIHEAD_MODELS:
+        raise SystemExit(f"{cfg.model_name} returns a tuple of head embeddings and the "
+                         "trainer's losses take one embedding (as the JAX trainer's do): "
+                         "train a single-head model")
     device = resolve_device(cfg.device)
     dtype = parse_dtype(cfg.compute_dtype)
     print(f"Device: {device}"

@@ -3,8 +3,10 @@
 Port of ``daliid_tpu/eval/features.py``: :class:`FeatureExtractor`
 (``:44``) and :func:`extract_features` (``:378``).
 
-- a producer thread decodes the next batch (PIL bicubic to uint8, a thread
-  pool inside) while the device runs the current one (``:265-283``);
+- a producer thread decodes the next batch to uint8 (the native JPEG
+  loader for JPEGs, PIL bicubic on a thread pool otherwise:
+  ``augment/preprocess.py::decode_images``, ``:219-236``) while the device
+  runs the current one (``:265-283``);
 - each uint8 batch goes through pinned host memory with a ``non_blocking``
   copy, so host-to-device traffic stays uint8;
 - normalize and forward run under ``torch.inference_mode()``; embeddings
@@ -13,15 +15,16 @@ Port of ``daliid_tpu/eval/features.py``: :class:`FeatureExtractor`
   (``:273-276``), so every forward sees one shape;
 - a model whose forward takes ``camera_ids`` (the SIE-conditioned
   TransReID backbones) gets each image's camera id: a table's camids, or 0
-  for bare paths and padding slots (``:98``, ``:181-184``, ``:251-255``).
+  for bare paths and padding slots (``:98``, ``:181-184``, ``:251-255``);
+- a multi-head model's tuple output gives a tuple of (N, D_h) f32 arrays,
+  one per head (``:300-370``).
 
-Not ported yet: int8 extraction (``quantize``/``calibrate``), turbulence
-galleries and the native C++ JPEG loader; the CLIs reject their flags.
+Not ported yet: int8 extraction (``quantize``/``calibrate``) and turbulence
+galleries; the CLIs reject their flags.
 """
 
 from __future__ import annotations
 
-import concurrent.futures as cf
 import inspect
 import os
 import queue
@@ -32,7 +35,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from daliid_tpu_torch.augment.preprocess import decode_resize, normalize_images
+from daliid_tpu_torch.augment.preprocess import decode_images, normalize_images
 from daliid_tpu_torch.data.registry import ReidTable
 
 
@@ -56,21 +59,12 @@ class FeatureExtractor:
         self.bundle.module.load_state_dict(state_dict, strict=True)
 
     def _decode_paths(self, paths: Sequence[str]) -> np.ndarray:
-        h, w = self.img_size
-        out = np.empty((len(paths), h, w, 3), dtype=np.uint8)
+        return decode_images(paths, *self.img_size, self.decode_workers)
 
-        def work(i):
-            out[i] = decode_resize(paths[i], h, w)
-
-        with cf.ThreadPoolExecutor(self.decode_workers) as ex:
-            list(ex.map(work, range(len(paths))))
-        return out
-
-    def forward_batch(self, images_u8: np.ndarray, camera_ids: np.ndarray | None = None
-                      ) -> torch.Tensor:
+    def forward_batch(self, images_u8: np.ndarray, camera_ids: np.ndarray | None = None):
         """One (B, H, W, 3) uint8 batch (and, for SIE models, its (B,)
-        camera ids, zeros if None) → (B, D) f32 embeddings on the device
-        (not synchronized)."""
+        camera ids, zeros if None) → (B, D) f32 embeddings on the device, or
+        a tuple of them for a multi-head model (not synchronized)."""
         x = torch.from_numpy(images_u8)
         if self.device.type == "cuda":
             x = x.pin_memory().to(self.device, non_blocking=True)
@@ -80,10 +74,12 @@ class FeatureExtractor:
             kw["camera_ids"] = torch.as_tensor(np.asarray(cams, np.int64), device=self.device)
         with torch.inference_mode():
             x = normalize_images(x, dtype=getattr(self.bundle.module, "dtype", torch.float32))
-            return self.bundle.module(x, **kw).float()
+            out = self.bundle.module(x, **kw)
+        return tuple(o.float() for o in out) if isinstance(out, tuple) else out.float()
 
-    def extract(self, table_or_paths, verbose: bool = False) -> np.ndarray:
-        """Embed every image → (N, feature_dim) float32 numpy array."""
+    def extract(self, table_or_paths, verbose: bool = False):
+        """Embed every image → (N, feature_dim) float32 numpy array, or a
+        tuple of (N, D_h) arrays for a multi-head model."""
         if isinstance(table_or_paths, ReidTable):
             paths = [str(p) for p in table_or_paths.paths]
             camids = np.asarray(table_or_paths.camids, np.int64)
@@ -125,7 +121,9 @@ class FeatureExtractor:
                 if isinstance(item, BaseException):
                     raise item
                 imgs, cams, valid = item
-                outputs.append(self.forward_batch(imgs, cams)[:valid])
+                out = self.forward_batch(imgs, cams)
+                outputs.append(tuple(o[:valid] for o in out) if isinstance(out, tuple)
+                               else out[:valid])
         except BaseException:
             # unblock a producer waiting on the full queue, then re-raise
             stop.set()
@@ -136,7 +134,9 @@ class FeatureExtractor:
                     pass
             raise
         thread.join()
-        if outputs:
+        if outputs and isinstance(outputs[0], tuple):
+            result = tuple(torch.cat(head).cpu().numpy() for head in zip(*outputs))
+        elif outputs:
             result = torch.cat(outputs).cpu().numpy()
         else:
             result = np.zeros((0, self.bundle.feature_dim), np.float32)
@@ -147,7 +147,7 @@ class FeatureExtractor:
 
 
 def extract_features(table_or_paths, bundle, img_size=(256, 128), batch_size: int = 512,
-                     device=None, verbose: bool = False) -> np.ndarray:
+                     device=None, verbose: bool = False):
     """One-shot wrapper: build a :class:`FeatureExtractor` and extract."""
     ex = FeatureExtractor(bundle, img_size=img_size, batch_size=batch_size, device=device)
     return ex.extract(table_or_paths, verbose=verbose)

@@ -8,11 +8,13 @@ The L2-normalized gallery lives in a capacity-sized host f32 buffer (exact
 copy for add/remove/save) and on the device, padded to a power-of-two
 capacity; ``add`` writes only the new rows into the device tensor in place
 while the capacity holds. ``quantize="int8"`` stores the device gallery as
-symmetric per-row int8 (SQ8). ``search`` always runs kernel K3
-(``ops/search_topk.py``) and applies the probe's own scale after it, as the
-JAX package does at ``matcher.py:301``. ``save``/``load`` use the JAX
-package's ``.npz`` schema (``gallery``, ``pids``, ``quantize``), so either
-package loads the other's file.
+symmetric per-row int8 (SQ8). ``search`` routes as the JAX matcher does
+(``matcher.py:277,308-320``): k <= 64 runs kernel K3
+(``ops/search_topk.py``) and applies the probe's own scale after it
+(``:301``); a larger k takes the library product and a stable descending
+sort, so ties come out lowest index first as in ``jax.lax.top_k``.
+``save``/``load`` use the JAX package's ``.npz`` schema (``gallery``,
+``pids``, ``quantize``), so either package loads the other's file.
 
 Not ported yet: k-reciprocal re-ranking (``rerank=True``) and the sharded,
 multi-host index.
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from daliid_tpu_torch.device import resolve_device
-from daliid_tpu_torch.ops.search_topk import f32_search_topk, sq8_search_topk
+from daliid_tpu_torch.ops.search_topk import MAX_K, f32_search_topk, sq8_search_topk
 
 
 def _quantize_rows(x: np.ndarray, _chunk: int = 1 << 16) -> tuple[np.ndarray, np.ndarray]:
@@ -154,7 +156,7 @@ class GalleryIndex:
     def search(self, probe_fvs: np.ndarray, k: int = 10, rerank: bool = False):
         """→ (similarities (Q, k), gallery_indices (Q, k), pids (Q, k) or
         None). Probes are raw embeddings, normalized here; similarity is the
-        cosine. ``k`` is at most 64 (the kernel's cap)."""
+        cosine. ``k`` <= 64 runs kernel K3; a larger k the library route."""
         if rerank:
             raise NotImplementedError("k-reciprocal re-ranking (rerank=True) is not yet ported")
         q = serving_embedding(probe_fvs)
@@ -169,7 +171,9 @@ class GalleryIndex:
             idx = np.zeros((q.shape[0], 0), np.int32)
             pids = self.gallery_pids[idx] if self.gallery_pids is not None else None
             return np.zeros((q.shape[0], 0), np.float32), idx, pids
-        if self.quantize == "int8":
+        if k > MAX_K:
+            vals, idx = self._search_library(q, k)
+        elif self.quantize == "int8":
             q8, q_scale = _quantize_rows(q)
             vals, idx = sq8_search_topk(
                 torch.from_numpy(q8).to(self.device), self._gallery, self._gallery_scale,
@@ -183,3 +187,20 @@ class GalleryIndex:
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         pids = self.gallery_pids[idx] if self.gallery_pids is not None else None
         return vals, idx, pids
+
+    def _search_library(self, q: np.ndarray, k: int):
+        """The JAX matcher's XLA route for k above K3's cap: every score of
+        the live rows, then a stable descending sort (ties lowest index
+        first). SQ8 scores take the XLA route's order, ``acc * q_scale *
+        g_scale``, over an exact integer product (float64 holds every int8
+        dot product), so they are bit-exact with the JAX index."""
+        n = self.num_gallery
+        if self.quantize == "int8":
+            q8, q_scale = _quantize_rows(q)
+            acc = torch.from_numpy(q8).to(self.device).double() @ self._gallery[:n].double().T
+            sims = (acc.float() * torch.from_numpy(q_scale).to(self.device)[:, None]
+                    * self._gallery_scale[None, :n])
+        else:
+            sims = torch.from_numpy(q).to(self.device) @ self._gallery[:n].T
+        vals, idx = torch.sort(sims, dim=1, descending=True, stable=True)
+        return vals[:, :k], idx[:, :k].to(torch.int32)

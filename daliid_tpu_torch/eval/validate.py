@@ -1,11 +1,14 @@
 """Validators: query/gallery CMC + mAP on one device.
 
 Port of ``daliid_tpu/eval/validate.py``: :class:`Validator` (``:38-221``)
-with ``distance_matrix``, ``rank``, ``rank_features`` (the replicated path)
-and ``validate``; :class:`BriarValidator` (``:224-243``) and
-:func:`get_validator` (``:246``), which differ from it only in the three
-protocol class attributes. Not ported yet: re-ranking, the sharded path and
-multi-head ensembles (the evaluate CLI rejects their flags).
+with ``distance_matrix``, ``rank``, ``rank_features`` and
+``multihead_distance_matrix`` (the replicated path) and ``validate``;
+:class:`BriarValidator` (``:224-243``) and :func:`get_validator`
+(``:246``), which differ from it only in the three protocol class
+attributes. A multi-head model's tuple of head embeddings ranks by the
+mean of the heads' distmats or their per-pair max-norm weighting
+(``:168-188``), on the device. Not ported yet: re-ranking and the sharded
+path (the evaluate CLI rejects their flags).
 """
 
 from __future__ import annotations
@@ -52,11 +55,34 @@ class Validator:
         )
         return cmc, (mAP if self._report_map else 0.0)
 
-    def rank_features(self, q_fvs, g_fvs, queries: ReidTable, gallery: ReidTable):
-        """CMC/mAP straight from raw embeddings (full distmat, one device)."""
+    def rank_features(self, q_fvs, g_fvs, queries: ReidTable, gallery: ReidTable,
+                      head_weighting: str = "mean"):
+        """CMC/mAP straight from raw embeddings (full distmat, one device);
+        head tuples through :meth:`multihead_distance_matrix`."""
         if isinstance(q_fvs, (tuple, list)):
-            raise NotImplementedError("multi-head ensembles are not yet ported")
+            return self.rank(self.multihead_distance_matrix(q_fvs, g_fvs, head_weighting),
+                             queries, gallery)
         return self.rank(self.distance_matrix(q_fvs, g_fvs), queries, gallery)
+
+    def multihead_distance_matrix(self, q_heads, g_heads, head_weighting: str = "mean",
+                                  distmats=None) -> torch.Tensor:
+        """One distmat over head tuples: the mean of the heads' cosine
+        distmats (``"mean"``), or each head's weighted per pair by the larger
+        of the two raw-embedding norms (``"magnitude"``). ``distmats`` takes
+        the heads' distmats when the caller has them already."""
+        if head_weighting not in ("mean", "magnitude"):
+            raise ValueError(f"head_weighting must be mean|magnitude, got {head_weighting!r}")
+        if distmats is None:
+            distmats = [self.distance_matrix(qh, gh) for qh, gh in zip(q_heads, g_heads)]
+        if head_weighting == "mean":
+            return torch.stack(distmats).mean(dim=0)
+        weights = []
+        for qh, gh in zip(q_heads, g_heads):
+            qn, gn = (torch.linalg.vector_norm(
+                torch.as_tensor(np.asarray(h, np.float32), device=self.device), dim=1)
+                for h in (qh, gh))
+            weights.append(torch.maximum(qn[:, None], gn[None, :]))
+        return sum(w * d for w, d in zip(weights, distmats)) / sum(weights)
 
     def validate(self, queries: ReidTable, gallery: ReidTable, bundle_or_extractor,
                  verbose: bool = True):
@@ -70,7 +96,10 @@ class Validator:
         )
         q_fvs = extractor.extract(queries, verbose=verbose)
         g_fvs = extractor.extract(gallery, verbose=verbose)
-        distmat = self.distance_matrix(q_fvs, g_fvs)
+        if isinstance(q_fvs, tuple):
+            distmat = self.multihead_distance_matrix(q_fvs, g_fvs)
+        else:
+            distmat = self.distance_matrix(q_fvs, g_fvs)
         cmc, mAP = self.rank(distmat, queries, gallery)
         if verbose:
             print(f"** Results ** mAP: {mAP:.2%}")

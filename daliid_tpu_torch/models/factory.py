@@ -1,12 +1,15 @@
 """Backbone factory.
 
 Port of ``daliid_tpu/models/factory.py``: :class:`ModelBundle`, the
-registry entries ``resnet50`` and ``resnet50_gap`` (``:72-81``), the ViT
-family ``vit``, ``vit_small``, ``deit_small``, ``tiny_vit_smoke``,
+ResNet family ``resnet50``, ``resnet50_gap``, ``resnet50Seg``,
+``resnet50IBN``, ``resnet101IBN``, ``dualresnet50``, ``multipart_resnet50``
+and ``multiview_resnet50`` (``:72-109``, ``:223-238``), the ViT family
+``vit``, ``vit_small``, ``deit_small``, ``tiny_vit_smoke``,
 ``transreid_jpm`` and ``transreid`` (``:131-197``), the flag sets of
 ``:50-61`` (``REMAT_MODELS`` waits for ``remat``), :func:`get_model`
-(``:200-220``) and :func:`build_model_pair` (``:256-266``). The other zoo
-entries are not ported yet. As in the JAX
+(``:200-220``) and :func:`build_model_pair` (``:256-266``). ``osnet``,
+``densenet121``, ``efficientnetB0``, ``inceptionV3`` and
+``build_ensembles`` are not ported yet. As in the JAX
 package every factory takes ``**kw`` and ignores what it does not use; the
 CLIs check the flags against the sets below.
 
@@ -32,7 +35,12 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
-from daliid_tpu_torch.models.resnet import ResNet50ReID
+from daliid_tpu_torch.models.resnet import (
+    DualResNet50ReID,
+    MultiPartResNet50ReID,
+    MultiViewResNet50ReID,
+    ResNet50ReID,
+)
 from daliid_tpu_torch.models.transreid_jpm import TransReIDJPM
 from daliid_tpu_torch.models.vit import (
     ViTReID,
@@ -62,6 +70,8 @@ SIE_MODELS = frozenset({"transreid", "transreid_jpm"})
 GELU_APPROX_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "transreid_jpm"})
 # the ViTReID family (one state_dict scheme: base.* + bottleneck)
 VIT_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "tiny_vit_smoke"})
+# the models whose forward returns a tuple of head embeddings
+MULTIHEAD_MODELS = frozenset({"dualresnet50", "multipart_resnet50", "multiview_resnet50"})
 
 
 def register_model(name: str):
@@ -80,6 +90,42 @@ def _resnet50(dtype=torch.float32, feature="both", **kw):
 @register_model("resnet50_gap")
 def _resnet50_gap(dtype=torch.float32, **kw):
     return ResNet50ReID(dtype=dtype, feature="gap"), 2048
+
+
+@register_model("resnet50Seg")
+def _resnet50_seg(dtype=torch.float32, **kw):
+    """Seg-mask attention variant (Encoders.py:50-71, 356-401)."""
+    return ResNet50ReID(dtype=dtype, seg_attention=True), 2048
+
+
+@register_model("resnet50IBN")
+def _resnet50_ibn(dtype=torch.float32, **kw):
+    """IBN-Net-a ResNet-50 (Encoders.py:73-97, 462-531)."""
+    return ResNet50ReID(dtype=dtype, ibn=True), 2048
+
+
+@register_model("resnet101IBN")
+def _resnet101_ibn(dtype=torch.float32, **kw):
+    """IBN-Net-a ResNet-101 (Encoders.py:99-123, 534-603)."""
+    return ResNet50ReID(dtype=dtype, ibn=True, stage_sizes=(3, 4, 23, 3)), 2048
+
+
+@register_model("dualresnet50")
+def _dual_resnet50(dtype=torch.float32, **kw):
+    """Two-head (id, bias) ResNet-50 (Encoders.py:404-459)."""
+    return DualResNet50ReID(dtype=dtype), 4096
+
+
+@register_model("multipart_resnet50")
+def _multipart_resnet50(dtype=torch.float32, **kw):
+    """Horizontal-stripe part heads (getFeatures.py:110-156 consumer)."""
+    return MultiPartResNet50ReID(dtype=dtype), 2048
+
+
+@register_model("multiview_resnet50")
+def _multiview_resnet50(dtype=torch.float32, **kw):
+    """Global/spatial/channel attention heads (getFeatures.py:202-241)."""
+    return MultiViewResNet50ReID(dtype=dtype), 2048
 
 
 @register_model("vit")

@@ -1,7 +1,9 @@
-"""Batch normalization with the JAX package's numerics, in train and eval mode.
+"""Batch and instance normalization with the JAX package's numerics.
 
-Port of ``daliid_tpu/models/norm.py::TorchBatchNorm`` (``:34-84``). The mode
-follows ``self.training``:
+:class:`InstanceNorm` is flax's ``nn.InstanceNorm`` as the IBN block of
+``daliid_tpu/models/resnet.py`` uses it (see its docstring).
+:class:`TorchBatchNorm` ports ``daliid_tpu/models/norm.py::TorchBatchNorm``
+(``:34-84``). Its mode follows ``self.training``:
 
 - train: normalize with the biased batch variance and update the running
   variance with the unbiased one (``n / (n - 1)``), torch momentum 0.1
@@ -49,4 +51,29 @@ class TorchBatchNorm(nn.Module):
             x, self.running_mean, self.running_var, self.weight, self.bias,
             training=self.training, momentum=MOMENTUM, eps=self.eps,
         )
+        return y.to(self.dtype or x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """flax ``nn.InstanceNorm(epsilon=1e-5)`` over an (N, C, H, W) tensor:
+    each sample's and channel's mean and variance over H and W, computed in
+    f32 whatever the input dtype, the variance flax's fast ``E[x^2] -
+    E[x]^2`` clipped at 0; then ``(x - mean) * (rsqrt(var + eps) * weight)
+    + bias`` in f32, cast to the compute dtype. ``weight`` and ``bias`` are
+    the reference IBN block's ``IN.weight`` and ``IN.bias``; there are no
+    running statistics."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = ((xf * xf).mean(dim=(2, 3), keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight[:, None, None]
+        y = (xf - mean) * mul + self.bias[:, None, None]
         return y.to(self.dtype or x.dtype)

@@ -3,8 +3,9 @@ reference's torch checkpoints → the port's ``state_dict``.
 
 The port's ``state_dict`` keys are the reference's torch keys, the schemes
 that ``daliid_tpu/models/torch_port.py`` emits: ``resnet50_reid_to_torch_keys``
-(``:901-932``) for the ResNets, ``vit_reid_to_torch_keys(wrapper='base')``
-(``:413``) for the ViTReID family (``base.*`` + the ``bottleneck`` neck) and
+(``:901-932``) and ``resnet_ibn_reid_to_torch_keys`` (``:670-680``) for the
+ResNets (a multi-head model's heads under their flax names),
+``vit_reid_to_torch_keys(wrapper='base')`` (``:413``) for the ViTReID family (``base.*`` + the ``bottleneck`` neck) and
 ``transreid_jpm_to_torch_keys`` (``:496``) for TransReID-JPM. Every entry
 point dispatches on the model name, as ``variables_from_torch`` does
 (``:810-846``):
@@ -23,7 +24,9 @@ point dispatches on the model name, as ``variables_from_torch`` does
   ``['params']['layer1_0']['conv1']['kernel']``, parsed here as strings;
 - :func:`state_from_torch` reads a reference ``state_dict`` (the ResNets'
   already has the port's layout once DataParallel's ``module.`` prefix is
-  dropped): torchvision ``vit_b_16`` keys are renamed to TransReID's
+  dropped, and the IBN-Net ``fc.`` head, ``:662-667``; the multi-head
+  ResNets' heads have no reference keys, so a checkpoint without them is
+  refused): torchvision ``vit_b_16`` keys are renamed to TransReID's
   (``_normalize_torchvision_vit_keys``, ``:287-316``), a bare backbone gets
   the ``base.`` prefix and an identity neck, JPM's unmapped
   ``base.blocks.{depth-1}`` and ``base.norm`` are dropped (``:476``), a
@@ -81,15 +84,25 @@ def read_jax_npz(path: str) -> Dict[str, object]:
 # (LayerNorm), bn and raw (the array under its own key)
 
 def _resnet_entries(params):
-    e = [("conv1", ("conv1",), "conv"), ("bn1", ("bn1",), "bn"),
-         ("last_bn", ("last_bn",), "bn")]
+    """The ResNet family: the trunk, IBN blocks (``bn1.IN`` / ``bn1.BN``, the
+    IBN-Net-a scheme of ``daliid_tpu/models/torch_port.py:625-657``), and
+    every head under its flax name (BN necks; the multi-view gates, which
+    are convolutions with biases)."""
+    e = [("conv1", ("conv1",), "conv"), ("bn1", ("bn1",), "bn")]
     for name, p in params.items():
         if not name.startswith("layer"):
+            if name not in ("conv1", "bn1"):
+                e.append((name, (name,), "conv" if "kernel" in p else "bn"))
             continue
         stage, b = name[len("layer"):].split("_")
         t = f"layer{stage}.{b}"
         e += [(f"{t}.{c}", (name, c), "conv") for c in ("conv1", "conv2", "conv3")]
-        e += [(f"{t}.{n}", (name, n), "bn") for n in ("bn1", "bn2", "bn3")]
+        e += [(f"{t}.{n}", (name, n), "bn") for n in ("bn2", "bn3")]
+        if "bn1_ibn" in p:
+            e += [(f"{t}.bn1.IN", (name, "bn1_ibn", "instance"), "ln"),
+                  (f"{t}.bn1.BN", (name, "bn1_ibn", "batch"), "bn")]
+        else:
+            e.append((f"{t}.bn1", (name, "bn1"), "bn"))
         if "downsample_conv" in p:
             e += [(f"{t}.downsample.0", (name, "downsample_conv"), "conv"),
                   (f"{t}.downsample.1", (name, "downsample_bn"), "bn")]
@@ -288,16 +301,42 @@ def _jpm_state(sd, module) -> Dict[str, torch.Tensor]:
     return out
 
 
+# the heads that the reference ResNet-50 key scheme, to which the JAX
+# converter maps these models (``variables_from_torch``, :815-817), has no
+# entries for
+_HEADS_WITHOUT_TORCH_KEYS = {
+    "dualresnet50": ("id_bn", "bias_bn"),
+    "multipart_resnet50": ("upper_bn", "middle_bn", "lower_bn"),
+    "multiview_resnet50": ("spatial_gate", "channel_squeeze", "channel_expand", "spatial_bn",
+                           "channel_bn"),
+}
+# the IBN-Net ImageNet head that the reference wrappers keep and never use
+_IBN_UNUSED = ("fc.", "model_base.fc.")
+
+
 def state_from_torch(model_name: str, state_dict: Mapping[str, object],
                      module=None) -> Dict[str, torch.Tensor]:
     """A reference checkpoint of ``model_name`` → the port's ``state_dict``.
     ``module`` (the port's model) gives the depth and the patch grid that
-    the position embedding is resized to."""
+    the position embedding is resized to.
+
+    A torch checkpoint of a multi-head ResNet without its heads is refused
+    with an error that names them: the JAX package reads such a file as a
+    plain ResNet-50 and its forward then fails on the missing heads."""
     sd = {k: torch.as_tensor(v) for k, v in strip_module_prefix(dict(state_dict)).items()}
     if model_name in VIT_MODELS:
         return _vit_state(sd, module)
     if model_name == "transreid_jpm":
         return _jpm_state(sd, module)
+    if model_name in ("resnet50IBN", "resnet101IBN"):
+        return {k: v for k, v in sd.items() if not k.startswith(_IBN_UNUSED)}
+    missing = [h for h in _HEADS_WITHOUT_TORCH_KEYS.get(model_name, ())
+               if not any(k.startswith(h + ".") for k in sd)]
+    if missing:
+        raise ValueError(
+            f"this torch checkpoint of {model_name} has no weights for its heads "
+            f"{', '.join(missing)}: the reference ResNet-50 key scheme has no entries for "
+            f"them; load the JAX package's save_variables .npz of the model instead")
     return sd
 
 

@@ -58,7 +58,7 @@ import torch
 
 from daliid_tpu_torch import losses as L
 from daliid_tpu_torch.augment import train_augment as augment_mod
-from daliid_tpu_torch.augment.preprocess import decode_resize
+from daliid_tpu_torch.augment.preprocess import decode_images
 from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.models.factory import ModelBundle
 from daliid_tpu_torch.train.proxies import mine_proxies_and_centers
@@ -335,15 +335,7 @@ class Trainer:
         return pset
 
     def _decode_batch(self, paths) -> np.ndarray:
-        h, w = self.img_size
-        out = np.empty((len(paths), h, w, 3), np.uint8)
-
-        def work(i):
-            out[i] = decode_resize(paths[i], h, w)
-
-        with cf.ThreadPoolExecutor(self.decode_workers) as ex:
-            list(ex.map(work, range(len(paths))))
-        return out
+        return decode_images(paths, *self.img_size, self.decode_workers)
 
     def _stage(self, batch):
         """Decode one batch into (pinned, on a GPU) host tensors; runs on the

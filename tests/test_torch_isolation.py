@@ -71,6 +71,8 @@ def test_sources_import_no_jax_and_nothing_of_daliid_tpu():
     ["-m", "daliid_tpu_torch.cli.evaluate", "--targets", "Synthetic"],
     ["-m", "daliid_tpu_torch", "serve", "--port", "0"],
     ["-m", "daliid_tpu_torch", "train", "--dataset", "Synthetic"],
+    ["-m", "daliid_tpu_torch", "evaluate-fusion", "--dataset", "Synthetic"],
+    ["-m", "daliid_tpu_torch", "evaluate-ensemble", "--dataset", "Synthetic"],
 ])
 def test_entry_point_without_device_refuses_a_host_without_cuda(tmp_path, argv):
     if torch.cuda.is_available():

@@ -6,7 +6,8 @@
   values within rtol 1e-5 and equal top-k index sets;
 - the port's ``GalleryIndex`` against the JAX ``GalleryIndex`` (f32 and
   int8) through add, remove, save and load: the same retrieval, and each
-  package loads the other's ``.npz``. The JAX index on the CPU scores with
+  package loads the other's ``.npz``; k = 100, past K3's cap, through the
+  library route: indices equal, SQ8 values bit-exact; The JAX index on the CPU scores with
   ``acc * q_scale * g_scale`` where the port (like the TPU kernel) takes
   ``(acc * g_scale) * q_scale``, so SQ8 values agree within rtol 1e-6 and
   indices exactly;
@@ -75,14 +76,43 @@ def test_ties_order_by_index_and_missing_slots():
 
 
 def test_k_above_64_raises(data):
+    """K3's wrappers refuse k > 64; the index routes such a k around them."""
     q8, g8, gs = (torch.from_numpy(data[n]) for n in ("q8", "g8", "gs"))
     with pytest.raises(ValueError, match="k <= 64"):
         sq8_search_topk(q8, g8, gs, NUM_REAL, MAX_K + 1)
     with pytest.raises(ValueError, match="k <= 64"):
         f32_search_topk(torch.from_numpy(data["qf"]), torch.from_numpy(data["gf"]), NUM_REAL, 65)
     index = GalleryIndex(data["gf"], np.arange(G), device="cpu")
-    with pytest.raises(ValueError, match="k <= 64"):
-        index.search(data["qf"][:2], k=65)
+    vals, idx, pids = index.search(data["qf"][:2], k=65)
+    assert vals.shape == idx.shape == pids.shape == (2, 65)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_k_above_64_matches_the_jax_index(quantize):
+    """k = 100 over 200 rows (a 256-row capacity, so padding rows exist),
+    with exact duplicate rows: the library route returns the JAX index's
+    indices and pids, ties lowest index first, and its values bit-exact in
+    SQ8 (the XLA route's scale order over an exact integer product), within
+    rtol 1e-6 in f32 (two products' summation orders); no K3 launch is
+    counted."""
+    rng = np.random.default_rng(9)
+    gallery = rng.normal(size=(200, 40)).astype(np.float32)
+    gallery[150:] = gallery[:50]
+    pids = rng.integers(0, 30, 200)
+    probes = np.concatenate([rng.normal(size=(5, 40)).astype(np.float32), gallery[:2]])
+    port = GalleryIndex(gallery, pids, quantize=quantize, device="cpu")
+    jidx = JaxIndex(gallery, pids, quantize=quantize)
+    v, i, p = port.search(probes, k=100)
+    vj, ij, pj = jidx.search(probes, k=100)
+    assert v.shape == i.shape == (7, 100) and i.dtype == np.int32
+    np.testing.assert_array_equal(i, ij)
+    np.testing.assert_array_equal(p, pj)
+    if quantize:
+        np.testing.assert_array_equal(v, vj)
+    else:
+        np.testing.assert_allclose(v, vj, rtol=1e-6, atol=1e-7)
+    assert (np.diff(v, axis=1) <= 0).all()
+    assert sq8_search_topk.launches == 0 and f32_search_topk.launches == 0
 
 
 def _same_retrieval(port, jax_idx, probes, k, rtol):

@@ -16,7 +16,8 @@ module.
   agree within rtol 1e-6 plus atol 1e-6, and indices and pids are equal.
 - Requests with image ``paths`` go through both forwards, with the JAX
   package's native JPEG loader switched off so that both decode with PIL.
-  The embeddings then differ within float32 summation order, which int8
+  The port's native loader is switched off as well. The embeddings then
+  differ within float32 summation order, which int8
   rounding can follow: top-1 pids are equal and values agree within 1e-3.
 - ``cli.evaluate.main`` of both packages on ``--targets Synthetic`` in
   float32 gives R1 and mAP within one query's weight (1/len(query)).
@@ -39,6 +40,7 @@ import torch
 
 import daliid_tpu.data.native_loader as jax_native_loader
 import daliid_tpu.models.factory as jax_factory
+import daliid_tpu_torch.data.native_loader as port_native_loader
 import daliid_tpu_torch.models.factory as port_factory
 from daliid_tpu.cli import evaluate as jax_evaluate
 from daliid_tpu.cli import serve as jax_serve
@@ -67,6 +69,7 @@ def world(tmp_path_factory):
                    lambda dtype, **kw: (ResNet50ReID(stage_sizes=STAGES, dtype=dtype), 2048))
         # both packages decode with PIL
         mp.setattr(jax_native_loader, "native_loader_available", lambda: False)
+        mp.setattr(port_native_loader, "native_loader_available", lambda: False)
         bundle = jax_factory.get_model("resnet50", jax.random.key(12), img_size=IMG)
         weights = str(root / "weights.npz")
         save_variables(weights, bundle.variables)
@@ -256,6 +259,40 @@ def test_serve_concurrent_clients_micro_batch(world):
         _stop(server, thread, first)
 
 
+@pytest.mark.parametrize("quantize", ["int8", "off"])
+def test_serve_batch_mixing_topk_100_and_5_answers_both(quantize):
+    """One dispatch serves a topk-100 request (past K3's cap) beside a
+    topk-5 one: both answered, each with the rows and pids of its own
+    search made alone. That dispatch scores the topk-5 probe on the library
+    route, whose SQ8 scales multiply in the other order than K3's, so
+    similarities agree within the protocol's 6 decimals (atol 1e-6)."""
+    server, thread, client = _start(port_serve, ["--port", "0", "--index_quantize", quantize,
+                                                 "--device", "cpu"], None)
+    try:
+        rng = np.random.default_rng(13)
+        g = rng.normal(size=(150, 64)).astype(np.float32)
+        assert client.request({"op": "enroll", "embeddings": g.tolist(),
+                               "pids": list(range(150))})["ok"]
+        reqs = [{"op": "search", "embeddings": [g[3].tolist(), g[9].tolist()], "topk": 100},
+                {"op": "search", "embeddings": [g[40].tolist()], "topk": 5}]
+        alone = [client.request(r) for r in reqs]
+        assert [len(a["indices"][0]) for a in alone] == [100, 5]
+        service = server.service
+        before = service._counters["search_dispatches"]
+        entries = [{"req": r, "event": threading.Event(), "result": None} for r in reqs]
+        with service._lock:
+            service._serve_search_batch(entries)
+        assert service._counters["search_dispatches"] == before + 1
+        assert all(e["event"].is_set() for e in entries)
+        for e, a in zip(entries, alone):
+            r = e["result"]
+            assert r["ok"] and r["indices"] == a["indices"] and r["pids"] == a["pids"]
+            np.testing.assert_allclose(r["sims"], a["sims"], rtol=0, atol=1e-6)
+        assert alone[0]["indices"][0][0] == 3 and alone[1]["pids"][0][0] == 40
+    finally:
+        _stop(server, thread, client)
+
+
 def test_evaluate_cli_matches_jax(world, capsys):
     common = ["--targets", "Synthetic", "--data_root", world["root"], "--model_name", "resnet50",
               "--model_path", world["weights"], "--img_height", str(IMG[0]),
@@ -266,6 +303,7 @@ def test_evaluate_cli_matches_jax(world, capsys):
         mp.setitem(port_factory.MODEL_REGISTRY, "resnet50",
                    lambda dtype, **kw: (ResNet50ReID(stage_sizes=STAGES, dtype=dtype), 2048))
         mp.setattr(jax_native_loader, "native_loader_available", lambda: False)
+        mp.setattr(port_native_loader, "native_loader_available", lambda: False)
         cmc_p, map_p = port_evaluate.main(
             port_evaluate.build_argparser().parse_args(common + ["--device", "cpu"]))["Synthetic"]
         cmc_j, map_j = jax_evaluate.main(jax_evaluate.build_argparser().parse_args(common))["Synthetic"]
@@ -278,7 +316,7 @@ def test_evaluate_cli_matches_jax(world, capsys):
 
 def test_evaluate_cli_rejects_unported_flags(world):
     parse = port_evaluate.build_argparser().parse_args
-    for extra in (["--rerank"], ["--quantize", "int8"], ["--multiple_output"],
+    for extra in (["--rerank"], ["--quantize", "int8"], ["--calib_batches", "2"],
                   ["--turbulence_dir_path", "x"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             port_evaluate.main(parse(["--targets", "Synthetic", "--device", "cpu", *extra]))

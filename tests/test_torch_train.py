@@ -312,9 +312,11 @@ def test_one_epoch_lockstep_with_the_jax_trainer(synth, flax_variables, jax_side
     trainer's augmentation is interpret-mode K1 on the scalar tables the
     port draws; both decode the same JPEGs through PIL."""
     from daliid_tpu.data import native_loader
+    from daliid_tpu_torch.data import native_loader as port_native_loader
 
     _, variables = flax_variables
     monkeypatch.setattr(native_loader, "native_loader_available", lambda: False)
+    monkeypatch.setattr(port_native_loader, "native_loader_available", lambda: False)
     tables = []
     drawn = train_augment_mod.draw_scalars
 
