@@ -64,7 +64,23 @@ Phases, in order; any failed check exits non-zero and prints no result:
     on the CPU; a serve batch (``IdentificationService``) mixing topk 100
     and topk 5 answers both like their own searches, and K3 runs only for
     the topk-5 search made alone.
-16. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
+16. the rest of the CNN zoo: ``cli.evaluate.main`` with each of ``osnet``,
+    ``densenet121``, ``efficientnetB0`` and ``inceptionV3`` (bf16, 256x128,
+    seeded random weights): K2 once each, each CMC equal to the numpy
+    oracle.
+17. ``cli.train.main --model_name densenet121 --num_classes -1``: the
+    classifier-headed branch at the CLI's defaults (P16 K12 paired, tau
+    0.05, lambda_proxy 0.4), one epoch of 2 steps and its validation: K1
+    twice, K2 in the validation, finite losses, a checkpoint with one class
+    per training identity.
+18. ``cli.evaluate.main --rerank`` with ResNet-50: K2 once; the re-ranked
+    distmat, computed on the card, equals the port's ``re_ranking`` on the
+    CPU over the same three distance matrices within 1e-5.
+19. ``cli.search.main --rerank --rerank_depth 64 --index_quantize int8``
+    (the shortlist fetched by K3 SQ8 at k = 64), and a serve batch mixing
+    re-ranked requests at depths 64 and 32 with plain topk 10 and 5: three
+    dispatches, K3 once each, every answer like the same request alone.
+20. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
     D=2048, k=10 over 2^20 gallery rows (the f32 bound is the tensor
     cores': bytes, or 3 TF32 products a multiply-add), and at the serve
     path's shape; K2 at the Market-1501 protocol shape (Q=3368, G=15913) at
@@ -81,13 +97,18 @@ Phases, in order; any failed check exits non-zero and prints no result:
     its share of the wall time, the largest kernels); ResNet-50 extraction
     img/s at batch 64 and 512 in bf16; the JPM train step and extraction at
     512 with K4 and with SDPA; ``magnitude_weighted_distmat`` and the 7
-    rankings of evaluate-fusion at Market-1501's protocol shape.
+    rankings of evaluate-fusion at Market-1501's protocol shape; the four
+    zoo families' extraction img/s and peak memory at batch 512; one
+    ``densenet121`` train step (ms, img/s, peak memory); ``re_ranking`` at
+    Market-1501's shape (ms, peak memory above its inputs); the re-ranked
+    search of 200 probes over 400 SQ8 rows at depth 64.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. Counts of launches are set to 0 just
 before each of the serve, search, evaluate, train, transformer evaluate,
-transformer train, fusion, ensemble, multi-head and k > 64 search phases
-and read just after.
+transformer train, fusion, ensemble, multi-head, k > 64 search, zoo
+evaluate (each family), densenet train, re-ranked evaluate and re-ranked
+search phases and read just after.
 
 Run from the repository root: ``python3 chip_smoke.py``. The kernels,
 the synthetic sets, the saved index and the checkpoints go under ``build/``.
@@ -1061,6 +1082,188 @@ def phase_search_k100(torch, dev, counts):
     return {k: cli[k] + alone_launches[k] + mixed[k] for k in cli}
 
 
+# ---------------------------------------------------------------- phases 16-19
+# the rest of the CNN zoo: name → embedding width
+ZOO = {"osnet": 512, "densenet121": 2048, "efficientnetB0": 1280, "inceptionV3": 2048}
+
+
+def phase_zoo_evaluate(torch, counts):
+    """``cli.evaluate.main`` with each of ``osnet``, ``densenet121``,
+    ``efficientnetB0`` and ``inceptionV3`` (bf16, 256x128, seeded random
+    weights) on the 100-identity set: K2 once each, each CMC equal to the
+    numpy oracle."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import evaluate
+
+    total, walls = {}, {}
+    for name in ZOO:
+        args = evaluate.build_argparser().parse_args(
+            ["--targets", "Synthetic", "--model_name", name, *_eval_flags()])
+        counts.reset()
+        t0 = time.time()
+        with RankRecorder() as rec:
+            cmc, mAP = evaluate.main(args)["Synthetic"]
+        walls[name] = time.time() - t0
+        launched = counts.read()
+        check(launched["rank_counts"] == 1, f"evaluate {name} launched K2 {launched}")
+        err = rec.check_oracle(f"evaluate {name}")
+        check(np.isfinite(cmc).all() and len(rec.calls) == 1, f"evaluate {name}: CMC {cmc}")
+        log(f"evaluate {name}: {walls[name]:.2f} s, R1 {cmc[0]:.4f} mAP {mAP:.6f} (random "
+            f"weights), distmat {rec.calls[0][0].shape}, CMC equal to the numpy oracle (|mAP "
+            f"diff| {err:.3g}), launches {launched}")
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+    return total, walls
+
+
+def phase_densenet_train(torch, counts, root):
+    """``cli.train.main --model_name densenet121 --num_classes -1``: the
+    classifier-headed branch at the CLI's defaults (``--kind_of_transform
+    1``, P16 K12 = 384 images a step, tau 0.05, lambda_proxy 0.4), one epoch
+    of 2 steps and its validation: K1 once a step, K2 in the validation,
+    finite losses, a checkpoint with the 32-way head."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import train
+    from daliid_tpu_torch.models.torch_port import load_state
+
+    ckpt, metrics = WORK / "densenet_ckpt", WORK / "densenet_metrics"
+    args = train.build_argparser().parse_args(
+        ["--dataset", "Synthetic", "--data_root", str(root), "--model_name", "densenet121",
+         "--num_classes", "-1", "--compute_dtype", COMPUTE_DTYPE, "--kind_of_transform", "1",
+         "--P", str(P), "--K", str(K), "--epochs", "1", "--eval_freq", "1",
+         "--skip_initial_eval", "--path_to_save_models", str(ckpt),
+         "--path_to_save_metrics", str(metrics), *_img_flags()])
+    counts.reset()
+    t0 = time.time()
+    train.main(args)
+    seconds = time.time() - t0
+    launched = counts.read()
+    steps = TRAIN_IDS // P
+    check(launched["fused_augment"] == steps,
+          f"the densenet121 train CLI launched K1 {launched['fused_augment']} times for "
+          f"{steps} steps")
+    check(launched["rank_counts"] > 0, "the densenet121 validation did not launch K2")
+    progress = json.loads((metrics / "progress_densenet121_v0.json").read_text())
+    check(len(progress) == 1, f"densenet121 progress {progress}")
+    for key in ("loss", "center_loss", "proxy_loss", "rank1"):
+        check(np.isfinite(progress[0][key]), f"densenet121 epoch {key} = {progress[0][key]}")
+    head = load_state("densenet121", str(ckpt / "model_online_densenet121_v0.pt"))
+    check(tuple(head["classification.weight"].shape) == (TRAIN_IDS, ZOO["densenet121"]),
+          "the densenet121 checkpoint has no head of one class per training identity")
+    log(f"train densenet121 --num_classes -1 (bf16, classifier branch): 1 epoch of {steps} "
+        f"steps of {2 * P * K} images and a validation in {seconds:.1f} s, loss "
+        f"{progress[0]['loss']:.5f} center {progress[0]['center_loss']:.5f} proxy "
+        f"{progress[0]['proxy_loss']:.5f} R1 {progress[0]['rank1']:.4f} (random init); "
+        f"launches {launched}")
+    return launched, seconds
+
+
+def phase_rerank_evaluate(torch, counts):
+    """``cli.evaluate.main --rerank`` with ResNet-50: K2 once; the re-ranked
+    distmat was computed on the card and equals the port's ``re_ranking``
+    on the CPU over the same three distance matrices within 1e-5; the CMC
+    equals the numpy oracle's."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import evaluate
+    from daliid_tpu_torch.eval import validate
+    from daliid_tpu_torch.eval.rerank import re_ranking
+
+    args = evaluate.build_argparser().parse_args(
+        ["--targets", "Synthetic", "--model_name", "resnet50", "--rerank", *_eval_flags()])
+    seen, reranking = [], validate.re_ranking
+
+    def recording(qg, qq, gg, **kw):
+        out = reranking(qg, qq, gg, **kw)
+        seen.append(([d.cpu() for d in (qg, qq, gg)], out.device.type, out.cpu()))
+        return out
+
+    validate.re_ranking = recording
+    counts.reset()
+    t0 = time.time()
+    try:
+        with RankRecorder() as rec:
+            cmc, mAP = evaluate.main(args)["Synthetic"]
+    finally:
+        validate.re_ranking = reranking
+    seconds = time.time() - t0
+    launched = counts.read()
+    check(launched["rank_counts"] == 1, f"evaluate --rerank launched K2 {launched}")
+    check(len(seen) == 1 and seen[0][1] == "cuda", "evaluate --rerank did not re-rank on the card")
+    inputs, _, on_card = seen[0]
+    err = float((re_ranking(*inputs) - on_card).abs().max())
+    check(err <= 1e-5, f"re-ranking on the card differs from the CPU's by {err}")
+    map_err = rec.check_oracle("evaluate --rerank")
+    check(np.array_equal(on_card.numpy(), rec.calls[0][0]),
+          "evaluate --rerank ranked another distmat than the re-ranked one")
+    log(f"evaluate --rerank (resnet50): {seconds:.2f} s, R1 {cmc[0]:.4f} mAP {mAP:.6f}; the "
+        f"card's re-ranked distmat {tuple(on_card.shape)} against the CPU's max |diff| "
+        f"{err:.3g}; CMC equal to the numpy oracle (|mAP diff| {map_err:.3g}); launches "
+        f"{launched}")
+    return launched, seconds
+
+
+def phase_search_rerank(torch, dev, counts):
+    """``search --rerank --rerank_depth 64 --index_quantize int8`` (the
+    shortlist fetched by K3 SQ8 at k = 64), then a serve batch mixing
+    re-ranked requests at depths 64 and 32 with plain topk 10 and 5: three
+    dispatches, K3 once each, every answer like the same request alone."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import search, serve
+
+    args = search.build_argparser().parse_args(
+        ["--dataset", "Synthetic", "--data_root", str(WORK / "data"), "--model_name", "resnet50",
+         "--batch_size", "64", "--topk", "10", "--rerank", "--rerank_depth", "64",
+         "--index_quantize", "int8", "--compute_dtype", COMPUTE_DTYPE, *_img_flags()])
+    counts.reset()
+    sims, ids, pids = search.main(args)
+    cli = counts.read()
+    check(sims.shape[1] == 10 and np.isfinite(sims).all()
+          and (np.diff(sims, axis=1) <= 1e-6).all(), f"search --rerank gave sims {sims.shape}")
+    check(cli["search_topk_sq8"] == 1 and cli["search_topk_f32"] == 0,
+          f"search --rerank --index_quantize int8 launched K3 {cli}")
+
+    rng = np.random.default_rng(7)
+    g = rng.normal(size=(400, 2048)).astype(np.float32)
+    probes = g[:8] + 0.3 * rng.normal(size=(8, 2048)).astype(np.float32)
+    service = serve.IdentificationService(None, None, index_quantize="int8", device=dev)
+    check(service.handle({"op": "enroll", "embeddings": g.tolist(),
+                          "pids": list(range(400))})["ok"], "enroll by embeddings failed")
+    reqs = [{"op": "search", "embeddings": probes[:3].tolist(), "topk": 10, "rerank": True,
+             "rerank_depth": 64},
+            {"op": "search", "embeddings": probes[3:5].tolist(), "topk": 10, "rerank": True,
+             "rerank_depth": 32},
+            {"op": "search", "embeddings": probes[5:7].tolist(), "topk": 10},
+            {"op": "search", "embeddings": probes[7:].tolist(), "topk": 5}]
+    counts.reset()
+    alone = [service.handle(r) for r in reqs]
+    alone_launches = counts.read()
+    entries = [{"req": r, "event": threading.Event(), "result": None} for r in reqs]
+    before = service._counters["search_dispatches"]
+    counts.reset()
+    with service._lock:
+        service._serve_search_batch(entries)
+    mixed = counts.read()
+    dispatches = service._counters["search_dispatches"] - before
+    check(dispatches == 3 and mixed["search_topk_sq8"] == 3
+          and alone_launches["search_topk_sq8"] == 4,
+          f"mixed batch: {dispatches} dispatches, K3 {mixed}; alone K3 {alone_launches}")
+    for e, a in zip(entries, alone):
+        r = e["result"]
+        check(r["ok"] and a["ok"] and r["indices"] == a["indices"] and r["pids"] == a["pids"]
+              and np.abs(np.asarray(r["sims"]) - np.asarray(a["sims"])).max() <= 1e-6,
+              f"the mixed batch answered {e['req']} unlike its own search")
+    check(alone[0]["indices"][0][0] == 0, "the re-ranked search lost the probe's own row")
+    log(f"search --rerank --rerank_depth 64 --index_quantize int8: sims {sims.shape}, K3 "
+        f"launches {cli}; serve batch of re-ranked (depth 64, 32) and plain (topk 10, 5) "
+        f"requests: {dispatches} dispatches, K3 {mixed['search_topk_sq8']} (alone "
+        f"{alone_launches['search_topk_sq8']}), every answer like its own search")
+    return {k: cli[k] + alone_launches[k] + mixed[k] for k in cli}
+
+
 def loader_status() -> dict:
     """Which decoder the port's host path takes, and why."""
     import ctypes.util
@@ -1556,6 +1759,118 @@ def _time_extraction(torch, dev):
     return rates
 
 
+def _time_zoo_extraction(torch, dev) -> dict:
+    """Each zoo family's bf16 forward at batch 512 (normalize included):
+    ms, img/s and peak device memory."""
+    from daliid_tpu_torch.augment.preprocess import normalize_images
+    from daliid_tpu_torch.models import get_model
+
+    x = torch.randint(0, 256, (EXTRACT_BATCH, *IMG, 3), dtype=torch.uint8, device=dev)
+    out = {}
+    for name in ZOO:
+        bundle = get_model(name, torch.Generator().manual_seed(12), dtype=torch.bfloat16,
+                           device=dev)
+
+        def fwd():
+            with torch.inference_mode():
+                return bundle.module(normalize_images(x, dtype=torch.bfloat16)).float()
+
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(torch, fwd, reps=10, warmup=3)
+        out[name] = {"ms": ms, "img_per_s": EXTRACT_BATCH / ms * 1e3,
+                     "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        log(f"{name} bf16 256x128 forward at batch {EXTRACT_BATCH}: {json.dumps(out[name])}")
+        del bundle
+    return out
+
+
+def _time_densenet_train_step(torch, dev, root) -> dict:
+    """One ``densenet121`` train step (classifier head of one class per
+    training identity, bf16, 384 images) with CUDA events: ms, img/s, peak
+    device memory."""
+    from daliid_tpu_torch.data import load_dataset
+    from daliid_tpu_torch.models import build_model_pair
+    from daliid_tpu_torch.train.sampler import PKBatchSampler
+    from daliid_tpu_torch.train.trainer import Trainer
+
+    table = load_dataset("Synthetic", root=str(root))["train"]
+    online, momentum = build_model_pair("densenet121", torch.Generator().manual_seed(12),
+                                        dtype=torch.bfloat16, device=dev,
+                                        num_classes=table.num_ids)
+    sampler = PKBatchSampler(table, table.pids, P=P, K=K, kind_of_transform=1,
+                             turbulence_dir=str(root / "Synthetic" / "turbulence"), seed=12)
+    trainer = Trainer(online, momentum, sampler, img_size=IMG, tau=0.05, lambda_proxy=0.4,
+                      compute_dtype=torch.bfloat16, extractor_batch=EXTRACT_BATCH)
+    pset = trainer.mine_proxies()
+    put = lambda a: torch.as_tensor(a, device=dev)
+    rest = (put(pset.centers), put(pset.proxies), put(pset.proxy_labels).long(), 1)
+    images_u8, labels, distortions, mask, _ = (t.to(dev) for t in trainer._stage(
+        next(iter(sampler.epoch()))))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(torch, lambda: trainer.train_step(images_u8, labels, distortions, mask, *rest),
+                 reps=5, warmup=2)
+    b = images_u8.shape[0]
+    out = {"batch": b, "step_ms": ms, "img_per_s": b / ms * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    log(f"densenet121 train step (bf16, {b} images of 256x128, CUDA events): {json.dumps(out)}")
+    del trainer, online, momentum
+    return out
+
+
+def _time_rerank(torch, dev) -> dict:
+    """``re_ranking`` at Market-1501's protocol shape (Q=3,368, G=15,913:
+    N = 19,281) on cosine distances of random unit 2048-d embeddings: ms
+    and the peak device memory above its three input matrices; and the
+    re-ranked search of 200 probes over a 400-row SQ8 index at depth 64
+    (host clock, the call returns numpy), with its device re-ranking alone
+    (CUDA events)."""
+    import numpy as np
+
+    from daliid_tpu_torch.eval.matcher import GalleryIndex
+    from daliid_tpu_torch.eval.rerank import re_ranking, rerank_shortlists
+    from daliid_tpu_torch.metrics.ranking import cosine_distance_matrix
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    unit = lambda n: torch.nn.functional.normalize(
+        torch.randn(n, 2048, device=dev, generator=gen), dim=1)
+    q, g = unit(3368), unit(15913)
+    mats = [cosine_distance_matrix(a, b) for a, b in ((q, g), (q, q), (g, g))]
+    del q, g
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    first = re_ranking(*mats)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(bool(torch.isfinite(first).all()) and first.shape == (3368, 15913),
+          "re_ranking at Market's shape is not finite")
+    del first
+    ms = cuda_ms(torch, lambda: re_ranking(*mats), reps=3, warmup=1)
+    del mats
+    out = {"market_ms": ms, "market_peak_memory_gb": peak / 1e9}
+
+    rng = np.random.default_rng(7)
+    rows = rng.normal(size=(400, 2048)).astype(np.float32)
+    probes = rows[rng.integers(0, 400, 200)] + 0.3 * rng.normal(size=(200, 2048)).astype(
+        np.float32)
+    index = GalleryIndex(rows, np.arange(400), quantize="int8", device=dev)
+    search = lambda: index.search(probes, k=10, rerank=True, rerank_depth=64)
+    search()
+    t0 = time.time()
+    for _ in range(5):
+        search()
+    out["search_q200_g400_depth64_ms"] = (time.time() - t0) / 5 * 1e3
+    fulls = torch.rand(200, 65, 65, device=dev, generator=gen)
+    fulls = (fulls + fulls.transpose(1, 2)) / 2
+    out["shortlists_q200_depth64_device_ms"] = cuda_ms(
+        torch, lambda: rerank_shortlists(fulls, 20, 6, 0.3), reps=10)
+    log(f"re-ranking timings: {json.dumps(out)}")
+    return out
+
+
 # ---------------------------------------------------------------- counts
 class Counts:
     """The launch counters of every kernel wrapper on the main path."""
@@ -1658,7 +1973,12 @@ def main() -> int:
                   lambda: timed("evaluate-ensemble", lambda: phase_ensemble(torch, counts)),
                   lambda: timed("evaluate multipart --multiple_output --mrfuse",
                                 lambda: phase_multihead(torch, counts)),
-                  lambda: phase_search_k100(torch, dev, counts)):
+                  lambda: phase_search_k100(torch, dev, counts),
+                  lambda: timed("evaluate zoo", lambda: phase_zoo_evaluate(torch, counts)),
+                  lambda: timed("train densenet121",
+                                lambda: phase_densenet_train(torch, counts, train_root)),
+                  lambda: timed("evaluate --rerank", lambda: phase_rerank_evaluate(torch, counts)),
+                  lambda: phase_search_rerank(torch, dev, counts)):
         for name, n in phase().items():
             launches[name] += n
     counts.reset()
@@ -1688,6 +2008,9 @@ def main() -> int:
     fusion_times = _time_fusion_at_market(torch, dev)
     rates = _time_extraction(torch, dev)
     jpm = _time_jpm(torch, dev, train_root)
+    zoo_rates = _time_zoo_extraction(torch, dev)
+    dense_step = _time_densenet_train_step(torch, dev, train_root)
+    rerank_times = _time_rerank(torch, dev)
     for name, r in results.items():
         r["launches"] = launches[name]
         check(r["launches"] > 0, f"{name} was not launched on the main path")
@@ -1712,7 +2035,7 @@ def main() -> int:
                 f"{h['pipeline_img_per_s']:.1f} img/s")
     log(f"host decoder on the main path: "
         f"{'native C++ loader, ' + decoder['linked_libjpeg'] + ' libjpeg' if decoder['native_loader'] else 'PIL'}")
-    log("evaluation wall times (bf16, 256x128, 600 images, seconds): " + json.dumps(walls))
+    log("evaluation and train CLI wall times (bf16, 256x128, seconds): " + json.dumps(walls))
     log(f"fusion at Market-1501's shape: magnitude_weighted_distmat "
         f"{fusion_times['magnitude_weighted_distmat_ms']:.4f} ms (bound "
         f"{fusion_times['magnitude_bound_ms']:.4f} ms, bytes), 7 rankings "
@@ -1731,6 +2054,16 @@ def main() -> int:
     log(f"attention_backward alone (bf16, plain f32 torch): N=211 {bwd[0]:.4f} ms, N=53 "
         f"{bwd[1]:.4f} ms; one JPM step of {jpm['batch']}: 12 x N=211 + 4 x N=53 = "
         f"{12 * bwd[0] + 4 * bwd[1]:.3f} ms")
+    log("zoo extraction at batch 512 (bf16, 256x128): "
+        + ", ".join(f"{n} {r['img_per_s']:.1f} img/s peak {r['peak_memory_gb']:.2f} GB"
+                    for n, r in zoo_rates.items()))
+    log(f"densenet121 train step: {dense_step['step_ms']:.3f} ms, "
+        f"{dense_step['img_per_s']:.1f} img/s, peak {dense_step['peak_memory_gb']:.2f} GB")
+    log(f"re_ranking at Market-1501's shape (Q=3368, G=15913): "
+        f"{rerank_times['market_ms']:.1f} ms, peak {rerank_times['market_peak_memory_gb']:.2f} GB "
+        f"above its inputs; re-ranked search Q=200 over 400 rows at depth 64: "
+        f"{rerank_times['search_q200_g400_depth64_ms']:.2f} ms (device re-ranking "
+        f"{rerank_times['shortlists_q200_depth64_device_ms']:.3f} ms)")
     log(f"card: {card}; total {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check", "shape")

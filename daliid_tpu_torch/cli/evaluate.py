@@ -9,9 +9,11 @@ checks (``:136-150``, ``:170``, ``:203-216``): ``--sie_cameras`` and
 with ``--multiple_output`` reports each head, then the heads' ensemble
 (``--head_weighting``), then with ``--mrfuse`` the meta-recognition fusion
 of the first three heads' similarities (``:278-317``, the replicated path).
+``--rerank`` applies k-reciprocal re-ranking before the metrics
+(``:225``, ``:323``), single-output evaluation only, as in JAX.
 The flags of features not ported yet (turbulence galleries, BRIAR
-manifests, re-ranking, sharded and multi-host evaluation, int8 extraction)
-exit with an error that names them.
+manifests, sharded and multi-host evaluation, int8 extraction) exit with
+an error that names them.
 
 Example::
 
@@ -37,13 +39,18 @@ from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.eval.meta_recognition import mrfuse
 from daliid_tpu_torch.eval.validate import get_validator
-from daliid_tpu_torch.models.factory import GELU_APPROX_MODELS, SIE_MODELS, get_model
+from daliid_tpu_torch.models.factory import (
+    GELU_APPROX_MODELS,
+    MULTIHEAD_MODELS,
+    SIE_MODELS,
+    get_model,
+)
 from daliid_tpu_torch.models.torch_port import load_state
 
 _UNPORTED = {
     "turbulence_dir_path": None, "turbulence_strength": None,
     "train_file_path": None, "queries_file_path": None, "gallery_file_path": None,
-    "rerank": False, "quantize": None, "calib_batches": 1, **MULTIHOST_FLAGS,
+    "quantize": None, "calib_batches": 1, **MULTIHOST_FLAGS,
 }
 
 
@@ -72,7 +79,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["mean", "magnitude"],
                    help="head ensemble of --multiple_output: the mean distmat (the "
                         "reference's active merge) or the per-pair max-norm weighting")
-    p.add_argument("--rerank", action="store_true", help="not yet ported")
+    p.add_argument("--rerank", action="store_true",
+                   help="k-reciprocal re-ranking before the metrics (single-output "
+                        "evaluation; query-query and gallery-gallery matrices are cosine "
+                        "distances, as the query-gallery one)")
     p.add_argument("--sie_cameras", type=int, default=0,
                    help="SIE camera-embedding table size for TransReID backbones "
                         "(cfg.MODEL.SIE_CAMERA; must match the checkpoint)")
@@ -127,6 +137,8 @@ def main(args):
     check_transformer_flags(args)
     if args.head_weighting != "mean" and not args.multiple_output:
         raise SystemExit("--head_weighting applies only with --multiple_output")
+    if args.rerank and (args.multiple_output or args.model_name in MULTIHEAD_MODELS):
+        raise SystemExit("--rerank supports single-output evaluation only")
     device = resolve_device(args.device)
     img_size = (args.img_height, args.img_width)
     bundle = load_bundle(args.model_name, args.model_path, img_size,
@@ -141,7 +153,7 @@ def main(args):
         if args.sie_cameras:
             check_camera_ids(args.sie_cameras, (queries, gallery), target)
         validator = get_validator(target, img_size=img_size, batch_size=args.batch_size,
-                                  device=device)
+                                  device=device, rerank=args.rerank)
         q_fvs = extractor.extract(queries, verbose=True)
         g_fvs = extractor.extract(gallery, verbose=True)
 
@@ -169,7 +181,8 @@ def main(args):
         else:  # a multi-head model without --multiple_output ranks its heads' mean
             results[target] = report("", validator.multihead_distance_matrix(q_fvs, g_fvs)
                                      if isinstance(q_fvs, tuple)
-                                     else validator.distance_matrix(q_fvs, g_fvs))
+                                     else validator.reranked_distance_matrix(q_fvs, g_fvs,
+                                                                            verbose=True))
     return results
 
 

@@ -3,9 +3,11 @@
 
 Builds a device-resident gallery index from a dataset split (or a saved
 ``.npz``) and answers the query split's probes with ranked identities
-through kernel K3. Flags are the JAX CLI's plus ``--device``; ``--rerank``,
-``--rerank_depth``, ``--quantize``, ``--calib_batches`` and the multi-host
-flags name features not ported yet and exit with an error.
+through kernel K3. ``--rerank`` re-orders each probe's top
+``--rerank_depth`` shortlist by k-reciprocal re-ranking (exact f32 even on
+an int8 index; scores become 1 - re-ranked distance). Flags are the JAX
+CLI's plus ``--device``; ``--quantize``, ``--calib_batches`` and the
+multi-host flags name features not ported yet and exit with an error.
 
 Example::
 
@@ -27,8 +29,7 @@ from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.eval.matcher import GalleryIndex
 
-_UNPORTED = {"quantize": None, "calib_batches": 1, "rerank": False, "rerank_depth": 64,
-             **MULTIHOST_FLAGS}
+_UNPORTED = {"quantize": None, "calib_batches": 1, **MULTIHOST_FLAGS}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -50,8 +51,11 @@ def build_argparser() -> argparse.ArgumentParser:
              "default keeps the saved mode (f32 for fresh galleries)",
     )
     p.add_argument("--topk", type=int, default=10)
-    p.add_argument("--rerank", action="store_true", help="not yet ported")
-    p.add_argument("--rerank_depth", type=int, default=64, help="not yet ported")
+    p.add_argument("--rerank", action="store_true",
+                   help="k-reciprocal re-rank of each probe's top shortlist (exact f32 "
+                        "even on an int8 index); scores become 1 - re-ranked distance")
+    p.add_argument("--rerank_depth", type=int, default=64,
+                   help="shortlist length fed to --rerank")
     p.add_argument("--save_index", type=str, default=None, help="save gallery embeddings to .npz")
     p.add_argument("--load_index", type=str, default=None, help="load gallery embeddings from .npz")
     p.add_argument("--max_probes", type=int, default=0, help="limit probes (0 = all)")
@@ -91,7 +95,8 @@ def main(args):
     probes = queries if not args.max_probes else queries[np.arange(args.max_probes)]
     q_fvs = extractor.extract(probes, verbose=True)
     t0 = time.time()
-    sims, ids, pids = index.search(q_fvs, k=args.topk)
+    sims, ids, pids = index.search(q_fvs, k=args.topk, rerank=args.rerank,
+                                   rerank_depth=args.rerank_depth)
     dt = time.time() - t0
     acc_note = ""
     if pids is not None:

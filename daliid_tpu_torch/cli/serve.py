@@ -12,6 +12,7 @@ Protocol — one JSON object per line, one JSON response line per request::
     {"op": "enroll", "embeddings": [[...]], "pids": [...]} pre-computed
     {"op": "search", "paths": [...], "topk": 5}
     {"op": "search", "embeddings": [[...]], "topk": 5}
+    {"op": "search", ..., "rerank": true, "rerank_depth": 64}  k-reciprocal
     {"op": "remove", "pids": [...]}                        drop identities
     {"op": "stats"}                                        index/model info
     {"op": "save", "path": "..."} / {"op": "load", "path": "..."}
@@ -22,9 +23,12 @@ failed request never kills the daemon. Connections are concurrent (one
 handler thread each); requests that touch the device serialize on one
 lock. Concurrent searches micro-batch: while one dispatch holds the device,
 arriving searches queue, and the next thread to take the lock serves the
-whole queue in one ``GalleryIndex.search`` (``:212-300``). ``--data_dir``
-jails the save/load paths (``:325-337``). A search with ``"rerank": true``
-is answered with an error: re-ranking is not ported yet.
+queue in one ``GalleryIndex.search`` per group (``:212-300``): all plain
+searches share one dispatch at their largest k (exact searches are
+prefix-identical), and re-ranked ones group by (depth, k), since the
+re-ranked order depends on the shortlist; a re-ranked answer does not
+depend on what else was in flight. ``--data_dir`` jails the save/load
+paths (``:325-337``).
 
 Usage::
 
@@ -191,27 +195,33 @@ class IdentificationService:
             e["result"] = {"ok": False, "error": f"{type(exc).__name__}: {exc}"}
             e["event"].set()
 
-        entries = []
+        groups: dict = {}
         for e in batch:
             try:
                 if self.index is None or self.index.num_gallery == 0:
                     raise ValueError("gallery is empty — enroll first")
-                if e["req"].get("rerank", False):
-                    raise NotImplementedError("k-reciprocal re-ranking is not yet ported")
                 fvs = self._embed(e["req"])
                 if fvs.shape[1] != self.index._host_buf.shape[1]:
                     raise ValueError(
                         f"probe dim {fvs.shape[1]} != index dim {self.index._host_buf.shape[1]}"
                     )
-                entries.append((e, fvs, int(e["req"].get("topk", self.topk))))
+                k = int(e["req"].get("topk", self.topk))
+                # plain searches are exact, so one dispatch at the group's
+                # largest k is prefix-identical for each; a re-ranked order
+                # depends on the shortlist, so those group by (depth, k)
+                if e["req"].get("rerank", False):
+                    key = (True, int(e["req"].get("rerank_depth", 64)), k)
+                else:
+                    key = (False, 0, 0)
+                groups.setdefault(key, []).append((e, fvs, k))
             except Exception as exc:
                 fail(e, exc)
-        if entries:
+        for (rerank, depth, _), entries in groups.items():
             try:
-                # searches are exact, so one dispatch at the group's largest
-                # k is prefix-identical for every request in it
                 probes = np.concatenate([fvs for _, fvs, _ in entries])
-                sims, ids, pids = self.index.search(probes, k=max(k for _, _, k in entries))
+                sims, ids, pids = self.index.search(
+                    probes, k=max(k for _, _, k in entries), rerank=rerank,
+                    rerank_depth=depth if rerank else 64)
                 self._counters["search_dispatches"] += 1
                 off = 0
                 for e, fvs, k in entries:

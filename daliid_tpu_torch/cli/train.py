@@ -103,7 +103,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--fault_inject_epoch", type=int, default=0, help="not yet ported")
     p.add_argument("--fault_inject_rank", type=int, default=-1, help="not yet ported")
     p.add_argument("--num_classes", type=int, default=0,
-                   help="classifier head size for JPM models; -1 = #train ids")
+                   help="classifier head size for transreid_jpm and densenet121; "
+                        "-1 = #train ids")
     p.add_argument("--id_loss_type", type=str, default="softmax",
                    choices=["softmax", "arcface", "cosface", "amsoftmax", "circle"],
                    help="ID-loss head (make_models.py:260-277 equivalents)")

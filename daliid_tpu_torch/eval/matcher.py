@@ -16,8 +16,15 @@ sort, so ties come out lowest index first as in ``jax.lax.top_k``.
 ``save``/``load`` use the JAX package's ``.npz`` schema (``gallery``,
 ``pids``, ``quantize``), so either package loads the other's file.
 
-Not ported yet: k-reciprocal re-ranking (``rerank=True``) and the sharded,
-multi-host index.
+``search(rerank=True)`` re-orders each probe's shortlist of
+``rerank_depth`` rows by k-reciprocal re-ranking (``:344-430``): the
+shortlist is fetched as above at ``min(max(k, depth), num_gallery)`` (K3
+up to 64), its distances are recomputed in f32 from the exact host copy
+with the JAX matcher's numpy expressions (so an SQ8 index re-ranks in f32
+too), and :func:`~daliid_tpu_torch.eval.rerank.rerank_shortlists` runs on
+the index's device.
+
+Not ported yet: the sharded, multi-host index.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from daliid_tpu_torch.device import resolve_device
+from daliid_tpu_torch.eval.rerank import rerank_shortlists
 from daliid_tpu_torch.ops.search_topk import MAX_K, f32_search_topk, sq8_search_topk
 
 
@@ -153,12 +161,20 @@ class GalleryIndex:
                 quantize = str(z["quantize"]) if "quantize" in z.files else None
             return cls(g, pids, quantize=quantize, device=device)
 
-    def search(self, probe_fvs: np.ndarray, k: int = 10, rerank: bool = False):
+    def search(self, probe_fvs: np.ndarray, k: int = 10, rerank: bool = False,
+               rerank_depth: int = 64, rerank_k1: int = 20, rerank_k2: int = 6,
+               rerank_lambda: float = 0.3):
         """→ (similarities (Q, k), gallery_indices (Q, k), pids (Q, k) or
         None). Probes are raw embeddings, normalized here; similarity is the
-        cosine. ``k`` <= 64 runs kernel K3; a larger k the library route."""
-        if rerank:
-            raise NotImplementedError("k-reciprocal re-ranking (rerank=True) is not yet ported")
+        cosine. A fetch of k <= 64 runs kernel K3; a larger one the library
+        route.
+
+        ``rerank=True`` re-orders each probe's top-``rerank_depth``
+        shortlist by k-reciprocal re-ranking, in f32 from the exact host
+        copy even on an SQ8 index; the scores are then ``1 - re-ranked
+        distance``. With one probe and ``rerank_depth >= num_gallery`` this
+        equals :func:`~daliid_tpu_torch.eval.rerank.re_ranking` on the
+        probe's and the gallery's cosine distances."""
         q = serving_embedding(probe_fvs)
         if q.ndim != 2 or q.shape[1] != self._host_buf.shape[1]:
             raise ValueError(
@@ -171,22 +187,47 @@ class GalleryIndex:
             idx = np.zeros((q.shape[0], 0), np.int32)
             pids = self.gallery_pids[idx] if self.gallery_pids is not None else None
             return np.zeros((q.shape[0], 0), np.float32), idx, pids
-        if k > MAX_K:
-            vals, idx = self._search_library(q, k)
+        k_fetch = min(max(k, rerank_depth), self.num_gallery) if rerank else k
+        if k_fetch > MAX_K:
+            vals, idx = self._search_library(q, k_fetch)
         elif self.quantize == "int8":
             q8, q_scale = _quantize_rows(q)
             vals, idx = sq8_search_topk(
                 torch.from_numpy(q8).to(self.device), self._gallery, self._gallery_scale,
-                self.num_gallery, k,
+                self.num_gallery, k_fetch,
             )
             # the probe's per-row scale is rank-invariant → applied after the kernel
             vals = vals * torch.from_numpy(q_scale).to(self.device)[:, None]
         else:
             vals, idx = f32_search_topk(torch.from_numpy(q).to(self.device), self._gallery,
-                                        self.num_gallery, k)
+                                        self.num_gallery, k_fetch)
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        if rerank and self.num_gallery > 1:
+            vals, idx = self._rerank_shortlist(q, idx, k, rerank_k1, rerank_k2, rerank_lambda)
+        else:
+            vals, idx = vals[:, :k], idx[:, :k]
         pids = self.gallery_pids[idx] if self.gallery_pids is not None else None
         return vals, idx, pids
+
+    def _rerank_shortlist(self, q: np.ndarray, idx: np.ndarray, k: int, k1: int, k2: int,
+                          lam: float):
+        """k-reciprocal re-rank of each probe's shortlist: rows from the
+        exact f32 host copy, distances by the JAX matcher's numpy
+        expressions (``matcher.py:412-421``), re-ranking on the device, a
+        stable sort of the re-ranked distances."""
+        depth = idx.shape[1]
+        cands = self._host_buf[idx]                      # (Q, depth, D) f32
+        qg = 1.0 - np.einsum("qd,qjd->qj", q, cands)
+        gg = 1.0 - np.einsum("qid,qjd->qij", cands, cands)
+        fulls = np.zeros((idx.shape[0], 1 + depth, 1 + depth), np.float32)
+        fulls[:, 0, 1:] = qg
+        fulls[:, 1:, 0] = qg
+        fulls[:, 1:, 1:] = gg
+        new_dist = rerank_shortlists(torch.from_numpy(fulls).to(self.device), k1=min(k1, depth),
+                                     k2=min(k2, depth), lambda_value=float(lam)).cpu().numpy()
+        order = np.argsort(new_dist, axis=1, kind="stable")[:, :k]
+        return (1.0 - np.take_along_axis(new_dist, order, axis=1),
+                np.take_along_axis(idx, order, axis=1))
 
     def _search_library(self, q: np.ndarray, k: int):
         """The JAX matcher's XLA route for k above K3's cap: every score of

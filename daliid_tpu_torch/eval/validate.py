@@ -7,8 +7,9 @@ with ``distance_matrix``, ``rank``, ``rank_features`` and
 (``:246``), which differ from it only in the three protocol class
 attributes. A multi-head model's tuple of head embeddings ranks by the
 mean of the heads' distmats or their per-pair max-norm weighting
-(``:168-188``), on the device. Not ported yet: re-ranking and the sharded
-path (the evaluate CLI rejects their flags).
+(``:168-188``), on the device. ``rerank=True`` applies k-reciprocal
+re-ranking (``:82-106``, :func:`reranked_distance_matrix`) on the device.
+Not ported yet: the sharded path (the evaluate CLI rejects its flag).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from daliid_tpu_torch.data.registry import ReidTable
 from daliid_tpu_torch.device import resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
+from daliid_tpu_torch.eval.rerank import re_ranking
 from daliid_tpu_torch.metrics.ranking import cosine_distance_matrix, evaluate_rank
 
 
@@ -32,17 +34,33 @@ class Validator:
     _report_map = True       # BRIAR reports mAP as 0
 
     def __init__(self, img_size=(256, 128), batch_size: int = 512, device="cuda",
-                 max_rank: int = 50):
+                 max_rank: int = 50, rerank: bool = False):
         self.img_size = img_size
         self.batch_size = batch_size
         self.device = resolve_device(device)
         self.max_rank = max_rank
+        self.rerank = rerank  # the commented path at validateModels.py:49-53
 
     def distance_matrix(self, query_fvs, gallery_fvs) -> torch.Tensor:
         return cosine_distance_matrix(
             torch.as_tensor(np.asarray(query_fvs, np.float32), device=self.device),
             torch.as_tensor(np.asarray(gallery_fvs, np.float32), device=self.device),
         )
+
+    def reranked_distance_matrix(self, query_fvs, gallery_fvs, verbose: bool = False):
+        """The distmat with the validator's optional k-reciprocal
+        re-ranking applied, on the device. As in the JAX package the
+        query-query and gallery-gallery matrices are cosine distances, like
+        the query-gallery one (the reference's commented code mixed in
+        euclidean ones; on L2-normalized features the neighbour sets are
+        the same, only the exp(-d) weights differ)."""
+        distmat = self.distance_matrix(query_fvs, gallery_fvs)
+        if not self.rerank:
+            return distmat
+        if verbose:
+            print("Applying person re-ranking ...")
+        return re_ranking(distmat, self.distance_matrix(query_fvs, query_fvs),
+                          self.distance_matrix(gallery_fvs, gallery_fvs))
 
     def rank(self, distmat, queries: ReidTable, gallery: ReidTable):
         """→ (cmc curve of length max_rank — index with ``cmc[r-1]`` — , mAP)."""
@@ -60,9 +78,12 @@ class Validator:
         """CMC/mAP straight from raw embeddings (full distmat, one device);
         head tuples through :meth:`multihead_distance_matrix`."""
         if isinstance(q_fvs, (tuple, list)):
+            if self.rerank:
+                raise ValueError("re-ranking a multi-head ensemble is undefined upstream "
+                                 "(evaluate.py never combines them); rerank per head instead")
             return self.rank(self.multihead_distance_matrix(q_fvs, g_fvs, head_weighting),
                              queries, gallery)
-        return self.rank(self.distance_matrix(q_fvs, g_fvs), queries, gallery)
+        return self.rank(self.reranked_distance_matrix(q_fvs, g_fvs), queries, gallery)
 
     def multihead_distance_matrix(self, q_heads, g_heads, head_weighting: str = "mean",
                                   distmats=None) -> torch.Tensor:
@@ -99,7 +120,7 @@ class Validator:
         if isinstance(q_fvs, tuple):
             distmat = self.multihead_distance_matrix(q_fvs, g_fvs)
         else:
-            distmat = self.distance_matrix(q_fvs, g_fvs)
+            distmat = self.reranked_distance_matrix(q_fvs, g_fvs, verbose=verbose)
         cmc, mAP = self.rank(distmat, queries, gallery)
         if verbose:
             print(f"** Results ** mAP: {mAP:.2%}")
@@ -116,9 +137,9 @@ class BriarValidator(Validator):
     _report_map = False
 
     def __init__(self, img_size=(256, 128), batch_size: int = 512, device="cuda",
-                 max_rank: int = 20):
+                 max_rank: int = 20, rerank: bool = False):
         super().__init__(img_size=img_size, batch_size=batch_size, device=device,
-                         max_rank=max_rank)
+                         max_rank=max_rank, rerank=rerank)
 
 
 def get_validator(dataset_name: str, **kw) -> Validator:

@@ -3,15 +3,16 @@
 Port of ``daliid_tpu/models/factory.py``: :class:`ModelBundle`, the
 ResNet family ``resnet50``, ``resnet50_gap``, ``resnet50Seg``,
 ``resnet50IBN``, ``resnet101IBN``, ``dualresnet50``, ``multipart_resnet50``
-and ``multiview_resnet50`` (``:72-109``, ``:223-238``), the ViT family
-``vit``, ``vit_small``, ``deit_small``, ``tiny_vit_smoke``,
-``transreid_jpm`` and ``transreid`` (``:131-197``), the flag sets of
-``:50-61`` (``REMAT_MODELS`` waits for ``remat``), :func:`get_model`
-(``:200-220``) and :func:`build_model_pair` (``:256-266``). ``osnet``,
-``densenet121``, ``efficientnetB0``, ``inceptionV3`` and
-``build_ensembles`` are not ported yet. As in the JAX
-package every factory takes ``**kw`` and ignores what it does not use; the
-CLIs check the flags against the sets below.
+and ``multiview_resnet50`` (``:72-109``, ``:223-238``), the rest of the CNN
+zoo ``osnet``, ``densenet121`` (with ``num_classes``), ``efficientnetB0``
+and ``inceptionV3`` (``:107-130``), the ViT family ``vit``,
+``vit_small``, ``deit_small``, ``tiny_vit_smoke``, ``transreid_jpm`` and
+``transreid`` (``:131-197``): all 18 names of the JAX registry. Also the
+flag sets of ``:50-61`` (``REMAT_MODELS`` waits for ``remat``),
+:func:`get_model` (``:200-220``), :func:`build_ensembles` (``:241-253``)
+and :func:`build_model_pair` (``:256-266``). As in the JAX package every
+factory takes ``**kw`` and ignores what it does not use; the CLIs check
+the flags against the sets below.
 
 ``use_fused_attention=True`` is the JAX factories' ``use_pallas_attention``:
 the ViT family's attention goes through the hand-written kernel K4 instead
@@ -32,9 +33,14 @@ import dataclasses
 import math
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 from torch import nn
 
+from daliid_tpu_torch.models.densenet import DenseNet121ReID
+from daliid_tpu_torch.models.efficientnet import EfficientNetB0ReID
+from daliid_tpu_torch.models.inception import InceptionV3ReID
+from daliid_tpu_torch.models.osnet import OSNetReID
 from daliid_tpu_torch.models.resnet import (
     DualResNet50ReID,
     MultiPartResNet50ReID,
@@ -126,6 +132,30 @@ def _multipart_resnet50(dtype=torch.float32, **kw):
 def _multiview_resnet50(dtype=torch.float32, **kw):
     """Global/spatial/channel attention heads (getFeatures.py:202-241)."""
     return MultiViewResNet50ReID(dtype=dtype), 2048
+
+
+@register_model("osnet")
+def _osnet(dtype=torch.float32, feature="both", **kw):
+    """OSNet-x1.0 (Encoders.py:125-146, 642-684)."""
+    return OSNetReID(dtype=dtype, feature=feature), 512
+
+
+@register_model("densenet121")
+def _densenet121(dtype=torch.float32, num_classes=0, **kw):
+    """DenseNet-121 (Encoders.py:148-169, 606-639)."""
+    return DenseNet121ReID(dtype=dtype, num_classes=num_classes), 2048
+
+
+@register_model("efficientnetB0")
+def _efficientnet_b0(dtype=torch.float32, feature="both", **kw):
+    """EfficientNet-B0 (Encoders.py:218-239, 831-864)."""
+    return EfficientNetB0ReID(dtype=dtype, feature=feature), 1280
+
+
+@register_model("inceptionV3")
+def _inception_v3(dtype=torch.float32, feature="both", **kw):
+    """Inception-V3 (Encoders.py:171-192, 686-763)."""
+    return InceptionV3ReID(dtype=dtype, feature=feature), 2048
 
 
 @register_model("vit")
@@ -226,3 +256,20 @@ def build_model_pair(name: str, generator: torch.Generator | None = None, img_si
     momentum = ModelBundle(module=copy.deepcopy(online.module), feature_dim=online.feature_dim,
                            name=name)
     return online, momentum
+
+
+def build_ensembles(generator: torch.Generator | None = None,
+                    names=("resnet50", "osnet", "densenet121"), img_size=(256, 128),
+                    dtype: torch.dtype = torch.float32, device="cpu"):
+    """The reference's three-backbone ensemble (``getEnsembles``,
+    ``Encoders.py:245-301``): one synced (online, momentum) pair per name.
+    Pair ``i`` draws its weights from a generator of its own, seeded from
+    ``generator``'s seed and ``i`` (the JAX package's ``fold_in(rng, i)``),
+    so the pairs differ whatever the backbones."""
+    base = 12 if generator is None else generator.initial_seed()
+    pairs = []
+    for i, name in enumerate(names):
+        seed = int(np.random.SeedSequence([base, i]).generate_state(1, np.uint64)[0] >> 1)
+        pairs.append(build_model_pair(name, torch.Generator().manual_seed(seed),
+                                      img_size=img_size, dtype=dtype, device=device))
+    return pairs

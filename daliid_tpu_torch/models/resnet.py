@@ -49,16 +49,20 @@ from daliid_tpu_torch.models.norm import InstanceNorm, TorchBatchNorm
 class Conv(nn.Conv2d):
     """Convolution that runs in its input's dtype (f32 weights, and bias,
     cast at call time) and keeps ``channels_last``; bias-free unless asked,
-    as flax's ``use_bias`` default is for the attention gates."""
+    as flax's ``use_bias`` default is for the attention gates. ``kernel``
+    and ``padding`` take an int or an (h, w) pair (symmetric padding, as
+    flax's explicit integer padding); ``groups`` = channels is a depthwise
+    convolution (flax's ``feature_group_count``)."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
-                 bias: bool = False):
-        super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=bias)
+    def __init__(self, cin: int, cout: int, kernel, stride: int = 1, padding=0,
+                 bias: bool = False, groups: int = 1):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=bias,
+                         groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(dtype=x.dtype, memory_format=torch.channels_last)
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, w, b, self.stride, self.padding)
+        return F.conv2d(x, w, b, self.stride, self.padding, 1, self.groups)
 
 
 class IBN(nn.Module):
@@ -107,9 +111,16 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
-def _pool_both(x: torch.Tensor) -> torch.Tensor:
-    """GAP + GMP over H and W in the compute dtype, then f32."""
-    return (x.mean(dim=(2, 3)) + x.amax(dim=(2, 3))).float()
+def pool_features(x: torch.Tensor, feature: str = "both") -> torch.Tensor:
+    """GAP, GMP or their sum (``feature``) over H and W in the compute
+    dtype, then f32."""
+    if feature == "gap":
+        pooled = x.mean(dim=(2, 3))
+    elif feature == "gmp":
+        pooled = x.amax(dim=(2, 3))
+    else:
+        pooled = x.mean(dim=(2, 3)) + x.amax(dim=(2, 3))
+    return pooled.float()
 
 
 class _ResNetTrunk(nn.Module):
@@ -168,15 +179,7 @@ class ResNet50ReID(_ResNetTrunk):
         x = feature_map = self.trunk(x)
         if self.seg_attention and seg_mask is not None:
             x = x * seg_mask.to(x.dtype)
-        gap = x.mean(dim=(2, 3))
-        gmp = x.amax(dim=(2, 3))
-        if self.feature == "gap":
-            pooled = gap
-        elif self.feature == "gmp":
-            pooled = gmp
-        else:
-            pooled = gap + gmp
-        out = self.last_bn(pooled.float())
+        out = self.last_bn(pool_features(x, self.feature))
         if self.return_feature_map:
             return feature_map.float(), out
         return out
@@ -202,7 +205,7 @@ class MultiPartResNet50ReID(_ResNetTrunk):
                      feats[:, :, 2 * h // 3:], feats)
         else:
             bands = (feats,) * 4
-        return tuple(bn(_pool_both(f)) for f, bn in zip(
+        return tuple(bn(pool_features(f)) for f, bn in zip(
             bands, (self.upper_bn, self.middle_bn, self.lower_bn, self.last_bn)))
 
 
@@ -227,9 +230,9 @@ class MultiViewResNet50ReID(_ResNetTrunk):
         space_att = torch.sigmoid(self.spatial_gate(feats))
         gp = torch.cat([feats.mean(dim=(2, 3)), feats.amax(dim=(2, 3))], dim=1)[:, :, None, None]
         channel_att = torch.sigmoid(self.channel_expand(F.relu(self.channel_squeeze(gp))))
-        return (self.last_bn(_pool_both(feats)),
-                self.spatial_bn(_pool_both(feats * space_att)),
-                self.channel_bn(_pool_both(feats * channel_att)))
+        return (self.last_bn(pool_features(feats)),
+                self.spatial_bn(pool_features(feats * space_att)),
+                self.channel_bn(pool_features(feats * channel_att)))
 
 
 class DualResNet50ReID(_ResNetTrunk):
@@ -243,6 +246,6 @@ class DualResNet50ReID(_ResNetTrunk):
         self.bias_bn = TorchBatchNorm(self.channels, dtype=torch.float32)
 
     def forward(self, x: torch.Tensor):
-        pooled = _pool_both(self.trunk(x))
+        pooled = pool_features(self.trunk(x))
         id_fv, bias_fv = self.id_bn(pooled), self.bias_bn(pooled)
         return torch.cat([id_fv, bias_fv], dim=1), id_fv, bias_fv

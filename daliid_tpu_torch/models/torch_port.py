@@ -5,9 +5,13 @@ The port's ``state_dict`` keys are the reference's torch keys, the schemes
 that ``daliid_tpu/models/torch_port.py`` emits: ``resnet50_reid_to_torch_keys``
 (``:901-932``) and ``resnet_ibn_reid_to_torch_keys`` (``:670-680``) for the
 ResNets (a multi-head model's heads under their flax names),
-``vit_reid_to_torch_keys(wrapper='base')`` (``:413``) for the ViTReID family (``base.*`` + the ``bottleneck`` neck) and
-``transreid_jpm_to_torch_keys`` (``:496``) for TransReID-JPM. Every entry
-point dispatches on the model name, as ``variables_from_torch`` does
+``vit_reid_to_torch_keys(wrapper='base')`` (``:413``) for the ViTReID
+family (``base.*`` + the ``bottleneck`` neck), ``transreid_jpm_to_torch_keys``
+(``:496``) for TransReID-JPM, and the rest of the CNN zoo: OSNet
+(``:508-572``), DenseNet-121 (``:575-624``), Inception-V3 (``:680-757``)
+and EfficientNet-B0 (``:759-808``), whose gates and squeeze-excitations
+are 1x1 convolutions with bias in torch and Dense layers in flax. Every
+entry point dispatches on the model name, as ``variables_from_torch`` does
 (``:810-846``):
 
 - :func:`variables_from_jax` turns the JAX package's ``{'params',
@@ -32,7 +36,11 @@ point dispatches on the model name, as ``variables_from_torch`` does
   ``base.blocks.{depth-1}`` and ``base.norm`` are dropped (``:476``), a
   margin-head checkpoint's missing local classifiers are filled
   (``:463-473``), and the position embedding is resized to the module's
-  grid (``:478-492``).
+  grid (``:478-492``); the OSNet, DenseNet, Inception and EfficientNet
+  checkpoints have the port's keys once the ImageNet heads that their
+  wrappers keep unused are dropped, and a DenseNet classifier is dropped
+  for a model built without one (``num_classes=0``, as evaluation builds
+  it).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from daliid_tpu_torch.models.efficientnet import _B0_CONFIG
 from daliid_tpu_torch.models.factory import VIT_MODELS
 from daliid_tpu_torch.models.vit import resize_pos_embed
 
@@ -81,7 +90,8 @@ def read_jax_npz(path: str) -> Dict[str, object]:
 
 # ------------------------------------------------------------ key tables
 # (torch prefix, path of the flax node, kind): kinds are conv, dense, ln
-# (LayerNorm), bn and raw (the array under its own key)
+# (LayerNorm), bn, raw (the array under its own key) and dense_conv1x1 (a
+# flax Dense that is a 1x1 convolution with bias in torch)
 
 def _resnet_entries(params):
     """The ResNet family: the trunk, IBN blocks (``bn1.IN`` / ``bn1.BN``, the
@@ -147,11 +157,132 @@ def _jpm_entries(params):
     return e
 
 
+def _conv_bn_entries(tk: str, path: tuple):
+    return [(tk + ".conv", path + ("conv",), "conv"), (tk + ".bn", path + ("bn",), "bn")]
+
+
+def _osnet_entries(params):
+    """torchreid's ``osnet_x1_0`` naming under the ``OSNETReID`` wrapper:
+    lite convolutions ``conv1`` (pointwise) / ``conv2`` (depthwise) / ``bn``,
+    streams ``conv2a`` to ``conv2d``, the shared ``gate``, ``conv3`` the
+    expand, ``downsample`` the projection shortcut, ``conv{2,3}.2.0`` the
+    transitions."""
+    e = _conv_bn_entries("conv1", ("conv1",))
+    for stage in (2, 3, 4):
+        for b in range(2):
+            tk, path = f"conv{stage}.{b}", (f"conv{stage}_{b}",)
+            e += _conv_bn_entries(tk + ".conv1", path + ("reduce",))
+            for depth, stream in enumerate("abcd", start=1):
+                for d in range(depth):
+                    src = f"{tk}.conv2{stream}" + (f".{d}" if depth > 1 else "")
+                    lite = path + (f"stream{depth}_{d}",)
+                    e += [(src + ".conv1", lite + ("pw",), "conv"),
+                          (src + ".conv2", lite + ("dw",), "conv"),
+                          (src + ".bn", lite + ("bn",), "bn")]
+            e += [(tk + ".gate.fc1", path + ("gate", "fc1"), "dense_conv1x1"),
+                  (tk + ".gate.fc2", path + ("gate", "fc2"), "dense_conv1x1"),
+                  (tk + ".conv3.conv", path + ("expand",), "conv"),
+                  (tk + ".conv3.bn", path + ("expand_bn",), "bn")]
+            if "shortcut" in params[path[0]]:
+                e += [(tk + ".downsample.conv", path + ("shortcut",), "conv"),
+                      (tk + ".downsample.bn", path + ("shortcut_bn",), "bn")]
+        if stage < 4:
+            e += _conv_bn_entries(f"conv{stage}.2.0", (f"transition{stage}",))
+    return e + _conv_bn_entries("conv5", ("conv5",)) + [("last_bn", ("last_bn",), "bn")]
+
+
+def _densenet_entries(params):
+    """torchvision ``densenet121.features`` naming under the wrapper's
+    ``model_base``; the block sizes are read from the params."""
+    e = [("model_base.conv0", ("conv0",), "conv"), ("model_base.norm0", ("norm0",), "bn")]
+    layers = [tuple(map(int, m.groups())) for m in
+              (re.fullmatch(r"block(\d+)_layer(\d+)", k) for k in params) if m]
+    for bi in range(1, max(b for b, _ in layers) + 1):
+        for li in range(sum(1 for b, _ in layers if b == bi)):
+            tk, path = f"model_base.denseblock{bi}.denselayer{li + 1}", (f"block{bi}_layer{li}",)
+            e += [(tk + ".norm1", path + ("norm1",), "bn"), (tk + ".conv1", path + ("conv1",), "conv"),
+                  (tk + ".norm2", path + ("norm2",), "bn"), (tk + ".conv2", path + ("conv2",), "conv")]
+        if f"transition{bi}" in params:
+            e += [(f"model_base.transition{bi}.norm", (f"transition{bi}", "norm"), "bn"),
+                  (f"model_base.transition{bi}.conv", (f"transition{bi}", "conv"), "conv")]
+    e += [("model_base.norm5", ("norm_final",), "bn"), ("last_bn", ("last_bn",), "bn")]
+    if "classifier" in params:
+        e.append(("classification", ("classifier",), "dense"))
+    return e
+
+
+# torchvision Inception-V3 branch attribute → flax submodule, per block family
+_INCEPTION_A = [("branch1x1", "b1"), ("branch5x5_1", "b5_1"), ("branch5x5_2", "b5_2"),
+                ("branch3x3dbl_1", "b3_1"), ("branch3x3dbl_2", "b3_2"),
+                ("branch3x3dbl_3", "b3_3"), ("branch_pool", "bp")]
+_INCEPTION_6A = [("branch3x3", "b3"), ("branch3x3dbl_1", "d3_1"), ("branch3x3dbl_2", "d3_2"),
+                 ("branch3x3dbl_3", "d3_3")]
+_INCEPTION_C = ([("branch1x1", "b1")] + [(f"branch7x7_{i}", f"b7_{i}") for i in (1, 2, 3)]
+                + [(f"branch7x7dbl_{i}", f"d7_{i}") for i in range(1, 6)]
+                + [("branch_pool", "bp")])
+_INCEPTION_7A = ([("branch3x3_1", "b3_1"), ("branch3x3_2", "b3_2")]
+                 + [(f"branch7x7x3_{i}", f"b7_{i}") for i in range(1, 5)])
+_INCEPTION_E = [("branch1x1", "b1"), ("branch3x3_1", "b3_1"), ("branch3x3_2a", "b3_2a"),
+                ("branch3x3_2b", "b3_2b"), ("branch3x3dbl_1", "d3_1"),
+                ("branch3x3dbl_2", "d3_2"), ("branch3x3dbl_3a", "d3_3a"),
+                ("branch3x3dbl_3b", "d3_3b"), ("branch_pool", "bp")]
+_INCEPTION_BLOCKS = {
+    "Mixed_5b": _INCEPTION_A, "Mixed_5c": _INCEPTION_A, "Mixed_5d": _INCEPTION_A,
+    "Mixed_6a": _INCEPTION_6A,
+    "Mixed_6b": _INCEPTION_C, "Mixed_6c": _INCEPTION_C, "Mixed_6d": _INCEPTION_C,
+    "Mixed_6e": _INCEPTION_C,
+    "Mixed_7a": _INCEPTION_7A, "Mixed_7b": _INCEPTION_E, "Mixed_7c": _INCEPTION_E,
+}
+
+
+def _inception_entries():
+    """torchvision Inception-V3 stem and mixed-block attributes (each a
+    ``BasicConv2d`` of ``conv`` + ``bn``) under the ``inceptionV3ReID``
+    wrapper, plus ``last_bn``."""
+    e = []
+    for stem in ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3", "Conv2d_3b_1x1",
+                 "Conv2d_4a_3x3"):
+        e += _conv_bn_entries(stem, (stem.rsplit("_", 1)[0],))
+    for block, branches in _INCEPTION_BLOCKS.items():
+        for bt, bf in branches:
+            e += _conv_bn_entries(f"{block}.{bt}", (block, bf))
+    return e + [("last_bn", ("last_bn",), "bn")]
+
+
+def _efficientnet_entries():
+    """torchvision EfficientNet-B0 ``features`` numbering under the
+    ``efficientnetB0ReID`` wrapper: (conv, BN) pairs at ``.0`` / ``.1``, each
+    MBConv's ``block`` = [expand] → depthwise → squeeze-excitation
+    (``fc1`` / ``fc2``) → project."""
+    e = [("features.0.0", ("stem_conv",), "conv"), ("features.0.1", ("stem_bn",), "bn")]
+    for si, (expand, _ch, repeats, _stride, _kernel) in enumerate(_B0_CONFIG, start=1):
+        for r in range(repeats):
+            tb, path = f"features.{si}.{r}.block", (f"stage{si - 1}_{r}",)
+            parts = ["dw", "se", "project"] if expand == 1 else ["expand", "dw", "se", "project"]
+            for j, part in enumerate(parts):
+                if part == "se":
+                    e += [(f"{tb}.{j}.fc1", path + ("se", "reduce"), "dense_conv1x1"),
+                          (f"{tb}.{j}.fc2", path + ("se", "expand"), "dense_conv1x1")]
+                else:
+                    e += [(f"{tb}.{j}.0", path + (f"{part}_conv",), "conv"),
+                          (f"{tb}.{j}.1", path + (f"{part}_bn",), "bn")]
+    return e + [("features.8.0", ("head_conv",), "conv"), ("features.8.1", ("head_bn",), "bn"),
+                ("last_bn", ("last_bn",), "bn")]
+
+
 def _entries(model_name: str, params):
     if model_name in VIT_MODELS:
         return _vit_trunk_entries(params, ()) + [("bottleneck", ("last_bn",), "bn")]
     if model_name == "transreid_jpm":
         return _jpm_entries(params)
+    if model_name == "osnet":
+        return _osnet_entries(params)
+    if model_name == "densenet121":
+        return _densenet_entries(params)
+    if model_name == "inceptionV3":
+        return _inception_entries()
+    if model_name == "efficientnetB0":
+        return _efficientnet_entries()
     return _resnet_entries(params)
 
 
@@ -179,6 +310,8 @@ def _convert(params, stats, entries) -> Dict[str, torch.Tensor]:
             out[tk + ".weight"] = _f32(node["kernel"], (3, 2, 0, 1))
         elif kind == "dense":
             out[tk + ".weight"] = _f32(node["kernel"], (1, 0))
+        elif kind == "dense_conv1x1":
+            out[tk + ".weight"] = _f32(node["kernel"], (1, 0))[:, :, None, None].contiguous()
         else:  # ln, bn
             out[tk + ".weight"] = _f32(node["scale"])
         if "bias" in node:
@@ -312,6 +445,22 @@ _HEADS_WITHOUT_TORCH_KEYS = {
 }
 # the IBN-Net ImageNet head that the reference wrappers keep and never use
 _IBN_UNUSED = ("fc.", "model_base.fc.")
+# the upstream heads that the CNN zoo's wrappers keep and never use
+# (torchvision Inception-V3's auxiliary tower among them)
+_ZOO_UNUSED = {
+    "osnet": ("fc.", "classifier.", "model_base.fc.", "model_base.classifier."),
+    "densenet121": ("model_base.classifier.",),
+    "inceptionV3": ("AuxLogits.", "fc.", "model_base.AuxLogits.", "model_base.fc."),
+    "efficientnetB0": ("classifier.", "model_base.classifier."),
+}
+
+
+def _without_unused_classifier(sd: Dict[str, torch.Tensor], module) -> Dict[str, torch.Tensor]:
+    """Drop a DenseNet ``classification`` head that ``module`` (built with
+    ``num_classes=0``) does not have: evaluation reads the embedding only."""
+    if module is None or hasattr(module, "classification"):
+        return sd
+    return {k: v for k, v in sd.items() if not k.startswith("classification.")}
 
 
 def state_from_torch(model_name: str, state_dict: Mapping[str, object],
@@ -330,6 +479,10 @@ def state_from_torch(model_name: str, state_dict: Mapping[str, object],
         return _jpm_state(sd, module)
     if model_name in ("resnet50IBN", "resnet101IBN"):
         return {k: v for k, v in sd.items() if not k.startswith(_IBN_UNUSED)}
+    if model_name in _ZOO_UNUSED:
+        return _without_unused_classifier(
+            {k: v for k, v in sd.items() if not k.startswith(_ZOO_UNUSED[model_name])
+             and not k.endswith("num_batches_tracked")}, module)
     missing = [h for h in _HEADS_WITHOUT_TORCH_KEYS.get(model_name, ())
                if not any(k.startswith(h + ".") for k in sd)]
     if missing:
@@ -345,5 +498,6 @@ def load_state(model_name: str, path: str, module=None) -> Dict[str, torch.Tenso
     torch pickle (a reference checkpoint, or a ``model_*.pt`` the port's
     trainer wrote)."""
     if path.endswith(".npz"):
-        return variables_from_jax(model_name, read_jax_npz(path))
+        return _without_unused_classifier(variables_from_jax(model_name, read_jax_npz(path)),
+                                          module)
     return state_from_torch(model_name, load_torch_checkpoint(path), module)

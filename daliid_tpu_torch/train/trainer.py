@@ -2,9 +2,11 @@
 the epoch loop.
 
 Port of ``daliid_tpu/train/trainer.py`` for models that return one (B, D)
-embedding in train mode (the ResNet and ViT families) and for TransReID-JPM,
-which returns ``(scores, feats)``. The classifier-headed 2-tuple branch
-(``densenet121``, ``trainer.py:438-447``) waits for that model. The
+embedding in train mode (the ResNet and ViT families and the rest of the
+CNN zoo), for TransReID-JPM, which returns ``([scores], [feats])``, and for
+a classifier-headed model (``densenet121`` with ``num_classes > 0``), which
+returns ``(embedding, logits)``; the two tuples are told apart as the JAX
+trainer does, by whether the first element is itself a list. The
 reference trainer (``Person-ReID/train_encodersKIT.py:45-249``) and its
 outer loop (``mainKIT.py:58-201``), step by step (``trainer.py:367-569``):
 
@@ -19,8 +21,10 @@ outer loop (``mainKIT.py:58-201``), step by step (``trainer.py:367-569``):
   triplet on the L2-normalized branch features, each mixed 0.5 global +
   0.5 mean of the local branches; the embedding for the losses below is
   ``concat([global, locals / 4])``, the space the miner embeds in;
+- for a classifier head (``trainer.py:438-447``): distortion-weighted
+  cross entropy over the softmax of the logits;
 - ``out / (||out|| + 1e-9)`` (``trainer.py:448``);
-- center loss + ``lambda_proxy`` x proxy loss (+ the JPM terms, +
+- center loss + ``lambda_proxy`` x proxy loss (+ the JPM or classifier terms, +
   ``lambda_distortion`` x the paired loss on [clean, distorted] pairs when
   it is > 0);
 - backward; Adam with L2 decay folded into the gradient
@@ -230,10 +234,19 @@ class Trainer:
                 epoch):
         out = self._forward(images, labels, camids)
         id_loss = None
-        if isinstance(out, tuple):  # JPM in train mode: (scores, feats)
+        if isinstance(out, tuple) and len(out) == 2 and isinstance(out[0], (list, tuple)):
+            # JPM in train mode: ([scores...], [feats...])
             scores, feats = out
             id_loss = self._jpm_losses(scores, feats, labels, distortions, mask, epoch)
             out = torch.cat([feats[0]] + [f / 4.0 for f in feats[1:]], dim=1)
+        elif isinstance(out, tuple) and len(out) == 2:
+            # a classifier-headed model (densenet121 with num_classes > 0,
+            # Encoders.py:633-637): (embedding, logits), the distortion-
+            # weighted cross-entropy on the logits
+            out, logits = out
+            id_loss = L.weighted_cross_entropy_loss(
+                torch.softmax(logits, dim=-1), labels, distortions, epoch, self.num_epochs,
+                sample_mask=mask)[0]
         fvs = out / (torch.linalg.vector_norm(out, dim=1, keepdim=True) + 1e-9)
         center_loss, aux = L.weighted_center_loss(
             fvs, labels, distortions, centers, epoch, self.num_epochs, tau=self.tau,

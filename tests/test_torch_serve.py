@@ -184,8 +184,10 @@ def test_serve_embeddings_match_jax(world, tmp_path):
                     "search_requests", "search_dispatches"):
             assert rp[key] == rj[key], key
         assert rp["index_quantize"] == "int8" and rp["busy_ms"] > 0
-        r = pc.request({"op": "search", "embeddings": probes[:1], "rerank": True})
-        assert not r["ok"] and "not yet ported" in r["error"]
+        # k-reciprocal re-ranking of a shortlist of every row, f32 from the
+        # exact host copy on both sides
+        _same_search(*_both(clients, {"op": "search", "embeddings": probes[:3], "topk": 5,
+                                      "rerank": True}))
     finally:
         _stop(ps, pt, pc)
         _stop(js, jt, jc)
@@ -293,6 +295,47 @@ def test_serve_batch_mixing_topk_100_and_5_answers_both(quantize):
         _stop(server, thread, client)
 
 
+@pytest.mark.parametrize("quantize", ["int8", "off"])
+def test_serve_batch_mixing_reranked_and_plain_requests(quantize):
+    """One batch of re-ranked requests at depth 64 and at depth 32 and two
+    plain requests of different topk: three dispatches (one per re-rank
+    depth, one for the plain pair at their larger k), and every answer
+    equal to the same request sent alone."""
+    server, thread, client = _start(port_serve, ["--port", "0", "--index_quantize", quantize,
+                                                 "--device", "cpu"], None)
+    try:
+        rng = np.random.default_rng(17)
+        centers = rng.normal(size=(30, 64)).astype(np.float32)
+        g = np.repeat(centers, 5, axis=0) + 0.5 * rng.normal(size=(150, 64)).astype(np.float32)
+        assert client.request({"op": "enroll", "embeddings": g.tolist(),
+                               "pids": np.repeat(np.arange(30), 5).tolist()})["ok"]
+        probe = lambda i: (centers[i] + 0.5 * rng.normal(size=64)).tolist()
+        reqs = [{"op": "search", "embeddings": [probe(0), probe(1)], "topk": 10,
+                 "rerank": True, "rerank_depth": 64},
+                {"op": "search", "embeddings": [probe(2)], "topk": 10, "rerank": True,
+                 "rerank_depth": 32},
+                {"op": "search", "embeddings": [probe(3)], "topk": 7},
+                {"op": "search", "embeddings": [probe(4)], "topk": 3}]
+        alone = [client.request(r) for r in reqs]
+        assert all(a["ok"] for a in alone)
+        service = server.service
+        before = service._counters["search_dispatches"]
+        entries = [{"req": r, "event": threading.Event(), "result": None} for r in reqs]
+        with service._lock:
+            service._serve_search_batch(entries)
+        assert service._counters["search_dispatches"] == before + 3
+        for e, a in zip(entries, alone):
+            r = e["result"]
+            assert r["ok"] and r["indices"] == a["indices"] and r["pids"] == a["pids"]
+            assert r["sims"] == a["sims"]
+        # re-ranking moved the order against the plain search of the same probe
+        plain = client.request({**reqs[0], "rerank": False})
+        assert plain["indices"] != alone[0]["indices"]
+        assert [len(a["indices"][0]) for a in alone] == [10, 10, 7, 3]
+    finally:
+        _stop(server, thread, client)
+
+
 def test_evaluate_cli_matches_jax(world, capsys):
     common = ["--targets", "Synthetic", "--data_root", world["root"], "--model_name", "resnet50",
               "--model_path", world["weights"], "--img_height", str(IMG[0]),
@@ -316,7 +359,7 @@ def test_evaluate_cli_matches_jax(world, capsys):
 
 def test_evaluate_cli_rejects_unported_flags(world):
     parse = port_evaluate.build_argparser().parse_args
-    for extra in (["--rerank"], ["--quantize", "int8"], ["--calib_batches", "2"],
+    for extra in (["--quantize", "int8"], ["--calib_batches", "2"],
                   ["--turbulence_dir_path", "x"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             port_evaluate.main(parse(["--targets", "Synthetic", "--device", "cpu", *extra]))

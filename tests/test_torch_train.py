@@ -23,6 +23,16 @@ Tolerances, each with its reason:
   5e-7); parameters within 2 * lr * steps everywhere (a flipped Adam sign
   moves an element by 2 * lr; measured 1.7e-3) and within 1e-4 on 95% of
   the elements (measured 99.9%; 97% within 1e-5).
+
+A tiny ``densenet121`` (``block_sizes=(1, 1, 1, 1)``, ``growth=8``, a
+4-class head, 64x32 images: its stride of 32 leaves no map at 32x16) is
+registered under that name in both registries for its one-step lockstep,
+with the classifier-headed loss branch: losses within rtol 1e-5, the
+parameters as above. Its flax variables are initialized in train mode: the
+JAX factory's eval-mode init creates no classifier, so the JAX package
+cannot train this model through its own factory (flax raises
+``ScopeParamNotFoundError`` at the first step); the port's model builds its
+head at construction.
 """
 
 import copy
@@ -39,6 +49,8 @@ import torch
 from torch import nn
 
 from daliid_tpu.data.registry import ReidTable as JaxTable
+from daliid_tpu.models import densenet as flax_densenet
+from daliid_tpu.models import factory as jax_factory
 from daliid_tpu.models.factory import ModelBundle as JaxBundle
 from daliid_tpu.models.norm import TorchBatchNorm as FlaxBatchNorm
 from daliid_tpu.models.resnet import ResNet50ReID as FlaxResNet
@@ -48,6 +60,9 @@ from daliid_tpu.train import trainer as jax_trainer
 from daliid_tpu.train.sampler import PKBatchSampler as JaxSampler
 from daliid_tpu_torch.augment import train_augment as train_augment_mod
 from daliid_tpu_torch.data import make_synthetic_dataset
+from daliid_tpu_torch import losses as port_losses
+from daliid_tpu_torch.models import factory as port_factory
+from daliid_tpu_torch.models.densenet import DenseNet121ReID
 from daliid_tpu_torch.models.factory import ModelBundle
 from daliid_tpu_torch.models.norm import TorchBatchNorm
 from daliid_tpu_torch.models.resnet import ResNet50ReID
@@ -499,3 +514,188 @@ def test_train_cli_rejects_unported_flags(tmp_path):
     with pytest.raises(KeyError, match="not yet ported"):
         train.main(args)
     assert not (tmp_path / "Synthetic").exists()  # refused before any data work
+
+
+# ---------------------------------------------------------------- densenet121's classifier head
+DENSE_IMG = (64, 32)
+TINY_DENSE = dict(block_sizes=(1, 1, 1, 1), growth=8)
+DENSE_DIM = 46  # 2 x the 23 channels of the last block
+
+
+@pytest.fixture
+def tiny_densenet(monkeypatch):
+    monkeypatch.setitem(jax_factory.MODEL_REGISTRY, "densenet121",
+                        lambda dtype=jnp.float32, num_classes=0, **kw: (
+                            flax_densenet.DenseNet121ReID(**TINY_DENSE, num_classes=num_classes,
+                                                          dtype=dtype), DENSE_DIM))
+    monkeypatch.setitem(port_factory.MODEL_REGISTRY, "densenet121",
+                        lambda dtype=torch.float32, num_classes=0, **kw: (
+                            DenseNet121ReID(**TINY_DENSE, num_classes=num_classes, dtype=dtype),
+                            DENSE_DIM))
+
+
+def _dense_step_inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    b = 16
+    u8 = rng.integers(0, 256, (b, *DENSE_IMG, 3), dtype=np.uint8)
+    scal = draw_scalars(b, *DENSE_IMG, 10, 0.4, 0.3, 0.4, (0.05, 0.30), (0.3, 3.3),
+                        torch.Generator().manual_seed(seed))
+    images = fused_augment_plain(torch.from_numpy(u8), scal, 10, torch.float32)
+    labels = np.repeat(np.arange(4), 4).astype(np.int32)
+    dist = np.stack([np.zeros(b // 2), rng.integers(1, 6, b // 2)], 1).reshape(-1)
+    mask = np.ones(b, bool)
+    mask[6:8] = False
+    unit = lambda a: (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)
+    centers = unit(rng.normal(size=(4, DENSE_DIM)))
+    proxies = unit(rng.normal(size=(12, DENSE_DIM)))
+    plabels = np.asarray([0, 0, 0, 1, 1, -1, 2, -1, -1, 3, 3, 3], np.int32)
+    return images, labels, dist.astype(np.int32), mask, centers, proxies, plabels
+
+
+def test_densenet_classifier_one_step_lockstep_with_the_jax_train_step(tiny_densenet, synth):
+    table, turb = synth
+    module, dim = jax_factory.MODEL_REGISTRY["densenet121"](num_classes=4)
+    init = jax.jit(lambda key, x: module.init(key, x, train=True))
+    variables = jax.tree.map(np.asarray, init(jax.random.key(0), jnp.zeros((1, *DENSE_IMG, 3))))
+    assert "classifier" in variables["params"]
+    kw = {**TRAIN_KW, "img_size": DENSE_IMG}
+    jt = JaxTable(table.paths, table.pids, table.camids, table.kinds, "Synthetic")
+    jtr = jax_trainer.Trainer(
+        JaxBundle(module=module, variables=variables, feature_dim=dim, name="densenet121"),
+        JaxBundle(module=module, variables=jax.tree.map(np.copy, variables), feature_dim=dim,
+                  name="densenet121"),
+        JaxSampler(jt, jt.pids, P=P_, K=K_, kind_of_transform=1, turbulence_dir=turb, seed=5),
+        compute_dtype=jnp.float32, **kw)
+    images, labels, dist, mask, centers, proxies, plabels = _dense_step_inputs()
+    new, metrics = jax.device_get(jtr._train_step(
+        jtr.state, images.permute(0, 2, 3, 1).contiguous().numpy(), labels, dist, mask,
+        np.zeros(len(labels), np.int32), centers, proxies, plabels, jnp.float32(1),
+        jax.random.key(0)))
+
+    online, momentum = port_factory.build_model_pair("densenet121", img_size=DENSE_IMG,
+                                                     num_classes=4)
+    online.module.load_state_dict(variables_from_jax("densenet121", variables), strict=True)
+    momentum.module.load_state_dict(online.module.state_dict(), strict=True)
+    tr = port_trainer.Trainer(online, momentum,
+                              PKBatchSampler(table, table.pids, P=P_, K=K_, kind_of_transform=1,
+                                             turbulence_dir=turb, seed=5),
+                              compute_dtype=torch.float32, decode_workers=2, **kw)
+    tr.set_epoch_hyperparams(1)
+    t = torch.from_numpy
+    m = tr.forward_backward(images, t(labels).long(), t(dist).long(), t(mask), t(centers),
+                            t(proxies), t(plabels).long(), 1)
+    weights_sum = tr.apply_update()
+    got = dict(zip(port_trainer.METRICS, [*m.tolist(), weights_sum.item()]))
+    for name in port_trainer.METRICS:
+        assert got[name] == pytest.approx(float(metrics[name]), rel=1e-5), name
+
+    names = dict(tr.online.named_parameters())
+    found = [s for s in jax.tree_util.tree_leaves(
+        new.opt_state, is_leaf=lambda s: hasattr(s, "mu")) if hasattr(s, "mu")]
+    assert len(found) == 1
+    mu = params_from_jax("densenet121", found[0].mu)
+    nu = params_from_jax("densenet121", found[0].nu)
+    assert mu.keys() == names.keys() and "classification.weight" in mu
+    state = tr.optimizer.state
+    assert max(float((state[names[k]]["exp_avg"] - mu[k]).abs().max()) for k in mu) <= 1e-5
+    assert max(float((state[names[k]]["exp_avg_sq"] - nu[k]).abs().max()) for k in nu) <= 1e-5
+    online_w = variables_from_jax("densenet121", {"params": new.params,
+                                                  "batch_stats": new.batch_stats})
+    port_online = tr.online.state_dict()
+    running = [k for k in online_w if "running" in k]
+    assert _max_err(port_online, online_w, running) <= 1e-5
+    excluded = total = 0
+    for k in mu:
+        keep = mu[k].abs() > 1e-7  # effective gradient above 1e-6
+        excluded += int((~keep).sum())
+        total += keep.numel()
+        if keep.any():
+            assert float((port_online[k] - online_w[k]).abs()[keep].max()) <= 1e-5, k
+    assert excluded < 0.05 * total, (excluded, total)
+
+
+class _TwoHeads(nn.Module):
+    """A stub whose train-mode output is JPM's ``([scores], [feats])`` or
+    a classifier model's ``(embedding, logits)``."""
+
+    def __init__(self, jpm: bool):
+        super().__init__()
+        self.jpm = jpm
+        self.proj = nn.Linear(3, 8)
+        self.cls = nn.Linear(8, 4, bias=False)
+
+    def forward(self, x):
+        h = self.proj(x.mean(dim=(2, 3)))
+        logits = self.cls(h)
+        if self.training and self.jpm:
+            return [logits, 0.5 * logits], [h, 2.0 * h]
+        return (h, logits) if self.training else h
+
+
+@pytest.mark.parametrize("jpm", [True, False])
+def test_trainer_tells_jpm_and_classifier_outputs_apart(synth, monkeypatch, jpm):
+    """JPM's output still takes the JPM losses; an (embedding, logits)
+    pair takes the cross entropy on the logits, added to center + proxy."""
+    table, turb = synth
+    model = _TwoHeads(jpm)
+    tr = port_trainer.Trainer(
+        ModelBundle(module=model, feature_dim=8, name="stub"),
+        ModelBundle(module=copy.deepcopy(model), feature_dim=8, name="stub"),
+        PKBatchSampler(table, table.pids, P=P_, K=K_, kind_of_transform=1,
+                       turbulence_dir=turb, seed=5),
+        compute_dtype=torch.float32, decode_workers=2, **TRAIN_KW)
+    calls = []
+    jpm_losses = tr._jpm_losses
+    monkeypatch.setattr(tr, "_jpm_losses", lambda *a: calls.append(a) or jpm_losses(*a))
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.normal(size=(16, 3, *IMG)).astype(np.float32))
+    labels = torch.from_numpy(np.repeat(np.arange(4), 4))
+    dist = torch.zeros(16, dtype=torch.long)
+    mask = torch.ones(16, dtype=torch.bool)
+    unit = lambda a: torch.from_numpy((a / np.linalg.norm(a, axis=1, keepdims=True)).astype(
+        np.float32))
+    dim = 16 if jpm else 8  # JPM's concat([global, local / 4])
+    centers, proxies = unit(rng.normal(size=(4, dim))), unit(rng.normal(size=(8, dim)))
+    plabels = torch.from_numpy(np.repeat(np.arange(4), 2))
+    tr.lambda_distortion = 0.0
+    total = tr._losses(images, labels, dist, mask, torch.zeros_like(labels), centers, proxies,
+                       plabels, 1)[0]
+    assert len(calls) == int(jpm)
+    if not jpm:
+        h, logits = model(images)
+        fvs = h / (torch.linalg.vector_norm(h, dim=1, keepdim=True) + 1e-9)
+        want = (port_losses.weighted_center_loss(fvs, labels, dist, centers, 1, 4, tau=0.05,
+                                                 sample_mask=mask)[0]
+                + 0.4 * port_losses.weighted_proxy_loss(fvs, labels, dist, proxies, plabels, 1,
+                                                        4, tau=0.05, sample_mask=mask, p_max=3)
+                + port_losses.weighted_cross_entropy_loss(torch.softmax(logits, dim=-1), labels,
+                                                          dist, 1, 4, sample_mask=mask)[0])
+        assert total.item() == pytest.approx(want.item(), rel=1e-6)
+
+
+def test_train_cli_trains_densenet121_with_its_classifier(tiny_densenet, tmp_path):
+    """``train --model_name densenet121 --num_classes -1``: one class per
+    training identity, finite losses, validation, and a checkpoint whose
+    head the evaluate path (built with ``num_classes=0``) leaves unread."""
+    import json
+
+    from daliid_tpu_torch.cli import train
+
+    make_synthetic_dataset(str(tmp_path / "data" / "Synthetic"), num_ids=4, imgs_per_id_train=3,
+                           imgs_per_id_test=2, height=DENSE_IMG[0], width=DENSE_IMG[1])
+    ckpt, metrics = tmp_path / "ckpt", tmp_path / "metrics"
+    train.main(train.build_argparser().parse_args(
+        ["--device", "cpu", "--dataset", "Synthetic", "--data_root", str(tmp_path / "data"),
+         "--model_name", "densenet121", "--num_classes", "-1",
+         "--img_height", str(DENSE_IMG[0]), "--img_width", str(DENSE_IMG[1]), "--P", "4",
+         "--K", "2", "--epochs", "1", "--eval_freq", "1", "--compute_dtype", "float32",
+         "--extractor_batch", "32", "--path_to_save_models", str(ckpt),
+         "--path_to_save_metrics", str(metrics)]))
+    progress = json.loads((metrics / "progress_densenet121_v0.json").read_text())
+    assert len(progress) == 1 and np.isfinite(progress[0]["loss"])
+    assert 0.0 <= progress[0]["rank1"] <= 1.0
+    saved = load_state("densenet121", str(ckpt / "model_online_densenet121_v0.pt"))
+    assert saved["classification.weight"].shape == (4, DENSE_DIM)
+    plain = DenseNet121ReID(**TINY_DENSE)
+    plain.load_state_dict(load_state("densenet121", str(ckpt / "model_online_densenet121_v0.pt"),
+                                     plain), strict=True)
