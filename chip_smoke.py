@@ -44,6 +44,15 @@ Phases, in order; any failed check exits non-zero and prints no result:
 9. K4 ``flash_attention`` against its plain version on the card (f32 within
    2e-5, bf16 within one bf16 ulp, at the JPM, ViT-B and vit_small shapes
    and ragged small ones) and its backward (3e-5, f32).
+9b. ``conv_int8`` against its plain version on the card (im2col and one
+    float64 product, or the depthwise taps summed in int32: exact integer
+    sums, no cuDNN) at the zoo's convolution
+    shapes at batch 512, read from the models' forwards at 256x128:
+    ResNet-50's 7x7/2 stem (C = 3), a 1x1, a strided 3x3 and layer4's 3x3 at
+    C = 512, DenseNet-121's 3x3 at C = 128, Inception-V3's 1x7 and 7x1,
+    OSNet's depthwise 3x3 and EfficientNet-B0's depthwise 5x5/2, and three
+    small ragged cases (C = 5 and 24, byte gathers; a depthwise C = 30);
+    int32, f32 and bf16 outputs, with and without bias, all bit-equal.
 10. transformer evaluate: JPM and ViT-B through ``load_bundle(...,
     use_fused_attention=True)``, K4 16 and 12 launches a forward; the K4 and
     SDPA routes agree within 1e-3 in f32.
@@ -80,7 +89,23 @@ Phases, in order; any failed check exits non-zero and prints no result:
     (the shortlist fetched by K3 SQ8 at k = 64), and a serve batch mixing
     re-ranked requests at depths 64 and 32 with plain topk 10 and 5: three
     dispatches, K3 once each, every answer like the same request alone.
-20. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
+20. int8 extraction, the float phases above having launched no conv_int8:
+    ``cli.evaluate.main --quantize int8`` with ResNet-50 (K2 once,
+    conv_int8 launched, the CMC equal to the oracle), again with
+    ``--calib_batches 2 --batch_size 128``; 16 query images in f32 on the
+    CPU's scales: each of the card's 53 int8 convolutions equal to the plain
+    version on its own input, the embeddings against the CPU's int8 path
+    (cosine >= 0.998, max |diff| <= 5e-2 of the largest entry; cosines with
+    the f32 and bf16 embeddings printed); ``cli.search.main --quantize int8``
+    and a serve daemon with ``--quantize int8 --index_quantize int8``
+    (enroll and search by path); ``evaluate-fusion`` and
+    ``evaluate-ensemble --quantize int8`` (12 and 2 calibrations, K2 7 and
+    3); ViT-B with K4 and an int8 extractor (K4 12 a forward, the float
+    calibration forward included, conv_int8 once a forward for the patch
+    embedding, 48 ``torch._int_mm`` Dense layers a forward); ``cli.train.main
+    --mining_quantize int8``, one epoch of 2 steps (K1 twice, conv_int8 in
+    mining and not in the two validations, finite losses).
+21. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
     D=2048, k=10 over 2^20 gallery rows (the f32 bound is the tensor
     cores': bytes, or 3 TF32 products a multiply-add), and at the serve
     path's shape; K2 at the Market-1501 protocol shape (Q=3368, G=15913) at
@@ -101,14 +126,18 @@ Phases, in order; any failed check exits non-zero and prints no result:
     zoo families' extraction img/s and peak memory at batch 512; one
     ``densenet121`` train step (ms, img/s, peak memory); ``re_ranking`` at
     Market-1501's shape (ms, peak memory above its inputs); the re-ranked
-    search of 200 probes over 400 SQ8 rows at depth 64.
+    search of 200 probes over 400 SQ8 rows at depth 64; conv_int8 at each
+    shape of 9b (bf16 out) against its bound, its plain version, the
+    im2col + ``torch._int_mm`` route (groups = 1) and cuDNN's bf16
+    convolution; int8 against bf16 extraction at batch 512 (ResNet-50, the
+    four zoo families, ViT-B with K4; peak memory).
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. Counts of launches are set to 0 just
 before each of the serve, search, evaluate, train, transformer evaluate,
 transformer train, fusion, ensemble, multi-head, k > 64 search, zoo
-evaluate (each family), densenet train, re-ranked evaluate and re-ranked
-search phases and read just after.
+evaluate (each family), densenet train, re-ranked evaluate, re-ranked
+search and each int8 phase and read just after.
 
 Run from the repository root: ``python3 chip_smoke.py``. The kernels,
 the synthetic sets, the saved index and the checkpoints go under ``build/``.
@@ -234,12 +263,26 @@ def ptxas_report(text: str) -> dict:
             n = int(m.group())
             last = mangled[pos + m.end():pos + m.end() + n]
             pos += m.end() + n
-        args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
-        if args:
-            return last + "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
-        # one type argument: f (float) or a <length><name> class
-        arg = re.match(r"I(?:(f)|\d+(\w+?))E", mangled[pos:])
-        return last + (f"<{'float' if arg.group(1) else arg.group(2)}>" if arg else "")
+        rest = mangled[pos:]
+        if not rest.startswith("I"):
+            return last
+        # template arguments: f / i (float / int), <length><name> (a class),
+        # L<i|b><value>E (an int or bool value)
+        args, i = [], 1
+        while i < len(rest) and rest[i] != "E":
+            if rest[i] in "fi":
+                args.append("float" if rest[i] == "f" else "int")
+                i += 1
+            elif (m := re.match(r"L[ib](\d+)E", rest[i:])):
+                args.append(m.group(1))
+                i += m.end()
+            elif (m := re.match(r"\d+", rest[i:])):
+                n = int(m.group())
+                args.append(rest[i + m.end():i + m.end() + n])
+                i += m.end() + n
+            else:
+                break
+        return last + "<" + ",".join(args) + ">"
 
     out, current = {}, None
     for line in text.splitlines():
@@ -928,10 +971,11 @@ def _eval_flags() -> list:
             "--batch_size", str(EXTRACT_BATCH), *_img_flags()]
 
 
-def phase_fusion(torch, counts):
+def phase_fusion(torch, counts, extra=()):
     """``cli.evaluate_fusion.main`` (the paper's clean + distorted fusion) on
     two ResNet-50 checkpoints written from different seeds, with the ROC
-    dump; 7 rankings, K2 once each, every CMC equal to the numpy oracle."""
+    dump; 7 rankings, K2 once each, every CMC equal to the numpy oracle.
+    ``extra`` flags are added (``--quantize int8``)."""
     import numpy as np
 
     from daliid_tpu_torch.cli import evaluate_fusion
@@ -939,7 +983,7 @@ def phase_fusion(torch, counts):
     clean, dist = write_checkpoint(torch, "resnet50", 21), write_checkpoint(torch, "resnet50", 22)
     args = evaluate_fusion.build_argparser().parse_args(
         ["--dataset", "Synthetic", "--model_path_clean", clean, "--model_path_distortion", dist,
-         "--roc_version", "chip_smoke", *_eval_flags()])
+         "--roc_version", "chip_smoke", *_eval_flags(), *extra])
     cwd = os.getcwd()
     os.chdir(WORK)  # the ROC files go to the working directory
     counts.reset()
@@ -963,22 +1007,22 @@ def phase_fusion(torch, counts):
     tpr = np.load(WORK / "TPR_chip_smoke.npy")
     check(fpr[0] == tpr[0] == 0 and fpr[-1] == tpr[-1] == 1 and (np.diff(fpr) >= 0).all(),
           "the ROC dump is not a curve from (0, 0) to (1, 1)")
-    log(f"evaluate-fusion: {seconds:.2f} s, "
+    log(f"evaluate-fusion{''.join(' ' + e for e in extra)}: {seconds:.2f} s, "
         + ", ".join(f"{t} R1 {r['rank1']:.4f} mAP {r['mAP']:.6f}" for t, r in results.items())
         + f"; every CMC equal to the numpy oracle (|mAP diff| <= {err:.3g}); ROC {fpr.size} "
           f"points; launches {launched}")
     return launched, seconds
 
 
-def phase_ensemble(torch, counts):
+def phase_ensemble(torch, counts, extra=()):
     """``cli.evaluate_ensemble.main`` over a ResNet-50 checkpoint and a
-    seeded ``resnet50IBN``: 3 rankings through K2."""
+    seeded ``resnet50IBN``: 3 rankings through K2; ``extra`` flags added."""
     from daliid_tpu_torch.cli import evaluate_ensemble
 
     args = evaluate_ensemble.build_argparser().parse_args(
         ["--dataset", "Synthetic", "--model_name01", "resnet50", "--model_path01",
          write_checkpoint(torch, "resnet50", 21), "--model_name02", "resnet50IBN",
-         *_eval_flags()])
+         *_eval_flags(), *extra])
     counts.reset()
     t0 = time.time()
     with RankRecorder() as rec:
@@ -989,7 +1033,8 @@ def phase_ensemble(torch, counts):
           f"evaluate-ensemble reported {list(results)}")
     check(launched["rank_counts"] == 3, f"evaluate-ensemble launched K2 {launched}")
     err = rec.check_oracle("evaluate-ensemble")
-    log(f"evaluate-ensemble (resnet50 + resnet50IBN): {seconds:.2f} s, "
+    log(f"evaluate-ensemble (resnet50 + resnet50IBN){''.join(' ' + e for e in extra)}: "
+        f"{seconds:.2f} s, "
         + ", ".join(f"{t} R1 {r['rank1']:.4f} mAP {r['mAP']:.6f}" for t, r in results.items())
         + f"; CMC equal to the numpy oracle (|mAP diff| <= {err:.3g}); launches {launched}")
     return launched, seconds
@@ -1262,6 +1307,411 @@ def phase_search_rerank(torch, dev, counts):
         f"requests: {dispatches} dispatches, K3 {mixed['search_topk_sq8']} (alone "
         f"{alone_launches['search_topk_sq8']}), every answer like its own search")
     return {k: cli[k] + alone_launches[k] + mixed[k] for k in cli}
+
+
+# ---------------------------------------------------------------- int8 extraction
+# the zoo's convolutions that conv_int8 is checked and timed at, by model and
+# module name: ResNet-50's stem (C = 3), a 1x1, a strided 3x3 and layer4's 3x3
+# at C = 512; DenseNet-121's 3x3 at C = 128; Inception-V3's 1x7 and 7x1;
+# OSNet's depthwise 3x3; EfficientNet-B0's first depthwise 5x5
+CONV_LAYERS = [("resnet50", "conv1"), ("resnet50", "layer1.1.conv1"),
+               ("resnet50", "layer2.0.conv2"), ("resnet50", "layer4.0.conv2"),
+               ("densenet121", "model_base.denseblock1.denselayer1.conv2"),
+               ("inceptionV3", "Mixed_6b.branch7x7_2.conv"),
+               ("inceptionV3", "Mixed_6b.branch7x7_3.conv"),
+               ("osnet", "conv2.0.conv2a.conv2"), ("efficientnetB0", "features.3.0.block.1.0")]
+# the shape whose times stand in the kernels line
+CONV_MAIN = ("resnet50", "layer4.0.conv2")
+# small ragged cases beside them: C not a multiple of 16 (byte gathers; C
+# = 24 as in EfficientNet-B0) and a depthwise C not a multiple of 4
+RAGGED_CONVS = {
+    ("ragged", "3x3 C=5"): {"C": 5, "H": 9, "W": 7, "O": 6, "kernel": (3, 3), "stride": (1, 1),
+                            "padding": (1, 1), "groups": 1, "batch": 3},
+    ("ragged", "1x7 C=24"): {"C": 24, "H": 9, "W": 8, "O": 40, "kernel": (1, 7),
+                             "stride": (1, 1), "padding": (0, 3), "groups": 1, "batch": 3},
+    ("ragged", "depthwise 5x5/2 C=30"): {"C": 30, "H": 7, "W": 5, "O": 30, "kernel": (5, 5),
+                                         "stride": (2, 2), "padding": (2, 2), "groups": 30,
+                                         "batch": 3},
+}
+
+
+def conv_shapes(torch, dev) -> dict:
+    """{(model, layer): geometry} of ``CONV_LAYERS``, read from each model's
+    forward of one 256x128 image (the input's (C, H, W) at that layer)."""
+    from daliid_tpu_torch.models import get_model
+    from daliid_tpu_torch.ops.quantize import conv_config
+
+    out = {}
+    for model in dict.fromkeys(m for m, _ in CONV_LAYERS):
+        module = get_model(model, torch.Generator().manual_seed(12), dtype=torch.bfloat16,
+                           device=dev).module
+        mods = dict(module.named_modules())
+        hooks = []
+        for m, name in CONV_LAYERS:
+            if m != model:
+                continue
+            conv = mods[name]
+            stride, padding, groups = conv_config(conv)
+
+            def hook(_mod, inputs, key=(m, name), conv=conv, geo=(stride, padding, groups)):
+                _, c, h, w = inputs[0].shape
+                out[key] = {"C": c, "H": h, "W": w, "O": conv.out_channels,
+                            "kernel": tuple(conv.kernel_size), "stride": geo[0],
+                            "padding": geo[1], "groups": geo[2]}
+
+            hooks.append(conv.register_forward_pre_hook(hook))
+        with torch.inference_mode():
+            module(torch.zeros((1, 3, *IMG), device=dev, dtype=torch.bfloat16))
+        for h in hooks:
+            h.remove()
+        del module
+    check(len(out) == len(CONV_LAYERS), f"conv shapes found for {sorted(out)} only")
+    return out
+
+
+def _conv_inputs(torch, dev, geo, batch: int, seed: int):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    kh, kw = geo["kernel"]
+    xq = torch.randint(-127, 128, (batch, geo["C"], geo["H"], geo["W"]), generator=gen,
+                       device=dev, dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+    wq = torch.randint(-127, 128, (geo["O"], kh, kw, geo["C"] // geo["groups"]), generator=gen,
+                       device=dev, dtype=torch.int8)
+    s_w = (torch.rand((geo["O"],), generator=gen, device=dev) + 0.5) / 127.0 / 64
+    bias = torch.randn((geo["O"],), generator=gen, device=dev)
+    return xq, wq, s_w, bias
+
+
+def _geo_str(key, geo) -> str:
+    kh, kw = geo["kernel"]
+    return (f"{key[0]} {key[1]}: B={geo.get('batch', EXTRACT_BATCH)} C={geo['C']} "
+            f"{geo['H']}x{geo['W']} "
+            f"O={geo['O']} {kh}x{kw} stride {geo['stride']} padding {geo['padding']} "
+            f"groups {geo['groups']}")
+
+
+def phase_conv_int8(torch, dev, shapes) -> float:
+    """conv_int8 against its plain version at each of ``CONV_LAYERS``' shapes
+    at batch 512 and at ``RAGGED_CONVS``: the int32 sum and the f32 and bf16
+    outputs, with and
+    without bias, equal bit for bit. The plain sum is im2col and a float64
+    product (or, depthwise, int32 taps), so every partial sum is an exact
+    integer."""
+    from daliid_tpu_torch.ops.conv_int8 import conv_int8, conv_int32_plain, dequantize_plain
+
+    s_in = 0.0123
+    for i, (key, geo) in enumerate({**shapes, **RAGGED_CONVS}.items()):
+        xq, wq, s_w, bias = _conv_inputs(torch, dev, geo, geo.get("batch", EXTRACT_BATCH),
+                                         seed=30 + i)
+        args = (geo["stride"], geo["padding"], geo["groups"])
+        acc = conv_int32_plain(xq, wq, *args)
+        for out_dtype in (torch.int32, torch.float32, torch.bfloat16):
+            for b in (None, bias):
+                got = conv_int8(xq, wq, *args, s_in, s_w, b, out_dtype)
+                want = dequantize_plain(acc, s_in, s_w, b, out_dtype)
+                torch.cuda.synchronize(dev)
+                check(got.shape == want.shape and torch.equal(got, want),
+                      f"conv_int8 differs from its plain version at {_geo_str(key, geo)}, "
+                      f"{out_dtype}, bias {b is not None}: max |diff| "
+                      f"{float((got.float() - want.float()).abs().max())}")
+        log(f"conv_int8 {_geo_str(key, geo)}: int32, f32 and bf16 (bias on and off) equal to "
+            f"the plain version, |acc| max {int(acc.abs().max())}")
+        del xq, wq, acc
+    return 0.0
+
+
+def _int8_counts(counts) -> dict:
+    from daliid_tpu_torch.ops.quantize import int8_matmul
+
+    out = counts.read()
+    out["int8_matmul"] = int8_matmul.calls
+    return out
+
+
+def _reset_int8(counts) -> None:
+    from daliid_tpu_torch.ops.quantize import int8_matmul
+
+    counts.reset()
+    int8_matmul.calls = 0
+
+
+def phase_evaluate_int8(torch, dev, splits, counts):
+    """``cli.evaluate.main --quantize int8`` with ResNet-50 (bf16): K2 once,
+    conv_int8 launched, the CMC equal to the numpy oracle; then the same with
+    ``--calib_batches 2 --batch_size 128`` (the 200 queries are two
+    batches). Then the first 16 query images in f32 on the card with the
+    scales calibrated on the CPU: every one of the 53 convolutions of that
+    forward equal bit for bit to the plain version applied to
+    the input the layer received; and the embeddings against the port's CPU
+    int8 path on the same images and scales: cosine >= 0.998 per image and
+    max |diff| <= 5e-2 of the largest entry (each int8 path's cosine with its
+    own f32 forward is about 0.9992 on these images). The f32 normalize, batch norms
+    and poolings between the convolutions round differently on the card, a
+    quantize can follow an ulp by one step (1/127 of its range), and such
+    flips cascade through the 53 layers; each path's cosine with its own
+    float forward is printed beside it."""
+    from daliid_tpu_torch.cli import evaluate
+    from daliid_tpu_torch.cli.evaluate import load_bundle
+    from daliid_tpu_torch.eval.features import FeatureExtractor
+    from daliid_tpu_torch.ops import quantize as q8
+    from daliid_tpu_torch.ops.conv_int8 import conv_int8_plain
+
+    total, walls = {}, {}
+    for extra in (["--quantize", "int8"],
+                  ["--quantize", "int8", "--calib_batches", "2", "--batch_size", "128"]):
+        args = evaluate.build_argparser().parse_args(
+            ["--targets", "Synthetic", "--model_name", "resnet50", *_eval_flags(), *extra])
+        _reset_int8(counts)
+        t0 = time.time()
+        with RankRecorder() as rec:
+            cmc, mAP = evaluate.main(args)["Synthetic"]
+        tag = "evaluate " + " ".join(extra)
+        walls[tag] = time.time() - t0
+        launched = _int8_counts(counts)
+        check(launched["rank_counts"] == 1, f"{tag} launched K2 {launched}")
+        check(launched["conv_int8"] > 0, f"{tag} launched no conv_int8")
+        err = rec.check_oracle(tag)
+        log(f"{tag} (resnet50): {walls[tag]:.2f} s, R1 {cmc[0]:.4f} mAP {mAP:.6f} (random "
+            f"weights), CMC equal to the numpy oracle (|mAP diff| {err:.3g}), launches "
+            f"{launched}")
+        for k, n in counts.read().items():
+            total[k] = total.get(k, 0) + n
+
+    queries = splits["query"]
+    images = FeatureExtractor(load_bundle("resnet50", None, IMG, torch.float32, "cpu"),
+                              img_size=IMG, batch_size=16, device="cpu")._decode_paths(
+        [str(p) for p in queries.paths[:16]])
+    cpu = FeatureExtractor(load_bundle("resnet50", None, IMG, torch.float32, "cpu"),
+                           img_size=IMG, batch_size=16, device="cpu", quantize="int8")
+    cpu.calibrate(images)
+    want = cpu.forward_batch(images)
+    card = FeatureExtractor(load_bundle("resnet50", None, IMG, torch.float32, dev),
+                            img_size=IMG, batch_size=16, device=dev, quantize="int8")
+    card.quant_scales = dict(cpu.quant_scales)
+    card._finalize_calibration()
+    mods = dict(card.bundle.module.named_modules())
+    seen = []
+    hooks = [mods[n].register_forward_hook(lambda _m, i, o, n=n: seen.append((n, i[0], o)))
+             for n in card._plan]
+    before = counts.read()["conv_int8"]
+    got = card.forward_batch(images).cpu()
+    for h in hooks:
+        h.remove()
+    check(counts.read()["conv_int8"] - before == 53 and len(seen) == 53, "the card's int8 "
+          "ResNet-50 forward did not launch conv_int8 once for each of its 53 convolutions")
+    for n, x, y in seen:
+        layer = card._plan[n]
+        ref = conv_int8_plain(q8.quantize_sym(x, layer.s_in_t), layer.wq, layer.stride,
+                              layer.padding, layer.groups, layer.s_in, layer.s_w, layer.bias,
+                              y.dtype)
+        check(torch.equal(y, ref), f"int8 forward: layer {n} differs from the plain version "
+                                   f"on its own input")
+    del seen
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+    rel = float((got - want).abs().max() / want.abs().max())
+    check(bool((cos >= 0.998).all()) and rel <= 5e-2,
+          f"the card's int8 embeddings differ from the CPU's: cosine min {float(cos.min())}, "
+          f"max |diff| {rel:.3g} of the largest entry")
+    card_fp = torch.nn.functional.cosine_similarity(
+        got, FeatureExtractor(card.bundle, img_size=IMG, batch_size=16, device=dev)
+        .forward_batch(images).cpu(), dim=1)
+    cpu_fp = torch.nn.functional.cosine_similarity(
+        want, FeatureExtractor(cpu.bundle, img_size=IMG, batch_size=16, device="cpu")
+        .forward_batch(images), dim=1)
+    bf16 = FeatureExtractor(load_bundle("resnet50", None, IMG, torch.bfloat16, dev),
+                            img_size=IMG, batch_size=16, device=dev).forward_batch(images).cpu()
+    cos_bf16 = torch.nn.functional.cosine_similarity(got, bf16, dim=1)
+    log(f"int8 ResNet-50, 16 query images in f32 with the CPU's scales: the 53 convolutions "
+        f"of the card's forward equal to the plain version on their own inputs; embeddings, "
+        f"card against CPU: cosine min {float(cos.min()):.7f}, max |diff| {rel:.3g} of the "
+        f"largest entry; int8 against f32 cosine min on the card {float(card_fp.min()):.7f}, "
+        f"on the CPU {float(cpu_fp.min()):.7f}; against the card's bf16 embeddings "
+        f"(information) min {float(cos_bf16.min()):.6f} mean {float(cos_bf16.mean()):.6f}")
+    del cpu, card
+    return total, walls
+
+
+def phase_search_serve_int8(torch, splits, counts):
+    """``cli.search.main --quantize int8`` (K3 f32 and conv_int8), then a
+    serve daemon with ``--quantize int8 --index_quantize int8``: enroll the
+    gallery by path (the first request calibrates), search the queries by
+    path: K3 SQ8 and conv_int8 launched."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import search, serve
+
+    args = search.build_argparser().parse_args(
+        ["--dataset", "Synthetic", "--data_root", str(WORK / "data"), "--model_name", "resnet50",
+         "--batch_size", "64", "--topk", "10", "--compute_dtype", COMPUTE_DTYPE,
+         "--quantize", "int8", *_img_flags()])
+    _reset_int8(counts)
+    sims, _, pids = search.main(args)
+    cli = counts.read()
+    check(np.isfinite(sims).all() and sims.shape[1] == 10, f"search --quantize int8: {sims.shape}")
+    check(cli["search_topk_f32"] > 0 and cli["conv_int8"] > 0,
+          f"search --quantize int8 launched {cli}")
+    top1_search = float(np.mean(pids[:, 0] == splits["query"].pids))
+
+    gallery, query = splits["gallery"], splits["query"]
+    port = _free_port()
+    args = serve.build_argparser().parse_args(
+        ["--port", str(port), "--model_name", "resnet50", "--index_quantize", "int8",
+         "--quantize", "int8", "--compute_dtype", COMPUTE_DTYPE, "--batch_size", "64",
+         *_img_flags()])
+    counts.reset()
+    thread = threading.Thread(target=serve.main, args=(args,), daemon=True)
+    thread.start()
+    c = Client(port)
+    r = c.request({"op": "enroll", "paths": [str(p) for p in gallery.paths],
+                   "pids": gallery.pids.tolist()})
+    check(r["num_gallery"] == len(gallery), f"int8 serve enrolled {r['num_gallery']}")
+    r = c.request({"op": "search", "paths": [str(p) for p in query.paths], "topk": 10})
+    served = np.asarray(r["sims"])
+    check(served.shape == (len(query), 10) and np.isfinite(served).all(),
+          f"int8 serve search gave {served.shape}")
+    top1_serve = float(np.mean(np.asarray(r["pids"])[:, 0] == query.pids))
+    c.request({"op": "shutdown"})
+    c.close()
+    thread.join(timeout=120)
+    check(not thread.is_alive(), "the int8 daemon did not shut down")
+    daemon = counts.read()
+    check(daemon["search_topk_sq8"] > 0 and daemon["conv_int8"] > 0,
+          f"serve --quantize int8 launched {daemon}")
+    log(f"search --quantize int8: top-1 {top1_search:.4f}, launches {cli}; serve --quantize "
+        f"int8 --index_quantize int8: enroll and search by path, top-1 {top1_serve:.4f} (random "
+        f"weights), launches {daemon}")
+    return {k: cli[k] + daemon[k] for k in cli}
+
+
+def phase_fusion_ensemble_int8(torch, counts):
+    """``evaluate-fusion --quantize int8`` (one int8 extractor per model,
+    pooling and split: 12 calibrations, each split one batch at 512) and
+    ``evaluate-ensemble --quantize int8`` (one a model: 2); K2 as in their
+    float phases (7 and 3), conv_int8 launched."""
+    from daliid_tpu_torch.eval.features import FeatureExtractor
+
+    finals = []
+    finalize = FeatureExtractor._finalize_calibration
+
+    def counting(self):
+        finals.append(self.bundle.name)
+        return finalize(self)
+
+    FeatureExtractor._finalize_calibration = counting
+    try:
+        fusion, fusion_s = phase_fusion(torch, counts, ["--quantize", "int8"])
+        n_fusion = len(finals)
+        ensemble, ensemble_s = phase_ensemble(torch, counts, ["--quantize", "int8"])
+    finally:
+        FeatureExtractor._finalize_calibration = finalize
+    check(n_fusion == 12 and len(finals) == 14,
+          f"calibrations: fusion {n_fusion} (12 expected), ensemble {len(finals) - n_fusion} "
+          f"(2 expected)")
+    for tag, launched in (("evaluate-fusion", fusion), ("evaluate-ensemble", ensemble)):
+        check(launched["conv_int8"] > 0, f"{tag} --quantize int8 launched no conv_int8")
+    log(f"int8 calibrations: evaluate-fusion {n_fusion} (per model, pooling and split), "
+        f"evaluate-ensemble {len(finals) - n_fusion} (per model)")
+    return ({k: fusion[k] + ensemble[k] for k in fusion},
+            {"evaluate-fusion --quantize int8": fusion_s,
+             "evaluate-ensemble --quantize int8": ensemble_s})
+
+
+def phase_vit_int8(torch, dev, splits, counts):
+    """ViT-B (bf16, 256x128) through ``load_bundle(..., use_fused_attention=
+    True)`` and an int8 FeatureExtractor, ranked by the validator: K4 12
+    times a forward batch as in the float phase (the float calibration
+    forward included), conv_int8 once a forward
+    (the patch embedding), the 48 qkv / proj / fc1 / fc2 layers of a forward
+    through ``torch._int_mm``, K2 once, the CMC equal to the numpy oracle."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli.evaluate import load_bundle
+    from daliid_tpu_torch.eval.features import FeatureExtractor
+    from daliid_tpu_torch.eval.validate import get_validator
+
+    queries, gallery = splits["query"], splits["gallery"]
+    validator = get_validator("Synthetic", img_size=IMG, batch_size=EXTRACT_BATCH, device=dev)
+    bundle = load_bundle("vit", None, IMG, torch.bfloat16, dev, use_fused_attention=True)
+    extractor = FeatureExtractor(bundle, img_size=IMG, batch_size=EXTRACT_BATCH, device=dev,
+                                 quantize="int8")
+    _reset_int8(counts)
+    t0 = time.time()
+    with RankRecorder() as rec:
+        q_fvs, g_fvs = extractor.extract(queries), extractor.extract(gallery)
+        cmc, mAP = validator.rank(validator.distance_matrix(q_fvs, g_fvs), queries, gallery)
+    seconds = time.time() - t0
+    launched = _int8_counts(counts)
+    forwards = _forwards(queries, gallery)
+    # the calibration forward (float) runs the attention too
+    check(launched["flash_attention"] == K4_PER_FORWARD["vit"] * (forwards + 1),
+          f"vit int8: K4 launched {launched['flash_attention']} times for {forwards} forwards "
+          f"and one calibration forward")
+    check(launched["conv_int8"] == forwards,
+          f"vit int8: conv_int8 launched {launched['conv_int8']} times for {forwards} forwards")
+    check(launched["int8_matmul"] == 48 * forwards,
+          f"vit int8: {launched['int8_matmul']} int8 matmuls for {forwards} forwards (48 each)")
+    check(launched["rank_counts"] == 1, f"vit int8: K2 {launched}")
+    check(np.isfinite(q_fvs).all() and np.isfinite(g_fvs).all(), "vit int8: embeddings")
+    err = rec.check_oracle("vit int8")
+    log(f"evaluate vit --quantize int8 (K4 on): {seconds:.2f} s, R1 {cmc[0]:.4f} mAP "
+        f"{mAP:.6f} (random weights), CMC equal to the numpy oracle (|mAP diff| {err:.3g}), "
+        f"{len(extractor.quant_scales)} calibrated layers, launches {launched}")
+    del extractor, bundle
+    return counts.read(), seconds
+
+
+def phase_train_int8(torch, counts, root):
+    """``cli.train.main --mining_quantize int8`` with ResNet-50, one epoch
+    (2 steps) with its validation: K1 once a step, conv_int8 launched in
+    mining and not in the validation (its counter read around
+    ``Validator.validate``), finite losses."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import train
+    from daliid_tpu_torch.eval import validate
+
+    metrics = WORK / "train_int8_metrics"
+    args = train.build_argparser().parse_args(
+        ["--dataset", "Synthetic", "--data_root", str(root), "--model_name", "resnet50",
+         "--compute_dtype", COMPUTE_DTYPE, "--kind_of_transform", "1", "--P", str(P),
+         "--K", str(K), "--epochs", "1", "--eval_freq", "1", "--skip_initial_eval",
+         "--mining_quantize", "int8", "--path_to_save_models", str(WORK / "train_int8_ckpt"),
+         "--path_to_save_metrics", str(metrics), *_img_flags()])
+    from daliid_tpu_torch.ops.conv_int8 import conv_int8
+
+    in_validation = []
+    validate_fn = validate.Validator.validate
+
+    def counted(self, *a, **kw):
+        before = conv_int8.launches
+        out = validate_fn(self, *a, **kw)
+        in_validation.append(conv_int8.launches - before)
+        return out
+
+    validate.Validator.validate = counted
+    counts.reset()
+    t0 = time.time()
+    try:
+        train.main(args)
+    finally:
+        validate.Validator.validate = validate_fn
+    seconds = time.time() - t0
+    launched = counts.read()
+    steps = TRAIN_IDS // P
+    check(launched["fused_augment"] == steps,
+          f"train --mining_quantize int8 launched K1 {launched['fused_augment']} times for "
+          f"{steps} steps")
+    check(len(in_validation) == 2 and in_validation == [0, 0],
+          f"the validations launched conv_int8 {in_validation} times")
+    check(launched["conv_int8"] > 0, "int8 mining launched no conv_int8")
+    check(launched["rank_counts"] > 0, "the validation did not launch K2")
+    progress = json.loads((metrics / "progress_resnet50_v0.json").read_text())
+    for key in ("loss", "center_loss", "proxy_loss", "rank1"):
+        check(np.isfinite(progress[0][key]), f"int8 mining: {key} = {progress[0][key]}")
+    log(f"train --mining_quantize int8: {steps} steps in {seconds:.1f} s with int8 mining and "
+        f"two float validations (online, momentum; conv_int8 {in_validation}); loss "
+        f"{progress[0]['loss']:.5f}; launches {launched}")
+    return launched, seconds
 
 
 def loader_status() -> dict:
@@ -1871,11 +2321,100 @@ def _time_rerank(torch, dev) -> dict:
     return out
 
 
+def _time_conv_int8(torch, dev, shapes) -> dict:
+    """conv_int8 (bf16 out, no bias: the path's convolutions feed a BN) at
+    each of ``CONV_LAYERS``' shapes at batch 512, against its bound, its
+    plain version, the im2col + ``torch._int_mm`` route (groups =
+    1; its int32 held equal to the kernel's) and cuDNN's bf16 convolution of
+    the same shape (context); → {(model, layer): timing}."""
+    import torch.nn.functional as F
+
+    from daliid_tpu_torch.ops.conv_int8 import conv_int8, conv_int8_plain
+
+    s_in = 0.0123
+    out = {}
+    for i, (key, geo) in enumerate(shapes.items()):
+        xq, wq, s_w, _ = _conv_inputs(torch, dev, geo, EXTRACT_BATCH, seed=60 + i)
+        kh, kw = geo["kernel"]
+        args = (geo["stride"], geo["padding"], geo["groups"])
+        k = kh * kw * geo["C"] // geo["groups"]
+        ms = cuda_ms(torch, lambda: conv_int8(xq, wq, *args, s_in, s_w, None, torch.bfloat16),
+                     reps=20, warmup=3)
+        plain_ms = cuda_ms(torch, lambda: conv_int8_plain(xq, wq, *args, s_in, s_w, None,
+                                                          torch.bfloat16), reps=2, warmup=1)
+        y = conv_int8(xq, wq, *args, s_in, s_w, None, torch.int32)
+        n_b, o, ho, wo = y.shape
+        lib_ms, lib_equal = None, None
+        if geo["groups"] == 1:
+            k_pad = -(-k // 8) * 8
+            wmat = F.pad(wq.permute(0, 3, 1, 2).reshape(o, k), (0, k_pad - k)).t()
+
+            def im2col_int_mm():
+                cols = F.unfold(xq.to(torch.bfloat16), (kh, kw), padding=geo["padding"],
+                                stride=geo["stride"])
+                a = cols.transpose(1, 2).reshape(-1, k).to(torch.int8)
+                return torch._int_mm(F.pad(a, (0, k_pad - k)), wmat)
+
+            lib_equal = bool(torch.equal(im2col_int_mm().view(n_b, ho * wo, o),
+                                         y.permute(0, 2, 3, 1).reshape(n_b, ho * wo, o)))
+            check(lib_equal, f"im2col + _int_mm differs from conv_int8 at {_geo_str(key, geo)}")
+            lib_ms = _library_ms(torch, im2col_int_mm, "F.unfold(bf16) + torch._int_mm")
+        x_bf = xq.to(torch.bfloat16)
+        w_bf = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        cudnn_ms = cuda_ms(torch, lambda: F.conv2d(x_bf, w_bf, None, geo["stride"],
+                                                   geo["padding"], 1, geo["groups"]), reps=20)
+        m = n_b * ho * wo
+        bytes_ = xq.numel() + wq.numel() + 4 * o + 2 * m * o
+        t = _timing(_geo_str(key, geo), ms, plain_ms, lib_ms, bytes_, 2 * m * o * k, "int8", 0.0)
+        t["cudnn_bf16_ms"] = cudnn_ms
+        out[key] = t
+        log(f"timing conv_int8 {t['shape']}: kernel {ms:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), plain {plain_ms:.3f} ms, im2col + _int_mm {lib_ms} ms "
+            f"(int32 equal: {lib_equal}), cuDNN bf16 {cudnn_ms:.4f} ms")
+        del xq, wq, x_bf, w_bf, y
+    return out
+
+
+def _time_int8_extraction(torch, dev) -> dict:
+    """Each model's int8 forward at batch 512 (normalize included, scales
+    calibrated on the batch) against its bf16 forward in the same call:
+    ms, img/s, the int8 run's peak device memory. ViT-B with K4."""
+    from daliid_tpu_torch.augment.preprocess import normalize_images
+    from daliid_tpu_torch.models import get_model
+    from daliid_tpu_torch.ops import quantize as q8
+
+    x = torch.randint(0, 256, (EXTRACT_BATCH, *IMG, 3), dtype=torch.uint8, device=dev)
+    out = {}
+    for name in ("resnet50", *ZOO, "vit"):
+        kw = {"use_fused_attention": True} if name == "vit" else {}
+        module = get_model(name, torch.Generator().manual_seed(12), img_size=IMG,
+                           dtype=torch.bfloat16, device=dev, **kw).module
+        plan = q8.prepare(module, q8.calibrate(module, normalize_images(x, dtype=torch.bfloat16)))
+
+        def fwd(plan):
+            with torch.inference_mode(), q8.quantized(module, plan):
+                return module(normalize_images(x, dtype=torch.bfloat16)).float()
+
+        bf16_ms = cuda_ms(torch, lambda: fwd({}), reps=10, warmup=3)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        int8_ms = cuda_ms(torch, lambda: fwd(plan), reps=10, warmup=3)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        out[name] = {"int8_ms": int8_ms, "int8_img_per_s": EXTRACT_BATCH / int8_ms * 1e3,
+                     "bf16_ms": bf16_ms, "bf16_img_per_s": EXTRACT_BATCH / bf16_ms * 1e3,
+                     "int8_peak_memory_gb": peak, "int8_layers": len(plan)}
+        log(f"{name} int8 256x128 forward at batch {EXTRACT_BATCH}: {json.dumps(out[name])}")
+        del module, plan
+    return out
+
+
 # ---------------------------------------------------------------- counts
 class Counts:
     """The launch counters of every kernel wrapper on the main path."""
 
     def __init__(self):
+        from daliid_tpu_torch.ops.conv_int8 import conv_int8
         from daliid_tpu_torch.ops.flash_attention import flash_attention
         from daliid_tpu_torch.ops.fused_augment import fused_augment
         from daliid_tpu_torch.ops.rank_counts import positive_rank_counts
@@ -1885,7 +2424,8 @@ class Counts:
                          "search_topk_sq8": sq8_search_topk,
                          "search_topk_f32": f32_search_topk,
                          "fused_augment": fused_augment,
-                         "flash_attention": flash_attention}
+                         "flash_attention": flash_attention,
+                         "conv_int8": conv_int8}
 
     def reset(self):
         for w in self.wrappers.values():
@@ -1910,6 +2450,13 @@ KERNELS = {
                         "replaces": "daliid_tpu/ops/flash_attention.py:55",
                         "check": "f32 atol 2e-5; bf16 one bf16 ulp (or 2e-5); "
                                  "backward f32 atol 3e-5"},
+    # a kernel of the port alone: the JAX package runs these convolutions
+    # through XLA (lax.conv_general_dilated on int8), no Pallas kernel
+    "conv_int8": {"source": "daliid_tpu_torch/csrc/conv_int8.cu",
+                  "replaces": "daliid_tpu/ops/quantize.py:278 (XLA int8 convolution; no "
+                              "Pallas kernel)",
+                  "check": "bit-exact (int32, f32 and bf16 out)",
+                  "library": "F.unfold(bf16) + torch._int_mm (groups = 1)"},
 }
 
 
@@ -1919,7 +2466,9 @@ PATH_KERNELS = {"rank_counts": ("rank_counts_kernel",),
                 "fused_augment": ("fused_augment_kernel<__nv_bfloat16>",),
                 "search_topk_sq8": ("topk_pass1<1>", "topk_pass2"),
                 "search_topk_f32": ("topk_pass1<0>", "topk_pass2"),
-                "flash_attention": ("attention_mma<64,8>", "attention_mma<64,4>")}
+                "flash_attention": ("attention_mma<64,8>", "attention_mma<64,4>"),
+                "conv_int8": ("conv_igemm<__nv_bfloat16,1>", "conv_igemm<__nv_bfloat16,0>",
+                              "conv_depthwise<__nv_bfloat16,4>")}
 
 
 def main() -> int:
@@ -1953,6 +2502,8 @@ def main() -> int:
     f32_err = phase_k3(torch, dev, (n_q, capacity, 2048, n_g))
     k1_err = phase_k1(torch, dev)
     k4_err, k4_bwd_err = phase_k4(torch, dev)
+    shapes = conv_shapes(torch, dev)
+    conv_err = phase_conv_int8(torch, dev, shapes)
     train_root = make_train_dataset()
 
     counts = Counts()
@@ -1963,7 +2514,12 @@ def main() -> int:
         launched, walls[name] = phase()
         return launched
 
-    for phase in (lambda: phase_serve(torch, splits, counts)[0],
+    def walled(phase):
+        launched, phase_walls = phase()
+        walls.update(phase_walls)
+        return launched
+
+    fp_phases = (lambda: phase_serve(torch, splits, counts)[0],
                   lambda: phase_search(torch, counts),
                   lambda: phase_evaluate(torch, counts),
                   lambda: phase_train(torch, counts, train_root),
@@ -1978,8 +2534,23 @@ def main() -> int:
                   lambda: timed("train densenet121",
                                 lambda: phase_densenet_train(torch, counts, train_root)),
                   lambda: timed("evaluate --rerank", lambda: phase_rerank_evaluate(torch, counts)),
-                  lambda: phase_search_rerank(torch, dev, counts)):
-        for name, n in phase().items():
+                  lambda: phase_search_rerank(torch, dev, counts))
+    int8_phases = (lambda: walled(lambda: phase_evaluate_int8(torch, dev, splits, counts)),
+                   lambda: phase_search_serve_int8(torch, splits, counts),
+                   lambda: walled(lambda: phase_fusion_ensemble_int8(torch, counts)),
+                   lambda: timed("evaluate vit --quantize int8",
+                                 lambda: phase_vit_int8(torch, dev, splits, counts)),
+                   lambda: timed("train --mining_quantize int8",
+                                 lambda: phase_train_int8(torch, counts, train_root)))
+    for phase in fp_phases:
+        launched = phase()
+        check(launched["conv_int8"] == 0, f"a float phase launched conv_int8: {launched}")
+        for name, n in launched.items():
+            launches[name] += n
+    for phase in int8_phases:
+        launched = phase()
+        check(launched["conv_int8"] > 0, f"an int8 phase launched no conv_int8: {launched}")
+        for name, n in launched.items():
             launches[name] += n
     counts.reset()
 
@@ -2011,6 +2582,13 @@ def main() -> int:
     zoo_rates = _time_zoo_extraction(torch, dev)
     dense_step = _time_densenet_train_step(torch, dev, train_root)
     rerank_times = _time_rerank(torch, dev)
+    conv_times = _time_conv_int8(torch, dev, shapes)
+    results["conv_int8"].update(conv_times[CONV_MAIN])
+    results["conv_int8"]["max_abs_err"] = conv_err
+    results["conv_int8"]["at_shapes"] = [
+        {k: t[k] for k in ("shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+                           "cudnn_bf16_ms")} for t in conv_times.values()]
+    int8_rates = _time_int8_extraction(torch, dev)
     for name, r in results.items():
         r["launches"] = launches[name]
         check(r["launches"] > 0, f"{name} was not launched on the main path")
@@ -2064,12 +2642,15 @@ def main() -> int:
         f"above its inputs; re-ranked search Q=200 over 400 rows at depth 64: "
         f"{rerank_times['search_q200_g400_depth64_ms']:.2f} ms (device re-ranking "
         f"{rerank_times['shortlists_q200_depth64_device_ms']:.3f} ms)")
+    log("int8 extraction at batch 512 (256x128; bf16 in the same call): "
+        + ", ".join(f"{n} int8 {r['int8_img_per_s']:.1f} img/s (bf16 {r['bf16_img_per_s']:.1f}) "
+                    f"peak {r['int8_peak_memory_gb']:.2f} GB" for n, r in int8_rates.items()))
     log(f"card: {card}; total {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check", "shape")
     extra = ("at_path_shape", "at_path_p", "at_max_positives_bound", "at_n53",
              "backward_max_abs_err",
-             "backward_ms", "ptxas")
+             "backward_ms", "ptxas", "library", "cudnn_bf16_ms", "at_shapes")
     kernels = [{k: r[k] for k in keys + extra if k in r} for r in results.values()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

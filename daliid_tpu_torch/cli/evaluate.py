@@ -11,9 +11,10 @@ with ``--multiple_output`` reports each head, then the heads' ensemble
 of the first three heads' similarities (``:278-317``, the replicated path).
 ``--rerank`` applies k-reciprocal re-ranking before the metrics
 (``:225``, ``:323``), single-output evaluation only, as in JAX.
+``--quantize int8`` extracts in int8 (``--calib_batches`` of calibration).
 The flags of features not ported yet (turbulence galleries, BRIAR
-manifests, sharded and multi-host evaluation, int8 extraction) exit with
-an error that names them.
+manifests, sharded and multi-host evaluation) exit with an error that
+names them.
 
 Example::
 
@@ -50,7 +51,7 @@ from daliid_tpu_torch.models.torch_port import load_state
 _UNPORTED = {
     "turbulence_dir_path": None, "turbulence_strength": None,
     "train_file_path": None, "queries_file_path": None, "gallery_file_path": None,
-    "quantize": None, "calib_batches": 1, **MULTIHOST_FLAGS,
+    **MULTIHOST_FLAGS,
 }
 
 
@@ -93,8 +94,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--gelu_approx", action="store_true",
                    help="ViT family: tanh-approximate GELU in the MLP blocks (not the "
                         "reference's erf GELU)")
-    p.add_argument("--quantize", type=str, default=None, choices=["int8"], help="not yet ported")
-    p.add_argument("--calib_batches", type=int, default=1, help="not yet ported")
+    p.add_argument("--quantize", type=str, default=None, choices=["int8"],
+                   help="int8 post-training quantization for extraction: convolutions "
+                        "(kernel conv_int8) and Dense layers of 128 or more on both sides "
+                        "run int8, calibrated on the first batches (ops/quantize.py)")
+    p.add_argument("--calib_batches", type=int, default=1,
+                   help="int8 calibration spans the first N extract batches (running "
+                        "absmax)")
     add_multihost_flags(p)
     add_device_flag(p)
     return p
@@ -145,7 +151,8 @@ def main(args):
                          parse_dtype(args.compute_dtype), device, sie_cameras=args.sie_cameras,
                          sie_coef=args.sie_coef, gelu_approx=args.gelu_approx)
     extractor = FeatureExtractor(bundle, img_size=img_size, batch_size=args.batch_size,
-                                 device=device)
+                                 device=device, quantize=args.quantize,
+                                 calib_batches=args.calib_batches)
     results = {}
     for target in args.targets:
         splits = load_dataset(target, root=args.data_root)

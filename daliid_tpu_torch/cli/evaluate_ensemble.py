@@ -4,8 +4,10 @@
 Loads two trained models, possibly of different backbones, ranks each
 one's cosine distmat and then their mean, through kernel K2 on the device,
 and returns ``{model01, model02, ensemble}`` with each one's rank-1 and
-mAP. Flags are the JAX CLI's plus ``--device``; int8 extraction, the BRIAR
-manifests and the multi-host flags exit with an error that names them.
+mAP. ``--quantize int8`` extracts in int8, each model's extractor
+calibrated on its first batches (the queries). Flags are the JAX CLI's plus
+``--device``; the BRIAR manifests and the multi-host flags exit with an
+error that names them.
 
 Example::
 
@@ -21,7 +23,11 @@ import torch
 
 from daliid_tpu_torch.cli.common import reject_briar, reject_unported
 from daliid_tpu_torch.cli.evaluate import load_bundle
-from daliid_tpu_torch.cli.evaluate_fusion import UNPORTED, add_unported_flags
+from daliid_tpu_torch.cli.evaluate_fusion import (
+    UNPORTED,
+    add_quantize_flags,
+    add_unported_flags,
+)
 from daliid_tpu_torch.data.registry import load_dataset
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
@@ -43,6 +49,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--img_width", type=int, default=128)
     p.add_argument("--batch_size", type=int, default=512)
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
+    add_quantize_flags(p)
     add_unported_flags(p)
     add_device_flag(p)
     return p
@@ -63,7 +70,8 @@ def main(args):
     for tag, name, path in (("model01", args.model_name01, args.model_path01),
                             ("model02", args.model_name02, args.model_path02)):
         ex = FeatureExtractor(load_bundle(name, path, img_size, dtype, device),
-                              img_size=img_size, batch_size=args.batch_size, device=device)
+                              img_size=img_size, batch_size=args.batch_size, device=device,
+                              quantize=args.quantize, calib_batches=args.calib_batches)
         q, g = (torch.from_numpy(ex.extract(t, verbose=True)).to(device)
                 for t in (queries, gallery))
         distmats.append(cosine_distance_matrix(q, g))

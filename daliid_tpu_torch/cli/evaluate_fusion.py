@@ -15,8 +15,11 @@ The pooling switch runs a shallow copy of the module with its own
 pooling change. The ``both`` magnitudes reuse the base embeddings, which
 the JAX CLI extracts again with the same numbers.
 
-Flags are the JAX CLI's plus ``--device``; int8 extraction, the BRIAR
-manifests and the multi-host flags exit with an error that names them.
+``--quantize int8`` extracts in int8, calibrated per (model, pooling) and
+split, as the JAX CLI builds one extractor for each (``:105-123``); the
+magnitude fusions then weigh raw int8 embedding norms. Flags are the JAX
+CLI's plus ``--device``; the BRIAR manifests and the multi-host flags exit
+with an error that names them.
 
 Example::
 
@@ -54,15 +57,22 @@ from daliid_tpu_torch.eval.validate import Validator
 from daliid_tpu_torch.metrics.ranking import cosine_distance_matrix
 from daliid_tpu_torch.models.factory import ModelBundle
 
-UNPORTED = {"quantize": None, "calib_batches": 1, "train_file_path": None,
-            "queries_file_path": None, "gallery_file_path": None, **MULTIHOST_FLAGS}
+UNPORTED = {"train_file_path": None, "queries_file_path": None, "gallery_file_path": None,
+            **MULTIHOST_FLAGS}
+
+
+def add_quantize_flags(p: argparse.ArgumentParser) -> None:
+    """The two fusion CLIs' int8 extraction flags."""
+    p.add_argument("--quantize", type=str, default=None, choices=["int8"],
+                   help="int8 post-training quantization for extraction, calibrated per "
+                        "model (and pooling) on its first batches (ops/quantize.py)")
+    p.add_argument("--calib_batches", type=int, default=1,
+                   help="int8 calibration spans the first N extract batches (running "
+                        "absmax)")
 
 
 def add_unported_flags(p: argparse.ArgumentParser) -> None:
     """The two fusion CLIs' flags of features not ported yet."""
-    p.add_argument("--quantize", type=str, default=None, choices=["int8"],
-                   help="not yet ported")
-    p.add_argument("--calib_batches", type=int, default=1, help="not yet ported")
     p.add_argument("--train_file_path", type=str, default=None, help="not yet ported")
     p.add_argument("--queries_file_path", type=str, default=None, help="not yet ported")
     p.add_argument("--gallery_file_path", type=str, default=None, help="not yet ported")
@@ -83,6 +93,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     p.add_argument("--roc_version", type=str, default=None,
                    help="dump FPR/TPR arrays with this tag")
+    add_quantize_flags(p)
     add_unported_flags(p)
     add_device_flag(p)
     return p
@@ -126,9 +137,12 @@ def main(args):
     results = {}
 
     def extract(bundle, pooling):
-        ex = FeatureExtractor(with_pooling(bundle, pooling), img_size=img_size,
-                              batch_size=args.batch_size, device=device)
-        return tuple(torch.from_numpy(ex.extract(t)).to(device) for t in (queries, gallery))
+        # one extractor a split: each int8 extractor calibrates on its own split
+        pooled = with_pooling(bundle, pooling)
+        return tuple(torch.from_numpy(FeatureExtractor(
+            pooled, img_size=img_size, batch_size=args.batch_size, device=device,
+            quantize=args.quantize, calib_batches=args.calib_batches).extract(t)).to(device)
+            for t in (queries, gallery))
 
     # base embeddings: "both" pooling, the training-time head
     (q_c, g_c), (q_d, g_d) = extract(clean, "both"), extract(dist, "both")

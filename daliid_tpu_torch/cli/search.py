@@ -6,8 +6,9 @@ Builds a device-resident gallery index from a dataset split (or a saved
 through kernel K3. ``--rerank`` re-orders each probe's top
 ``--rerank_depth`` shortlist by k-reciprocal re-ranking (exact f32 even on
 an int8 index; scores become 1 - re-ranked distance). Flags are the JAX
-CLI's plus ``--device``; ``--quantize``, ``--calib_batches`` and the
-multi-host flags name features not ported yet and exit with an error.
+CLI's plus ``--device``: ``--quantize int8`` extracts in int8 (apart from
+``--index_quantize``, which stores the index in int8); the multi-host flags
+name a feature not ported yet and exit with an error.
 
 Example::
 
@@ -29,7 +30,7 @@ from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.eval.matcher import GalleryIndex
 
-_UNPORTED = {"quantize": None, "calib_batches": 1, **MULTIHOST_FLAGS}
+_UNPORTED = MULTIHOST_FLAGS
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -42,8 +43,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--img_width", type=int, default=128)
     p.add_argument("--batch_size", type=int, default=512)
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
-    p.add_argument("--quantize", type=str, default=None, choices=["int8"], help="not yet ported")
-    p.add_argument("--calib_batches", type=int, default=1, help="not yet ported")
+    p.add_argument("--quantize", type=str, default=None, choices=["int8"],
+                   help="int8 post-training quantization for extraction, calibrated "
+                        "lazily on the first batches (ops/quantize.py)")
+    p.add_argument("--calib_batches", type=int, default=1,
+                   help="int8 calibration spans the first N extract batches (running "
+                        "absmax)")
     p.add_argument(
         "--index_quantize", type=str, default=None, choices=["int8", "off"],
         help="'int8' stores the device gallery as per-row symmetric int8; "
@@ -74,7 +79,8 @@ def main(args):
     bundle = load_bundle(args.model_name, args.model_path, img_size,
                          parse_dtype(args.compute_dtype), device)
     extractor = FeatureExtractor(bundle, img_size=img_size, batch_size=args.batch_size,
-                                 device=device)
+                                 device=device, quantize=args.quantize,
+                                 calib_batches=args.calib_batches)
 
     flag = args.index_quantize
     index_quantize = None if flag == "off" else flag

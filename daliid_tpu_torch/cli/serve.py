@@ -4,7 +4,9 @@ Port of ``daliid_tpu/cli/serve.py``: :class:`IdentificationService`
 (``:109-360``), the newline-JSON TCP server (``:363-428``) and :func:`main`
 (``:431``), flag for flag plus ``--device``. One extractor and one
 :class:`~daliid_tpu_torch.eval.matcher.GalleryIndex` stay alive on the GPU;
-searches run kernel K3.
+searches run kernel K3. ``--quantize int8`` makes the extractor int8,
+calibrated on the first request's images (``--calib_batches`` batches);
+``--index_quantize`` is the index's own int8 storage.
 
 Protocol — one JSON object per line, one JSON response line per request::
 
@@ -47,7 +49,6 @@ import time
 
 import numpy as np
 
-from daliid_tpu_torch.cli.common import reject_unported
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.matcher import GalleryIndex, serving_embedding
 
@@ -62,8 +63,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--img_width", type=int, default=128)
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
-    p.add_argument("--quantize", type=str, default=None, choices=["int8"], help="not yet ported")
-    p.add_argument("--calib_batches", type=int, default=1, help="not yet ported")
+    p.add_argument("--quantize", type=str, default=None, choices=["int8"],
+                   help="int8 post-training quantization for extraction (ops/quantize.py); "
+                        "calibrated on the first extract batches")
+    p.add_argument("--calib_batches", type=int, default=1,
+                   help="int8 calibration spans the first N extract batches (running "
+                        "absmax)")
     p.add_argument(
         "--index_quantize", type=str, default=None, choices=["int8", "off"],
         help="'int8' stores the device gallery as per-row symmetric int8; "
@@ -363,13 +368,13 @@ def main(args):
     from daliid_tpu_torch.cli.evaluate import load_bundle
     from daliid_tpu_torch.eval.features import FeatureExtractor
 
-    reject_unported(args, {"quantize": None, "calib_batches": 1})
     device = resolve_device(args.device)
     img_size = (args.img_height, args.img_width)
     bundle = load_bundle(args.model_name, args.model_path, img_size,
                          parse_dtype(args.compute_dtype), device)
     extractor = FeatureExtractor(bundle, img_size=img_size, batch_size=args.batch_size,
-                                 device=device)
+                                 device=device, quantize=args.quantize,
+                                 calib_batches=args.calib_batches)
     server = make_server(args, extractor)
     host, port = server.server_address[:2]
     print(f"[serve] listening on {host}:{port} "

@@ -10,8 +10,10 @@ JSON is written; every ``--ckpt_freq`` epochs a crash-resume checkpoint goes
 under ``<save_dir>/latest``. ``--resume`` restarts from the newer of the two
 and replays the RNG stream. Flags are the JAX CLI's (``:36-145``) plus
 ``--device``, with its checks of the classifier, margin-head and SIE flags
-(``:214-264``); the flags of features not ported yet (int8 mining, remat,
-fault injection, multi-host) exit with an error that names them, and so
+(``:214-264``). ``--mining_quantize int8`` re-embeds the train set for
+mining through a separate int8 extractor that recalibrates each epoch
+(``--mining_calib_batches``); validation stays in full precision. The
+flags of features not ported yet (remat, fault injection, multi-host) exit with an error that names them, and so
 does a multi-head model, whose tuple of embeddings the losses do not take.
 
 Example::
@@ -52,7 +54,7 @@ from daliid_tpu_torch.train.sampler import PKBatchSampler
 from daliid_tpu_torch.train.trainer import Trainer
 
 _UNPORTED = {
-    "mining_quantize": None, "mining_calib_batches": 1, "remat": "none",
+    "remat": "none",
     "fault_inject_epoch": 0, "fault_inject_rank": -1, **MULTIHOST_FLAGS,
 }
 
@@ -89,8 +91,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     p.add_argument("--extractor_batch", type=int, default=512)
     p.add_argument("--mining_quantize", type=str, default=None, choices=["int8"],
-                   help="not yet ported")
-    p.add_argument("--mining_calib_batches", type=int, default=1, help="not yet ported")
+                   help="int8 PTQ for the per-epoch mining re-embedding "
+                        "(train_encodersKIT.py:110 equivalent); validation extraction "
+                        "stays full-precision. Recalibrates each epoch on the new "
+                        "weights' first mining batches")
+    p.add_argument("--mining_calib_batches", type=int, default=1)
     p.add_argument("--grad_accum", type=int, default=1,
                    help="microbatches per optimizer step: the batch is split into N "
                         "strided chunks (identities round-robin; AT pairs move as "
@@ -134,6 +139,7 @@ def config_from_args(args) -> TrainConfig:
         eval_freq=args.eval_freq, ckpt_freq=args.ckpt_freq, save_dir=args.path_to_save_models,
         metrics_dir=args.path_to_save_metrics, version=args.version,
         extractor_batch=args.extractor_batch, grad_accum=args.grad_accum, device=args.device,
+        mining_quantize=args.mining_quantize, mining_calib_batches=args.mining_calib_batches,
         num_classes=args.num_classes, id_loss_type=args.id_loss_type,
         margin_s=args.cosine_scale, margin_m=args.cosine_margin, sie_cameras=args.sie_cameras,
         sie_coef=args.sie_coef,
@@ -214,6 +220,7 @@ def main(args):
         momentum_on_feature_extraction=bool(args.momentum_on_feature_extraction),
         compute_dtype=dtype, seed=cfg.seed, decode_workers=cfg.decode_workers,
         extractor_batch=cfg.extractor_batch, grad_accum=cfg.grad_accum,
+        mining_quantize=cfg.mining_quantize, mining_calib_batches=cfg.mining_calib_batches,
     )
 
     os.makedirs(cfg.metrics_dir, exist_ok=True)

@@ -2,9 +2,8 @@
 eval.
 
 Copy of ``daliid_tpu/config.py::TrainConfig`` (the reference's
-``mainKIT.py:316-344`` flags), plus ``device``. The fields of features that
-are not ported yet (remat, int8 mining) are left out; ``cli/train.py``
-rejects their flags.
+``mainKIT.py:316-344`` flags), plus ``device``. The field of a feature that
+is not ported yet (remat) is left out; ``cli/train.py`` rejects its flag.
 """
 
 from __future__ import annotations
@@ -60,6 +59,8 @@ class TrainConfig:
 
     # runtime
     extractor_batch: int = 512
+    mining_quantize: Optional[str] = None  # int8 PTQ of the per-epoch mining re-embedding
+    mining_calib_batches: int = 1
     decode_workers: int = 16
     grad_accum: int = 1                   # microbatches per optimizer step
     device: str = "cuda"

@@ -17,10 +17,19 @@ Port of ``daliid_tpu/eval/features.py``: :class:`FeatureExtractor`
   TransReID backbones) gets each image's camera id: a table's camids, or 0
   for bare paths and padding slots (``:98``, ``:181-184``, ``:251-255``);
 - a multi-head model's tuple output gives a tuple of (N, D_h) f32 arrays,
-  one per head (``:300-370``).
+  one per head (``:300-370``);
+- ``quantize='int8'``: post-training int8 extraction
+  (:mod:`daliid_tpu_torch.ops.quantize`; ``:52-75``, ``:139-235``,
+  ``:306-350``). The first extract calibrates lazily on its first
+  ``calib_batches`` batches that carry real images (a running max of every
+  layer's input absmax), holding those batches back and running them in
+  int8 once the scales are final; a short batch is calibrated on its real
+  rows tiled to the batch size (padding rows normalize to the most extreme
+  constant image and would skew the scales), and an extract of nothing never
+  calibrates. :meth:`FeatureExtractor.update_variables` drops the scales, so
+  the next extract recalibrates on the new weights.
 
-Not ported yet: int8 extraction (``quantize``/``calibrate``) and turbulence
-galleries; the CLIs reject their flags.
+Not ported yet: turbulence galleries; the CLIs reject their flags.
 """
 
 from __future__ import annotations
@@ -37,13 +46,24 @@ import torch
 
 from daliid_tpu_torch.augment.preprocess import decode_images, normalize_images
 from daliid_tpu_torch.data.registry import ReidTable
+from daliid_tpu_torch.ops import quantize as q8
 
 
 class FeatureExtractor:
     """Reusable extraction pipeline for one model bundle on its device."""
 
     def __init__(self, bundle, img_size=(256, 128), batch_size: int = 512,
-                 device=None, decode_workers: int = 16):
+                 device=None, decode_workers: int = 16, quantize: str | None = None,
+                 calib_batches: int = 1):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+        if calib_batches < 1:
+            raise ValueError(f"calib_batches must be >= 1, got {calib_batches}")
+        self.quantize = quantize
+        self.calib_batches = int(calib_batches)
+        self.quant_scales = None  # {layer name: absmax}, set by calibrate()
+        self._calib_final = False
+        self._plan = None  # the int8 forwards, built when the scales are final
         self.bundle = bundle
         self.img_size = tuple(img_size)
         self.batch_size = max(1, int(batch_size))
@@ -55,8 +75,36 @@ class FeatureExtractor:
             bundle.module.forward).parameters
 
     def update_variables(self, state_dict) -> None:
-        """Copy new weights into the module in place."""
+        """Copy new weights into the module in place; int8 scales calibrated
+        on the old weights are dropped, so the next extract recalibrates."""
         self.bundle.module.load_state_dict(state_dict, strict=True)
+        if self.quant_scales is not None or self._calib_final:
+            self.quant_scales = None
+            self._plan = None
+            self._calib_final = False
+
+    def calibrate(self, images_u8: np.ndarray, camera_ids=None, rebuild: bool = True) -> None:
+        """Int8 calibration on one uint8 batch: every quantizable layer's
+        input absmax, merged as a running max with earlier calibration
+        batches; with ``rebuild`` the scales become final and the int8
+        forward is built. The extract loop passes ``rebuild=False`` for each
+        of its calibration batches and finalizes once."""
+        x, kw = self._inputs(images_u8, camera_ids)
+        new = q8.calibrate(self.bundle.module, x, **kw)
+        if self.quant_scales is None:
+            self.quant_scales = new
+        else:
+            self.quant_scales = {k: max(self.quant_scales.get(k, 0.0), v)
+                                 for k, v in new.items()}
+        if rebuild:
+            self._finalize_calibration()
+
+    def _finalize_calibration(self) -> None:
+        # degenerate (<= 0) scales are left out: a conv without a scale
+        # stays in floating point, a Dense layer takes dynamic scales
+        self._calib_final = True
+        self._plan = q8.prepare(self.bundle.module,
+                                {k: v for k, v in self.quant_scales.items() if v > 0.0})
 
     def _decode_paths(self, paths: Sequence[str]) -> np.ndarray:
         return decode_images(paths, *self.img_size, self.decode_workers)
@@ -65,6 +113,13 @@ class FeatureExtractor:
         """One (B, H, W, 3) uint8 batch (and, for SIE models, its (B,)
         camera ids, zeros if None) → (B, D) f32 embeddings on the device, or
         a tuple of them for a multi-head model (not synchronized)."""
+        x, kw = self._inputs(images_u8, camera_ids)
+        with torch.inference_mode(), q8.quantized(self.bundle.module, self._plan or {}):
+            out = self.bundle.module(x, **kw)
+        return tuple(o.float() for o in out) if isinstance(out, tuple) else out.float()
+
+    def _inputs(self, images_u8: np.ndarray, camera_ids):
+        """The normalized batch on the device and the forward's keywords."""
         x = torch.from_numpy(images_u8)
         if self.device.type == "cuda":
             x = x.pin_memory().to(self.device, non_blocking=True)
@@ -74,8 +129,7 @@ class FeatureExtractor:
             kw["camera_ids"] = torch.as_tensor(np.asarray(cams, np.int64), device=self.device)
         with torch.inference_mode():
             x = normalize_images(x, dtype=getattr(self.bundle.module, "dtype", torch.float32))
-            out = self.bundle.module(x, **kw)
-        return tuple(o.float() for o in out) if isinstance(out, tuple) else out.float()
+        return x, kw
 
     def extract(self, table_or_paths, verbose: bool = False):
         """Embed every image → (N, feature_dim) float32 numpy array, or a
@@ -105,7 +159,7 @@ class FeatureExtractor:
                         imgs = np.concatenate(
                             [imgs, np.zeros((bs - len(chunk), *imgs.shape[1:]), np.uint8)])
                         cams = np.pad(cams, (0, bs - len(chunk)))
-                    batch_q.put((imgs, cams, len(chunk)))
+                    batch_q.put((b, imgs, cams, len(chunk)))
                 batch_q.put(None)
             except BaseException as exc:  # surface decode errors to the caller
                 batch_q.put(exc)
@@ -113,6 +167,14 @@ class FeatureExtractor:
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
         outputs = []
+        pending = []  # batches held back while the int8 calibration accumulates
+        calib_seen = 0
+
+        def run_batch(imgs, cams, valid):
+            out = self.forward_batch(imgs, cams)
+            outputs.append(tuple(o[:valid] for o in out) if isinstance(out, tuple)
+                           else out[:valid])
+
         try:
             while True:
                 item = batch_q.get()
@@ -120,10 +182,25 @@ class FeatureExtractor:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                imgs, cams, valid = item
-                out = self.forward_batch(imgs, cams)
-                outputs.append(tuple(o[:valid] for o in out) if isinstance(out, tuple)
-                               else out[:valid])
+                b, imgs, cams, valid = item
+                if self.quantize is not None and not self._calib_final and valid > 0:
+                    # calibrate on the real rows, tiled over the padding
+                    reps = -(-bs // valid)
+                    self.calibrate(np.tile(imgs[:valid], (reps, 1, 1, 1))[:bs],
+                                   np.tile(cams[:valid], reps)[:bs], rebuild=False)
+                    calib_seen += 1
+                    pending.append((imgs, cams, valid))
+                    if calib_seen >= self.calib_batches or b == num_batches - 1:
+                        self._finalize_calibration()
+                        for p in pending:
+                            run_batch(*p)
+                        pending.clear()
+                    continue
+                run_batch(imgs, cams, valid)
+            if pending:  # fewer real batches than calib_batches: commit what there is
+                self._finalize_calibration()
+                for p in pending:
+                    run_batch(*p)
         except BaseException:
             # unblock a producer waiting on the full queue, then re-raise
             stop.set()
@@ -147,7 +224,9 @@ class FeatureExtractor:
 
 
 def extract_features(table_or_paths, bundle, img_size=(256, 128), batch_size: int = 512,
-                     device=None, verbose: bool = False):
+                     device=None, verbose: bool = False, quantize: str | None = None,
+                     calib_batches: int = 1):
     """One-shot wrapper: build a :class:`FeatureExtractor` and extract."""
-    ex = FeatureExtractor(bundle, img_size=img_size, batch_size=batch_size, device=device)
+    ex = FeatureExtractor(bundle, img_size=img_size, batch_size=batch_size, device=device,
+                          quantize=quantize, calib_batches=calib_batches)
     return ex.extract(table_or_paths, verbose=verbose)

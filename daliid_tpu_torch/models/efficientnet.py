@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from daliid_tpu_torch.models.norm import TorchBatchNorm
-from daliid_tpu_torch.models.resnet import Conv, pool_features
+from daliid_tpu_torch.models.resnet import Conv, Dense1x1, pool_features
 
 # (expand, channels, repeats, stride, kernel): the published B0 schedule
 _B0_CONFIG = (
@@ -56,8 +56,8 @@ class SqueezeExcite(nn.Module):
 
     def __init__(self, channels: int, se_channels: int):
         super().__init__()
-        self.fc1 = Conv(channels, se_channels, 1, bias=True)
-        self.fc2 = Conv(se_channels, channels, 1, bias=True)
+        self.fc1 = Dense1x1(channels, se_channels)
+        self.fc2 = Dense1x1(se_channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = x.mean(dim=(2, 3), keepdim=True)

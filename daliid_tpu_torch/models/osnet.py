@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from daliid_tpu_torch.models.norm import TorchBatchNorm
-from daliid_tpu_torch.models.resnet import Conv, pool_features
+from daliid_tpu_torch.models.resnet import Conv, Dense1x1, pool_features
 
 
 class ConvBNReLU(nn.Module):
@@ -78,8 +78,8 @@ class ChannelGate(nn.Module):
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
         hidden = max(channels // reduction, 4)
-        self.fc1 = Conv(channels, hidden, 1, bias=True)
-        self.fc2 = Conv(hidden, channels, 1, bias=True)
+        self.fc1 = Dense1x1(channels, hidden)
+        self.fc2 = Dense1x1(hidden, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = x.mean(dim=(2, 3), keepdim=True)

@@ -65,6 +65,17 @@ class Conv(nn.Conv2d):
         return F.conv2d(x, w, b, self.stride, self.padding, 1, self.groups)
 
 
+class Dense1x1(Conv):
+    """A flax ``nn.Dense`` over the channel axis, held as a 1x1 convolution
+    with bias so that its weights keep the reference's torch keys (OSNet's
+    channel gate, EfficientNet's squeeze-excitation). The int8 quantizer
+    treats it as the Dense layer it is in the JAX package
+    (``ops/quantize.py::quant_layers``)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 1, bias=True)
+
+
 class IBN(nn.Module):
     """Instance-Batch Norm: :class:`InstanceNorm` on the first half of the
     channels (``IN``), torch-semantics BN on the second (``BN``)."""

@@ -22,6 +22,8 @@ entry point dispatches on the model name, as ``variables_from_torch`` does
   ``pos_embed`` and ``sie_embed`` as they are;
 - :func:`params_from_jax` does the same for a tree of the params' structure
   alone: the params, or optax's Adam moments ``mu`` and ``nu``;
+- :func:`quant_scales_from_jax` maps the JAX package's int8 calibration
+  scales, keyed by flax module path, to the port's module names;
 - :func:`read_jax_npz` reads the ``.npz`` that the JAX package's
   ``train/checkpoint.py::save_variables`` writes, whose keys are
   ``jax.tree_util.keystr`` paths such as
@@ -337,6 +339,30 @@ def variables_from_jax(model_name: str, variables) -> Dict[str, torch.Tensor]:
     running statistics."""
     params = variables["params"]
     return _convert(params, variables.get("batch_stats", {}), _entries(model_name, params))
+
+
+_QUANT_KINDS = ("conv", "dense", "dense_conv1x1")
+
+
+def quant_scales_from_jax(model_name: str, scales: Mapping[str, float]) -> Dict[str, float]:
+    """The JAX package's int8 calibration of ``model_name``, ``{flax module
+    path: input absmax}`` (paths as ``daliid_tpu/ops/quantize.py::_module_path``
+    joins them, e.g. ``layer1_0/conv1``), → the port's ``{module name:
+    absmax}``, through the key tables of :func:`variables_from_jax`. The
+    tables are read with a skeleton params tree built from the paths, so a
+    path of a layer the tables do not map is dropped."""
+    skeleton: Dict[str, object] = {}
+    for path in scales:
+        node = skeleton
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        node["kernel"] = None
+    out = {}
+    for tk, path, kind in _entries(model_name, skeleton):
+        key = "/".join(path)
+        if kind in _QUANT_KINDS and key in scales:
+            out[tk] = float(scales[key])
+    return out
 
 
 # ------------------------------------------------------------ reference checkpoints

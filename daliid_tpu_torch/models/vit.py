@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from daliid_tpu_torch.models.norm import TorchBatchNorm
+from daliid_tpu_torch.models.resnet import Conv
 from daliid_tpu_torch.ops.flash_attention import flash_attention
 
 
@@ -157,13 +158,16 @@ def resize_pos_embed(pos_embed: np.ndarray, new_hw: tuple, old_hw: tuple) -> np.
 
 
 class PatchEmbed(nn.Module):
+    """The (overlapping) patch embedding, a strided convolution through
+    ``proj``'s own forward, so that the int8 quantizer reaches it as it
+    reaches the JAX package's ``patch_embed`` ``nn.Conv``."""
+
     def __init__(self, patch_size: int, patch_stride: int, embed_dim: int):
         super().__init__()
-        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_stride)
+        self.proj = Conv(3, embed_dim, patch_size, stride=patch_stride, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.proj.weight.to(dtype=x.dtype, memory_format=torch.channels_last)
-        y = F.conv2d(x, w, self.proj.bias.to(x.dtype), self.proj.stride)
+        y = self.proj(x)
         return y.permute(0, 2, 3, 1).flatten(1, 2)  # (B, gh*gw, C), row-major grid
 
 

@@ -155,6 +155,8 @@ class Trainer:
         decode_workers: int = 16,
         extractor_batch: int = 512,
         grad_accum: int = 1,
+        mining_quantize: str | None = None,
+        mining_calib_batches: int = 1,
     ):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -199,6 +201,20 @@ class Trainer:
             img_size=self.img_size, batch_size=extractor_batch, device=self.device,
             decode_workers=decode_workers,
         )
+        # the int8 mining extractor (``mining_quantize``), a separate one on
+        # its own copy of the model, so that validation and evaluation stay
+        # in full precision; update_variables drops its scales each epoch,
+        # so mining recalibrates on the new weights (daliid_tpu/train/
+        # trainer.py:256-275)
+        self._mining_extractor = None
+        if mining_quantize is not None:
+            self._mining_extractor = FeatureExtractor(
+                ModelBundle(module=copy.deepcopy(self.online).eval(),
+                            feature_dim=bundle_online.feature_dim, name=bundle_online.name),
+                img_size=self.img_size, batch_size=extractor_batch, device=self.device,
+                decode_workers=decode_workers, quantize=mining_quantize,
+                calib_batches=mining_calib_batches,
+            )
 
     # ------------------------------------------------------------------
     # the step
@@ -335,9 +351,9 @@ class Trainer:
         """Whole-train-set re-embedding + per-class mining
         (``train_encodersKIT.py:103-156``), with the momentum model when
         ``use_momentum`` (``mainKIT.py:333-334``)."""
-        self.extractor.update_variables(
-            (self.momentum if use_momentum else self.online).state_dict())
-        feats = self.extractor.extract(self.sampler.table, verbose=verbose)
+        extractor = self._mining_extractor or self.extractor
+        extractor.update_variables((self.momentum if use_momentum else self.online).state_dict())
+        feats = extractor.extract(self.sampler.table, verbose=verbose)
         class_idx = np.asarray(
             [self.sampler.label_to_class[l] for l in self.sampler.labels], np.int32)
         pset = mine_proxies_and_centers(

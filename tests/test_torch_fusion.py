@@ -130,6 +130,17 @@ def _recording(ranked, log):
     return rank
 
 
+def _tiny_registries(mp):
+    mp.setitem(jax_factory.MODEL_REGISTRY, "resnet50",
+               lambda dtype=jnp.float32, feature="both", **kw: (
+                   FlaxResNet(stage_sizes=STAGES, dtype=dtype, feature=feature), 2048))
+    mp.setitem(port_factory.MODEL_REGISTRY, "resnet50",
+               lambda dtype, feature="both", **kw: (
+                   ResNet50ReID(stage_sizes=STAGES, dtype=dtype, feature=feature), 2048))
+    mp.setattr(jax_native_loader, "native_loader_available", lambda: False)
+    mp.setattr(port_native_loader, "native_loader_available", lambda: False)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both packages' fusion and ensemble CLIs on one set and one pair of
@@ -151,16 +162,9 @@ def runs(tmp_path_factory):
                             "--roc_version", "t"],
         "ensemble": common + ["--model_path01", paths[0], "--model_path02", paths[1]],
     }
-    out = {}
+    out = {"argv": argv}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setitem(jax_factory.MODEL_REGISTRY, "resnet50",
-                   lambda dtype=jnp.float32, feature="both", **kw: (
-                       FlaxResNet(stage_sizes=STAGES, dtype=dtype, feature=feature), 2048))
-        mp.setitem(port_factory.MODEL_REGISTRY, "resnet50",
-                   lambda dtype, feature="both", **kw: (
-                       ResNet50ReID(stage_sizes=STAGES, dtype=dtype, feature=feature), 2048))
-        mp.setattr(jax_native_loader, "native_loader_available", lambda: False)
-        mp.setattr(port_native_loader, "native_loader_available", lambda: False)
+        _tiny_registries(mp)
         for package, validate_mod, clis in (
                 ("port", port_validate, {"fusion": port_fusion_cli, "ensemble": port_ensemble}),
                 ("jax", jax_validate, {"fusion": jax_fusion_cli, "ensemble": jax_ensemble})):
@@ -215,12 +219,57 @@ def test_commands_and_refusals():
     assert COMMANDS["evaluate-ensemble"][0] == "cli.evaluate_ensemble"
     for cli, base in ((port_fusion_cli, []), (port_ensemble, [])):
         parse = cli.build_argparser().parse_args
-        for extra in (["--quantize", "int8"], ["--calib_batches", "2"],
-                      ["--train_file_path", "x"], ["--multihost"]):
+        for extra in (["--train_file_path", "x"], ["--multihost"]):
             with pytest.raises(SystemExit, match=f"{extra[0]} is not yet ported"):
                 cli.main(parse(["--dataset", "Synthetic", "--device", "cpu", *base, *extra]))
         with pytest.raises(SystemExit, match="BRIAR.*not yet ported"):
             cli.main(parse(["--dataset", "BRIAR", "--device", "cpu"]))
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the int8 CPU path's many small ops: beside
+    the other workers of a parallel test run, OpenMP's eight threads a
+    worker oversubscribe the cores and an int8 CLI run takes minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("cli", ["fusion", "ensemble"])
+def test_cli_runs_int8_extraction(runs, cli, monkeypatch, tmp_path, one_torch_thread):
+    """``--quantize int8 --calib_batches 2``: one int8 extractor a model,
+    pooling and split in fusion (12; the 8 queries are one batch of 16, the
+    24 gallery images two, so 18 calibration batches), one a model in
+    ensemble (2, each calibrated on the queries' one batch); the same tags
+    as the float32 run, and every ranked distmat within 1e-2 of its float32
+    counterpart (int8 against float32 embeddings; measured at most 2.3e-3)."""
+    from daliid_tpu_torch.eval.features import FeatureExtractor
+
+    calibrations = []  # the extractor of each calibration batch (kept alive)
+    calibrate = FeatureExtractor.calibrate
+
+    def counting(self, images_u8, camera_ids=None, rebuild=True):
+        calibrations.append(self)
+        return calibrate(self, images_u8, camera_ids, rebuild)
+
+    _tiny_registries(monkeypatch)
+    monkeypatch.setattr(FeatureExtractor, "calibrate", counting)
+    log = []
+    monkeypatch.setattr(port_validate.Validator, "rank",
+                        _recording(port_validate.Validator.rank, log))
+    monkeypatch.chdir(tmp_path)
+    mod = port_fusion_cli if cli == "fusion" else port_ensemble
+    results = mod.main(mod.build_argparser().parse_args(
+        runs["argv"][cli] + ["--device", "cpu", "--quantize", "int8", "--calib_batches", "2"]))
+    _, log_fp, _ = runs["port", cli]
+    assert list(results) == list(runs["port", cli][0])
+    assert len({id(e) for e in calibrations}) == (12 if cli == "fusion" else 2)
+    assert len(calibrations) == (18 if cli == "fusion" else 2)
+    assert all(e.quantize == "int8" and e._calib_final for e in calibrations)
+    for (d_q, _, _), (d_f, _, _) in zip(log, log_fp):
+        np.testing.assert_allclose(d_q, d_f, rtol=0, atol=1e-2)
 
 
 def test_pooling_switch_leaves_the_shared_module_alone():

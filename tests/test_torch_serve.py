@@ -357,9 +357,98 @@ def test_evaluate_cli_matches_jax(world, capsys):
     assert cmc_p.shape == (50,)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the int8 CPU path's many small ops: beside
+    the other workers of a parallel test run, OpenMP's eight threads a
+    worker oversubscribe the cores and an int8 CLI run takes minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _tiny_registries(mp):
+    mp.setitem(jax_factory.MODEL_REGISTRY, "resnet50",
+               lambda dtype=jnp.float32, **kw: (FlaxResNet(stage_sizes=STAGES, dtype=dtype), 2048))
+    mp.setitem(port_factory.MODEL_REGISTRY, "resnet50",
+               lambda dtype, **kw: (ResNet50ReID(stage_sizes=STAGES, dtype=dtype), 2048))
+    mp.setattr(jax_native_loader, "native_loader_available", lambda: False)
+    mp.setattr(port_native_loader, "native_loader_available", lambda: False)
+
+
+def test_evaluate_cli_int8_matches_jax(world, one_torch_thread):
+    """``--quantize int8 --calib_batches 2`` (the query split's 32 images are
+    two batches of 16): both packages calibrate on the same images and rank
+    with int8 embeddings; R1 and mAP within one query's weight, as in the
+    float32 case (measured on the CPU: R1 1.0 in both, mAP 0.9741319444
+    against 0.9741319418, the JAX package's float32 AP sum)."""
+    common = ["--targets", "Synthetic", "--data_root", world["root"], "--model_name", "resnet50",
+              "--model_path", world["weights"], "--img_height", str(IMG[0]),
+              "--img_width", str(IMG[1]), "--batch_size", "16", "--compute_dtype", "float32",
+              "--quantize", "int8", "--calib_batches", "2"]
+    with pytest.MonkeyPatch.context() as mp:
+        _tiny_registries(mp)
+        cmc_p, map_p = port_evaluate.main(
+            port_evaluate.build_argparser().parse_args(common + ["--device", "cpu"]))["Synthetic"]
+        cmc_j, map_j = jax_evaluate.main(jax_evaluate.build_argparser().parse_args(common))["Synthetic"]
+    one_query = 1.0 / len(world["splits"]["query"])
+    assert abs(float(cmc_p[0]) - float(cmc_j[0])) <= one_query
+    assert abs(map_p - float(map_j)) <= one_query
+
+
+def test_search_cli_int8_matches_jax(world, one_torch_thread):
+    """``search --quantize int8 --index_quantize int8``: the int8 extractor
+    (calibrated on the gallery's first batch, then used for the probes) and
+    the SQ8 index; the same top-1 identities and top-5 similarities within
+    1e-3 (the int8 embeddings of the two packages differ within float32
+    summation order, which a quantize can follow by one step)."""
+    from daliid_tpu.cli import search as jax_search
+    from daliid_tpu_torch.cli import search as port_search
+
+    common = ["--dataset", "Synthetic", "--data_root", world["root"], "--model_name", "resnet50",
+              "--model_path", world["weights"], "--img_height", str(IMG[0]),
+              "--img_width", str(IMG[1]), "--batch_size", "16", "--compute_dtype", "float32",
+              "--quantize", "int8", "--index_quantize", "int8", "--topk", "5"]
+    with pytest.MonkeyPatch.context() as mp:
+        _tiny_registries(mp)
+        sims_p, _, pids_p = port_search.main(
+            port_search.build_argparser().parse_args(common + ["--device", "cpu"]))
+        sims_j, _, pids_j = jax_search.main(jax_search.build_argparser().parse_args(common))
+    np.testing.assert_array_equal(pids_p[:, 0], np.asarray(pids_j)[:, 0])
+    np.testing.assert_allclose(sims_p, np.asarray(sims_j), atol=1e-3, rtol=0)
+
+
+def test_serve_int8_extractor_answers_like_jax(world, tmp_path, one_torch_thread):
+    """A daemon whose extractor is int8 (``serve --quantize int8``): the first
+    request by path calibrates it; enroll and search by path against the
+    JAX daemon with its int8 extractor: the same top-1 identities,
+    similarities within 1e-3."""
+    bundle = port_evaluate.load_bundle("resnet50", world["weights"], IMG, torch.float32, "cpu")
+    port_q = FeatureExtractor(bundle, img_size=IMG, batch_size=16, device="cpu",
+                              quantize="int8")
+    jax_q = JaxExtractor(world["jax_extractor"].bundle, img_size=IMG, batch_size=16,
+                         quantize="int8")
+    flags = ["--port", "0", "--index_quantize", "int8", "--data_dir", str(tmp_path)]
+    ps, pt, pc = _start(port_serve, flags + ["--device", "cpu", "--quantize", "int8"], port_q)
+    js, jt, jc = _start(jax_serve, flags + ["--quantize", "int8"], jax_q)
+    try:
+        gallery, query = world["splits"]["gallery"], world["splits"]["query"]
+        rp, rj = _both((pc, jc), {"op": "enroll", "paths": [str(p) for p in gallery.paths],
+                                  "pids": gallery.pids.tolist()})
+        assert rp == rj and port_q.quant_scales is not None and port_q._calib_final
+        rp, rj = _both((pc, jc), {"op": "search", "paths": [str(p) for p in query.paths],
+                                  "topk": 5})
+        np.testing.assert_array_equal(np.asarray(rp["pids"])[:, 0], np.asarray(rj["pids"])[:, 0])
+        np.testing.assert_allclose(rp["sims"], rj["sims"], atol=1e-3, rtol=0)
+    finally:
+        _stop(ps, pt, pc)
+        _stop(js, jt, jc)
+
+
 def test_evaluate_cli_rejects_unported_flags(world):
     parse = port_evaluate.build_argparser().parse_args
-    for extra in (["--quantize", "int8"], ["--calib_batches", "2"],
-                  ["--turbulence_dir_path", "x"]):
+    for extra in (["--turbulence_dir_path", "x"], ["--queries_file_path", "x"],
+                  ["--multihost"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             port_evaluate.main(parse(["--targets", "Synthetic", "--device", "cpu", *extra]))

@@ -440,6 +440,98 @@ def test_resume_is_bit_equal_to_an_uninterrupted_run(synth, flax_variables, tmp_
         np.testing.assert_array_equal(v, resumed.rng_state()[k])
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the int8 CPU path's many small ops: beside
+    the other workers of a parallel test run, OpenMP's eight threads a
+    worker oversubscribe the cores and an int8 CLI run takes minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_int8_mining_extractor_matches_the_jax_one(synth, flax_variables, monkeypatch,
+                                                   one_torch_thread):
+    """``mining_quantize='int8'``: a separate extractor on its own copy of the
+    model (validation keeps the float32 one) re-embeds the train table like
+    the JAX package's int8 extractor on the same weights (cosine > 0.9999:
+    the int8 embeddings of the two packages differ within float32 summation
+    order, which a quantize can follow by one step), and the next epoch's
+    weights drop its scales."""
+    import daliid_tpu.data.native_loader as jax_native
+    import daliid_tpu_torch.data.native_loader as port_native
+    from daliid_tpu.eval.features import FeatureExtractor as JaxExtractor
+
+    monkeypatch.setattr(jax_native, "native_loader_available", lambda: False)
+    monkeypatch.setattr(port_native, "native_loader_available", lambda: False)
+    module, variables = flax_variables
+    tr = _port_trainer(synth, variables, mining_quantize="int8", mining_calib_batches=2)
+    mining = tr._mining_extractor
+    assert tr.extractor.quantize is None and mining.quantize == "int8"
+    assert mining.bundle.module is not tr.extractor.bundle.module
+    tr.mine_proxies()
+    assert mining._calib_final and tr.extractor.quant_scales is None
+    got = mining.extract(tr.sampler.table)
+    want = JaxExtractor(JaxBundle(module=module, variables=variables, feature_dim=2048,
+                                  name="tiny"), img_size=IMG, batch_size=16, quantize="int8",
+                        calib_batches=2).extract([str(p) for p in tr.sampler.table.paths])
+    cos = (got * want).sum(1) / np.linalg.norm(got, axis=1) / np.linalg.norm(want, axis=1)
+    assert got.shape == want.shape and cos.min() > 0.9999
+    tr.train_epoch(1)  # mines again with the new weights: the scales are recalibrated
+    assert mining._calib_final and mining.quant_scales is not None
+
+
+def test_train_cli_mining_quantize_int8_keeps_validation_in_float(tmp_path, monkeypatch,
+                                                                 one_torch_thread):
+    """``train --mining_quantize int8 --mining_calib_batches 2`` for two tiny
+    epochs with validation each epoch: every calibration is the mining
+    extractor's, once an epoch (its scales dropped by the new weights), and
+    no validation forward runs an int8 layer."""
+    from daliid_tpu_torch.cli import train
+    from daliid_tpu_torch.eval.features import FeatureExtractor
+    from daliid_tpu_torch.ops import quantize as q8
+
+    monkeypatch.setitem(port_factory.MODEL_REGISTRY, "resnet50",
+                        lambda dtype=torch.float32, **kw: (
+                            ResNet50ReID(stage_sizes=STAGES, dtype=dtype), 2048))
+    finals, planned = [], []
+    finalize = FeatureExtractor._finalize_calibration
+    quantized = q8.quantized
+
+    def spy_finalize(self):
+        finals.append(self)
+        return finalize(self)
+
+    def spy_quantized(module, plan):
+        planned.append(len(plan))
+        return quantized(module, plan)
+
+    monkeypatch.setattr(FeatureExtractor, "_finalize_calibration", spy_finalize)
+    monkeypatch.setattr(q8, "quantized", spy_quantized)
+    # 4 identities x 2 train images: one paired step an epoch
+    make_synthetic_dataset(str(tmp_path / "data" / "Synthetic"), num_ids=4, imgs_per_id_train=2,
+                           imgs_per_id_test=2, height=IMG[0], width=IMG[1])
+    args = train.build_argparser().parse_args(
+        ["--device", "cpu", "--dataset", "Synthetic", "--data_root", str(tmp_path / "data"),
+         "--img_height", str(IMG[0]), "--img_width", str(IMG[1]), "--P", "4", "--K", "2",
+         "--epochs", "2", "--eval_freq", "1", "--compute_dtype", "float32",
+         "--extractor_batch", "16", "--mining_quantize", "int8", "--mining_calib_batches", "2",
+         "--skip_initial_eval", "--path_to_save_models", str(tmp_path / "ckpt"),
+         "--path_to_save_metrics", str(tmp_path / "metrics")])
+    train.main(args)
+    assert len(finals) == 2 and all(e.quantize == "int8" for e in finals)
+    assert finals[0] is finals[1]
+    # mining forwards run 17 int8 layers; every validation forward none
+    assert planned.count(17) > 0 and planned.count(0) > 0
+    assert set(planned) == {0, 17}
+    import json
+
+    progress = json.loads((tmp_path / "metrics" / "progress_resnet50_v0.json").read_text())
+    assert [p["epoch"] for p in progress] == [1, 2]
+    assert all(np.isfinite(p["loss"]) for p in progress)
+
+
 def test_checkpoint_manager_keeps_the_best_or_the_newest(tmp_path):
     state = {"w": torch.arange(3.0)}
     best = ckpt_mod.CheckpointManager(str(tmp_path / "best"), max_to_keep=2)
@@ -503,8 +595,7 @@ def test_train_cli_rejects_unported_flags(tmp_path):
     from daliid_tpu_torch.cli import train
 
     # the head and SIE flags are ported (their refusals: test_torch_train_vit.py)
-    for flags in (["--mining_quantize", "int8"], ["--mining_calib_batches", "2"],
-                  ["--remat", "full"], ["--fault_inject_epoch", "1"], ["--multihost"]):
+    for flags in (["--remat", "full"], ["--fault_inject_epoch", "1"], ["--multihost"]):
         args = train.build_argparser().parse_args(["--dataset", "Synthetic", *flags])
         with pytest.raises(SystemExit, match="not yet ported"):
             train.main(args)
