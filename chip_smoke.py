@@ -6,7 +6,9 @@ Phases, in order; any failed check exits non-zero and prints no result:
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
    build every ``daliid_tpu_torch/csrc/*.cu`` with nvcc (one process per
    source, in parallel) and print each kernel's registers, static shared
-   memory and spills from ``-Xptxas=-v``; build the native JPEG loader
+   memory and spills from ``-Xptxas=-v``; check that ``cuobjdump -sass`` of
+   conv_int8's library shows warpgroup MMA (IGMMA) in every implicit-GEMM
+   kernel; build the native JPEG loader
    (``g++``, libjpeg) and print which decoder the host path takes, with the
    compiler's message if the build failed; generate the synthetic set (100
    identities).
@@ -44,15 +46,19 @@ Phases, in order; any failed check exits non-zero and prints no result:
 9. K4 ``flash_attention`` against its plain version on the card (f32 within
    2e-5, bf16 within one bf16 ulp, at the JPM, ViT-B and vit_small shapes
    and ragged small ones) and its backward (3e-5, f32).
-9b. ``conv_int8`` against its plain version on the card (im2col and one
-    float64 product, or the depthwise taps summed in int32: exact integer
-    sums, no cuDNN) at the zoo's convolution
-    shapes at batch 512, read from the models' forwards at 256x128:
-    ResNet-50's 7x7/2 stem (C = 3), a 1x1, a strided 3x3 and layer4's 3x3 at
-    C = 512, DenseNet-121's 3x3 at C = 128, Inception-V3's 1x7 and 7x1,
-    OSNet's depthwise 3x3 and EfficientNet-B0's depthwise 5x5/2, and three
-    small ragged cases (C = 5 and 24, byte gathers; a depthwise C = 30);
-    int32, f32 and bf16 outputs, with and without bias, all bit-equal.
+9b. ``conv_int8`` against its plain version on the card (``quantize_sym``,
+    then im2col and one float64 product, or the depthwise taps summed in
+    int32: exact integer sums, no cuDNN) at the zoo's convolution shapes at
+    batch 512, read from the models' forwards at 256x128: ResNet-50's 7x7/2
+    stem (C = 3), a 1x1, a strided 3x3 and layer4's 3x3 at C = 512,
+    DenseNet-121's 3x3 at C = 128, Inception-V3's 1x7 and 7x1, OSNet's
+    depthwise 3x3 and EfficientNet-B0's depthwise 5x5/2, and small ragged
+    cases (C = 5, C = 24 through both groups == 1 routes, a 3x3 whose input
+    window exceeds shared memory, a depthwise C = 30); bf16 and f32 inputs
+    (the kernel quantizes them in its loads; values over +-1.2 * 127 * s_in
+    with exact half-way points planted) and int8 inputs; int32, f32 and bf16
+    outputs, with and without bias, all bit-equal. Then the quantize alone
+    on every bf16 value and every f32 bit pattern but NaN at three scales.
 10. transformer evaluate: JPM and ViT-B through ``load_bundle(...,
     use_fused_attention=True)``, K4 16 and 12 launches a forward; the K4 and
     SDPA routes agree within 1e-3 in f32.
@@ -127,10 +133,14 @@ Phases, in order; any failed check exits non-zero and prints no result:
     ``densenet121`` train step (ms, img/s, peak memory); ``re_ranking`` at
     Market-1501's shape (ms, peak memory above its inputs); the re-ranked
     search of 200 probes over 400 SQ8 rows at depth 64; conv_int8 at each
-    shape of 9b (bf16 out) against its bound, its plain version, the
-    im2col + ``torch._int_mm`` route (groups = 1) and cuDNN's bf16
-    convolution; int8 against bf16 extraction at batch 512 (ResNet-50, the
-    four zoo families, ViT-B with K4; peak memory).
+    shape of 9b on the bf16 input (bf16 out) against its bound, its plain
+    version, the ``quantize_sym`` + im2col + ``torch._int_mm`` route
+    (groups = 1), cuDNN's bf16 convolution and itself on the int8 input; a
+    ``torch.profiler`` pass over the int8 ResNet-50 forward at batch 512
+    (conv_int8's device time against the rest; 53 launches; no
+    ``aten::round`` / ``aten::clamp``); int8 against bf16 extraction at
+    batch 512 (ResNet-50, the four zoo families, ViT-B with K4; peak
+    memory).
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. Counts of launches are set to 0 just
@@ -142,10 +152,12 @@ search and each int8 phase and read just after.
 Run from the repository root: ``python3 chip_smoke.py``. The kernels,
 the synthetic sets, the saved index and the checkpoints go under ``build/``.
 ``python3 chip_smoke.py --compare <dir>`` instead times K2 (Market-like
-table, P = 48, the evaluate path's P, ``max_positives_bound``'s P) and K1
-(the train shape, bf16) of this tree and of the tree unpacked at ``<dir>``
-(for example the parent commit's ``git archive``) on one card, in turns:
-parent, this, this, parent.
+table, P = 48, the evaluate path's P, ``max_positives_bound``'s P), K1
+(the train shape, bf16), ``_QuantConv(conv, absmax)(x)`` on a bf16 batch
+of 512 at each conv shape of 9b and the int8 ResNet-50 forward at batch 512
+of this tree and of the tree unpacked at ``<dir>`` (for example the parent
+commit's ``git archive``) on one card, in turns: parent, this, this,
+parent.
 """
 
 from __future__ import annotations
@@ -243,15 +255,40 @@ def phase_device(torch):
             log(f"ptxas {name}: {kernel}: {r['registers']} registers, {r['static_smem']} bytes "
                 f"static shared memory, spill stores {r['spill_stores']} / loads "
                 f"{r['spill_loads']} bytes")
+    check_warpgroup_mma(libs["conv_int8"])
     return card, dev, ptxas
+
+
+def check_warpgroup_mma(lib) -> None:
+    """conv_int8's implicit GEMM issues warpgroup MMA: the SASS of its
+    library (``cuobjdump -sass``) holds IGMMA, Hopper's int8 ``wgmma``, in
+    every conv_wgmma kernel."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    kernels, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            kernels[name] = 0
+        elif name is not None and "IGMMA" in line:
+            kernels[name] += 1
+    gemm = {k: n for k, n in kernels.items() if "conv_wgmma" in k}
+    check(len(gemm) > 0 and all(n > 0 for n in gemm.values()),
+          f"cuobjdump -sass shows no IGMMA in some conv_wgmma kernel: {gemm}")
+    log(f"cuobjdump -sass {Path(lib).name}: IGMMA in all {len(gemm)} conv_wgmma kernels "
+        f"({sum(gemm.values())} instructions, {min(gemm.values())} to {max(gemm.values())} a "
+        f"kernel)")
 
 
 def ptxas_report(text: str) -> dict:
     """``nvcc -Xptxas=-v`` output → {kernel: registers, static shared
     memory and spill bytes}. Kernels of the anonymous namespace are named
     ``name<template arguments>`` (``topk_pass1<1>`` is SQ8,
-    ``fused_augment_kernel<__nv_bfloat16>`` K1's bf16 output); dynamic shared
-    memory is set at launch and does not show here."""
+    ``fused_augment_kernel<__nv_bfloat16>`` K1's bf16 output,
+    ``conv_wgmma<__nv_bfloat16,256,0,2>`` conv_int8's gathering implicit
+    GEMM at 256 output channels a tile, two consumer warpgroups); dynamic shared memory is set at launch
+    and does not show here."""
     import re
 
     def name(mangled: str) -> str:
@@ -266,12 +303,12 @@ def ptxas_report(text: str) -> dict:
         rest = mangled[pos:]
         if not rest.startswith("I"):
             return last
-        # template arguments: f / i (float / int), <length><name> (a class),
+        # template arguments: f / i / a (float / int / int8_t), <length><name> (a class),
         # L<i|b><value>E (an int or bool value)
         args, i = [], 1
         while i < len(rest) and rest[i] != "E":
-            if rest[i] in "fi":
-                args.append("float" if rest[i] == "f" else "int")
+            if rest[i] in "fia":
+                args.append({"f": "float", "i": "int", "a": "int8_t"}[rest[i]])
                 i += 1
             elif (m := re.match(r"L[ib](\d+)E", rest[i:])):
                 args.append(m.group(1))
@@ -1322,13 +1359,23 @@ CONV_LAYERS = [("resnet50", "conv1"), ("resnet50", "layer1.1.conv1"),
                ("osnet", "conv2.0.conv2a.conv2"), ("efficientnetB0", "features.3.0.block.1.0")]
 # the shape whose times stand in the kernels line
 CONV_MAIN = ("resnet50", "layer4.0.conv2")
-# small ragged cases beside them: C not a multiple of 16 (byte gathers; C
-# = 24 as in EfficientNet-B0) and a depthwise C not a multiple of 4
+# small ragged cases beside them: C = 5 (the staged window, channels padded
+# to 8), C = 24 (8-channel pieces that do not fill 16 bytes of int8, as in
+# EfficientNet-B0) through both routes of groups == 1 (a strided 1x1 takes
+# the gathering one), a 3x3 whose window does not fit in shared memory (the
+# gathering route), and a depthwise C not a multiple of 8 (element loads)
 RAGGED_CONVS = {
     ("ragged", "3x3 C=5"): {"C": 5, "H": 9, "W": 7, "O": 6, "kernel": (3, 3), "stride": (1, 1),
                             "padding": (1, 1), "groups": 1, "batch": 3},
     ("ragged", "1x7 C=24"): {"C": 24, "H": 9, "W": 8, "O": 40, "kernel": (1, 7),
                              "stride": (1, 1), "padding": (0, 3), "groups": 1, "batch": 3},
+    ("ragged", "1x1 C=24"): {"C": 24, "H": 5, "W": 7, "O": 40, "kernel": (1, 1),
+                             "stride": (1, 1), "padding": (0, 0), "groups": 1, "batch": 3},
+    ("ragged", "1x1/2 C=24"): {"C": 24, "H": 9, "W": 7, "O": 40, "kernel": (1, 1),
+                               "stride": (2, 2), "padding": (0, 0), "groups": 1, "batch": 3},
+    ("ragged", "3x3 C=1024 wide"): {"C": 1024, "H": 4, "W": 64, "O": 64, "kernel": (3, 3),
+                                    "stride": (1, 1), "padding": (1, 1), "groups": 1,
+                                    "batch": 2},
     ("ragged", "depthwise 5x5/2 C=30"): {"C": 30, "H": 7, "W": 5, "O": 30, "kernel": (5, 5),
                                          "stride": (2, 2), "padding": (2, 2), "groups": 30,
                                          "batch": 3},
@@ -1369,17 +1416,29 @@ def conv_shapes(torch, dev) -> dict:
     return out
 
 
-def _conv_inputs(torch, dev, geo, batch: int, seed: int):
+def _conv_inputs(torch, dev, geo, batch: int, seed: int, dtype=None, s_in: float = 0.0123):
+    """(x, wq, s_w, bias) at ``geo``: x int8 codes, or (``dtype`` bf16 or
+    f32) values spread over +-1.2 * 127 * s_in, a third of them exact
+    half-way points (k + 0.5) * s_in, channels_last."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     kh, kw = geo["kernel"]
-    xq = torch.randint(-127, 128, (batch, geo["C"], geo["H"], geo["W"]), generator=gen,
-                       device=dev, dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+    shape = (batch, geo["C"], geo["H"], geo["W"])
+    if dtype is None:
+        x = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    else:
+        s_t = torch.full((), s_in, dtype=torch.float32, device=dev)
+        x = (torch.rand(shape, generator=gen, device=dev) * 2.4 - 1.2) * 127 * s_t
+        flat = x.view(-1)
+        n = flat.numel() // 3
+        flat[:n] = (torch.randint(-128, 128, (n,), generator=gen, device=dev).float() + 0.5) * s_t
+        x = x.to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
     wq = torch.randint(-127, 128, (geo["O"], kh, kw, geo["C"] // geo["groups"]), generator=gen,
                        device=dev, dtype=torch.int8)
     s_w = (torch.rand((geo["O"],), generator=gen, device=dev) + 0.5) / 127.0 / 64
     bias = torch.randn((geo["O"],), generator=gen, device=dev)
-    return xq, wq, s_w, bias
+    return x, wq, s_w, bias
 
 
 def _geo_str(key, geo) -> str:
@@ -1390,33 +1449,85 @@ def _geo_str(key, geo) -> str:
             f"groups {geo['groups']}")
 
 
+# scales of the exhaustive quantize check: a calibrated-looking one, one
+# whose reciprocal is inexact, a power of two
+QUANT_SCALES = (0.0123, 1.0 / 3.0, 2.0 ** -5)
+
+
+def _check_quantize_exhaustive(torch, dev) -> None:
+    """The kernel's quantize on every bf16 value and every f32 bit pattern
+    (NaN aside: its code is not defined) against ``quantize_sym``, through a
+    1x1 convolution with identity weights (int32 out: each output is the
+    input's code), 2^28 values a launch."""
+    from daliid_tpu_torch.ops.conv_int8 import conv_int8, quantize_sym
+
+    eye = torch.eye(8, dtype=torch.int8, device=dev).view(8, 1, 1, 8)
+    ones = torch.ones(8, device=dev)
+    for s in QUANT_SCALES:
+        s_t = torch.full((), s, dtype=torch.float32, device=dev)
+        s = float(s_t)
+        bf = torch.arange(-32768, 32768, device=dev, dtype=torch.int32).to(torch.int16).view(
+            torch.bfloat16)
+        got = conv_int8(bf.view(1, 8192, 1, 8).permute(0, 3, 1, 2), eye, 1, 0, 1, s, ones, None,
+                        torch.int32).permute(0, 2, 3, 1).reshape(-1)
+        keep = ~torch.isnan(bf.float())
+        bad_bf = int((got[keep] != quantize_sym(bf, s_t).int()[keep]).sum())
+        bad, chunk = 0, 1 << 28
+        for i in range((1 << 32) // chunk):
+            bits = torch.arange(i * chunk, (i + 1) * chunk, device=dev, dtype=torch.int64)
+            flat = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32).view(
+                torch.float32)
+            del bits
+            got = conv_int8(flat.view(1, 1 << 13, chunk >> 16, 8).permute(0, 3, 1, 2), eye, 1, 0,
+                            1, s, ones, None, torch.int32).permute(0, 2, 3, 1).reshape(-1)
+            keep = ~torch.isnan(flat)
+            bad += int((got[keep] != quantize_sym(flat, s_t).int()[keep]).sum())
+            del flat, got, keep
+        check(bad == 0 and bad_bf == 0, f"conv_int8's quantize differs from quantize_sym at "
+                                        f"s_in {s!r}: {bad_bf} bf16 and {bad} f32 values")
+    log(f"conv_int8's quantize equals quantize_sym on all 65,536 bf16 values and all 2^32 f32 "
+        f"bit patterns but NaN, at s_in {[float(torch.tensor(s)) for s in QUANT_SCALES]}")
+
+
 def phase_conv_int8(torch, dev, shapes) -> float:
     """conv_int8 against its plain version at each of ``CONV_LAYERS``' shapes
-    at batch 512 and at ``RAGGED_CONVS``: the int32 sum and the f32 and bf16
-    outputs, with and
+    at batch 512 and at ``RAGGED_CONVS``, on bf16 and f32 inputs (the
+    kernel's quantize against ``quantize_sym``, half-way points planted) and
+    on int8 inputs: the int32 sum and the f32 and bf16 outputs, with and
     without bias, equal bit for bit. The plain sum is im2col and a float64
     product (or, depthwise, int32 taps), so every partial sum is an exact
-    integer."""
-    from daliid_tpu_torch.ops.conv_int8 import conv_int8, conv_int32_plain, dequantize_plain
+    integer. Then the quantize alone, exhaustively."""
+    from daliid_tpu_torch.ops.conv_int8 import (
+        conv_int8,
+        conv_int32_plain,
+        dequantize_plain,
+        kernel_plan,
+        quantize_sym,
+    )
 
     s_in = 0.0123
+    s_t = torch.full((), s_in, dtype=torch.float32, device=dev)
     for i, (key, geo) in enumerate({**shapes, **RAGGED_CONVS}.items()):
-        xq, wq, s_w, bias = _conv_inputs(torch, dev, geo, geo.get("batch", EXTRACT_BATCH),
-                                         seed=30 + i)
         args = (geo["stride"], geo["padding"], geo["groups"])
-        acc = conv_int32_plain(xq, wq, *args)
-        for out_dtype in (torch.int32, torch.float32, torch.bfloat16):
-            for b in (None, bias):
-                got = conv_int8(xq, wq, *args, s_in, s_w, b, out_dtype)
-                want = dequantize_plain(acc, s_in, s_w, b, out_dtype)
-                torch.cuda.synchronize(dev)
-                check(got.shape == want.shape and torch.equal(got, want),
-                      f"conv_int8 differs from its plain version at {_geo_str(key, geo)}, "
-                      f"{out_dtype}, bias {b is not None}: max |diff| "
-                      f"{float((got.float() - want.float()).abs().max())}")
-        log(f"conv_int8 {_geo_str(key, geo)}: int32, f32 and bf16 (bias on and off) equal to "
-            f"the plain version, |acc| max {int(acc.abs().max())}")
-        del xq, wq, acc
+        batch = geo.get("batch", EXTRACT_BATCH)
+        plan = kernel_plan((batch, geo["C"], geo["H"], geo["W"]),
+                           (geo["O"], *geo["kernel"], geo["C"] // geo["groups"]), *args)
+        for dtype in (torch.bfloat16, torch.float32, None):
+            x, wq, s_w, bias = _conv_inputs(torch, dev, geo, batch, seed=30 + i, dtype=dtype)
+            acc = conv_int32_plain(x if dtype is None else quantize_sym(x, s_t), wq, *args)
+            for out_dtype in (torch.int32, torch.float32, torch.bfloat16):
+                for b in (None, bias):
+                    got = conv_int8(x, wq, *args, s_in, s_w, b, out_dtype)
+                    want = dequantize_plain(acc, s_in, s_w, b, out_dtype)
+                    torch.cuda.synchronize(dev)
+                    check(got.shape == want.shape and torch.equal(got, want),
+                          f"conv_int8 differs from its plain version at {_geo_str(key, geo)}, "
+                          f"{x.dtype} in, {out_dtype} out, bias {b is not None}: max |diff| "
+                          f"{float((got.float() - want.float()).abs().max())}")
+            del x, wq, acc
+        log(f"conv_int8 {_geo_str(key, geo)} ({plan}): bf16, f32 and int8 in; int32, f32 and "
+            f"bf16 out (bias on and off) equal to quantize_sym + the plain version")
+    _check_quantize_exhaustive(torch, dev)
     return 0.0
 
 
@@ -1922,13 +2033,17 @@ def _time_k1(torch, dev):
                    "f32", err)
 
 
-def kernel_times(torch, root: str, ps) -> dict:
-    """K2 on the Market-like table at each P of ``ps`` and K1 at the train
-    shape in bf16, through the kernels of the tree at ``root`` (imported in
-    a process of its own: every tree's package is ``daliid_tpu_torch``)."""
+def kernel_times(torch, root: str, ps, conv_geos) -> dict:
+    """K2 on the Market-like table at each P of ``ps``, K1 at the train
+    shape in bf16, ``_QuantConv(conv, absmax)(x)`` on a bf16 batch of 512
+    at each geometry of ``conv_geos`` ({name: geometry}) and the int8
+    ResNet-50 forward at batch 512, through the tree at ``root`` (imported
+    in a process of its own: every tree's package is ``daliid_tpu_torch``;
+    both trees have these constructors)."""
     sys.path.insert(0, root)
     from daliid_tpu_torch.metrics.ranking import _positive_prologue, positive_columns
     from daliid_tpu_torch.ops.fused_augment import draw_scalars, fused_augment
+    from daliid_tpu_torch.ops.quantize import _QuantConv
     from daliid_tpu_torch.ops.rank_counts import positive_rank_counts
 
     dev = torch.device("cuda")
@@ -1947,13 +2062,29 @@ def kernel_times(torch, root: str, ps) -> dict:
     scal = draw_scalars(b, h, w, pad, 0.4, 0.3, 0.4, (0.05, 0.30), (0.3, 3.3), gen).to(dev)
     out["fused_augment bf16"] = cuda_ms(
         torch, lambda: fused_augment(images, scal, pad, torch.bfloat16), reps=100)
+    for i, (name, geo) in enumerate(conv_geos.items()):
+        torch.manual_seed(70 + i)
+        conv = torch.nn.Conv2d(geo["C"], geo["O"], tuple(geo["kernel"]), tuple(geo["stride"]),
+                               tuple(geo["padding"]), groups=geo["groups"], bias=False).to(dev)
+        x = _conv_inputs(torch, dev, geo, EXTRACT_BATCH, seed=80 + i, dtype=torch.bfloat16)[0]
+        layer = _QuantConv(conv, float(x.abs().max()))
+        out[f"_QuantConv {name}"] = cuda_ms(torch, lambda: layer(x), reps=10, warmup=2)
+        del conv, x, layer
+    module, x, plan, q8 = _resnet50_int8(torch, dev)
+
+    def fwd():
+        with torch.inference_mode(), q8.quantized(module, plan):
+            return module(x)
+
+    out["resnet50 int8 forward at 512"] = cuda_ms(torch, fwd, reps=10, warmup=3)
     return out
 
 
-def compare(parent_root: str) -> dict:
-    """K2 and K1 of this tree against the tree at ``parent_root`` on one
-    card, in turns (parent, this, this, parent), each tree in its own
-    process that builds its own kernels → {tree: [times, times]}."""
+def compare(parent_root: str, conv_geos: dict) -> dict:
+    """K2, K1, ``_QuantConv`` at ``conv_geos`` and the int8 ResNet-50
+    forward of this tree against the tree at ``parent_root`` on one card,
+    in turns (parent, this, this, parent), each tree in its own process
+    that builds its own kernels → {tree: [times, times]}."""
     from daliid_tpu_torch.metrics.ranking import max_positives_bound, queried_positives_bound
 
     q_pids, g_pids, _, _ = market_ids()
@@ -1963,7 +2094,8 @@ def compare(parent_root: str) -> dict:
                        ("parent", parent_root)):
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--kernel-times", root,
-             ",".join(map(str, ps))], capture_output=True, text=True, timeout=600)
+             ",".join(map(str, ps)), json.dumps(conv_geos)], capture_output=True, text=True,
+            timeout=900)
         check(proc.returncode == 0, f"kernel times of {root} failed:\n{proc.stdout[-3000:]}"
                                     f"{proc.stderr[-3000:]}")
         times = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -2322,27 +2454,43 @@ def _time_rerank(torch, dev) -> dict:
 
 
 def _time_conv_int8(torch, dev, shapes) -> dict:
-    """conv_int8 (bf16 out, no bias: the path's convolutions feed a BN) at
-    each of ``CONV_LAYERS``' shapes at batch 512, against its bound, its
-    plain version, the im2col + ``torch._int_mm`` route (groups =
-    1; its int32 held equal to the kernel's) and cuDNN's bf16 convolution of
-    the same shape (context); → {(model, layer): timing}."""
+    """conv_int8 on the layer's bf16 input (bf16 out, no bias: the path's
+    convolutions feed a BN) at each of ``CONV_LAYERS``' shapes at batch 512,
+    weights packed once as the path packs them, against its bound (the bf16
+    input, the int8 weights, the scales and the output once each, or the
+    int8 operations), its plain version (``quantize_sym`` and the exact
+    sum), the route of PyTorch calls ``quantize_sym`` + im2col +
+    ``torch._int_mm`` (groups = 1; its int32 held equal to the kernel's),
+    cuDNN's bf16 convolution of the same shape (context), and the kernel on
+    the input already quantized to int8; → {(model, layer): timing}."""
     import torch.nn.functional as F
 
-    from daliid_tpu_torch.ops.conv_int8 import conv_int8, conv_int8_plain
+    from daliid_tpu_torch.ops.conv_int8 import (
+        conv_int8,
+        conv_int8_plain,
+        kernel_plan,
+        pack_weights,
+        quantize_sym,
+    )
 
     s_in = 0.0123
+    s_t = torch.full((), s_in, dtype=torch.float32, device=dev)
     out = {}
     for i, (key, geo) in enumerate(shapes.items()):
-        xq, wq, s_w, _ = _conv_inputs(torch, dev, geo, EXTRACT_BATCH, seed=60 + i)
+        x, wq, s_w, _ = _conv_inputs(torch, dev, geo, EXTRACT_BATCH, seed=60 + i,
+                                     dtype=torch.bfloat16)
         kh, kw = geo["kernel"]
         args = (geo["stride"], geo["padding"], geo["groups"])
         k = kh * kw * geo["C"] // geo["groups"]
-        ms = cuda_ms(torch, lambda: conv_int8(xq, wq, *args, s_in, s_w, None, torch.bfloat16),
-                     reps=20, warmup=3)
-        plain_ms = cuda_ms(torch, lambda: conv_int8_plain(xq, wq, *args, s_in, s_w, None,
+        wp = pack_weights(wq, geo["groups"])
+        ms = cuda_ms(torch, lambda: conv_int8(x, wq, *args, s_in, s_w, None, torch.bfloat16,
+                                              w_packed=wp), reps=20, warmup=3)
+        plain_ms = cuda_ms(torch, lambda: conv_int8_plain(x, wq, *args, s_in, s_w, None,
                                                           torch.bfloat16), reps=2, warmup=1)
-        y = conv_int8(xq, wq, *args, s_in, s_w, None, torch.int32)
+        xq = quantize_sym(x, s_t).contiguous(memory_format=torch.channels_last)
+        int8_in_ms = cuda_ms(torch, lambda: conv_int8(xq, wq, *args, s_in, s_w, None,
+                                                      torch.bfloat16, w_packed=wp), reps=20)
+        y = conv_int8(x, wq, *args, s_in, s_w, None, torch.int32, w_packed=wp)
         n_b, o, ho, wo = y.shape
         lib_ms, lib_equal = None, None
         if geo["groups"] == 1:
@@ -2350,29 +2498,97 @@ def _time_conv_int8(torch, dev, shapes) -> dict:
             wmat = F.pad(wq.permute(0, 3, 1, 2).reshape(o, k), (0, k_pad - k)).t()
 
             def im2col_int_mm():
-                cols = F.unfold(xq.to(torch.bfloat16), (kh, kw), padding=geo["padding"],
-                                stride=geo["stride"])
+                cols = F.unfold(quantize_sym(x, s_t).to(torch.bfloat16), (kh, kw),
+                                padding=geo["padding"], stride=geo["stride"])
                 a = cols.transpose(1, 2).reshape(-1, k).to(torch.int8)
                 return torch._int_mm(F.pad(a, (0, k_pad - k)), wmat)
 
             lib_equal = bool(torch.equal(im2col_int_mm().view(n_b, ho * wo, o),
                                          y.permute(0, 2, 3, 1).reshape(n_b, ho * wo, o)))
             check(lib_equal, f"im2col + _int_mm differs from conv_int8 at {_geo_str(key, geo)}")
-            lib_ms = _library_ms(torch, im2col_int_mm, "F.unfold(bf16) + torch._int_mm")
-        x_bf = xq.to(torch.bfloat16)
+            lib_ms = _library_ms(torch, im2col_int_mm,
+                                 "quantize_sym + F.unfold(bf16) + torch._int_mm")
         w_bf = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
-        cudnn_ms = cuda_ms(torch, lambda: F.conv2d(x_bf, w_bf, None, geo["stride"],
+        cudnn_ms = cuda_ms(torch, lambda: F.conv2d(x, w_bf, None, geo["stride"],
                                                    geo["padding"], 1, geo["groups"]), reps=20)
         m = n_b * ho * wo
-        bytes_ = xq.numel() + wq.numel() + 4 * o + 2 * m * o
-        t = _timing(_geo_str(key, geo), ms, plain_ms, lib_ms, bytes_, 2 * m * o * k, "int8", 0.0)
-        t["cudnn_bf16_ms"] = cudnn_ms
+        bytes_ = x.numel() * x.element_size() + wq.numel() + 4 * o + 2 * m * o
+        t = _timing(_geo_str(key, geo), ms, plain_ms, None, bytes_, 2 * m * o * k, "int8", 0.0)
+        t.update({"plan": kernel_plan(x.shape, wq.shape, *args),
+                  "im2col_int_mm_ms": lib_ms, "cudnn_bf16_ms": cudnn_ms,
+                  "int8_input_ms": int8_in_ms})
         out[key] = t
-        log(f"timing conv_int8 {t['shape']}: kernel {ms:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}), plain {plain_ms:.3f} ms, im2col + _int_mm {lib_ms} ms "
-            f"(int32 equal: {lib_equal}), cuDNN bf16 {cudnn_ms:.4f} ms")
-        del xq, wq, x_bf, w_bf, y
+        log(f"timing conv_int8 {t['shape']} ({t['plan']}): kernel {ms:.4f} ms on bf16 "
+            f"(on int8 {int8_in_ms:.4f}), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+            f"{plain_ms:.3f} ms, quantize_sym + im2col + _int_mm {lib_ms} ms (int32 equal: "
+            f"{lib_equal}), cuDNN bf16 {cudnn_ms:.4f} ms")
+        del x, xq, wq, w_bf, y
+    return out
+
+
+def _resnet50_int8(torch, dev, root_module=None):
+    """ResNet-50 (bf16, 256x128, seed 12) with its int8 plan calibrated on a
+    batch of 512 random images → (module, normalized batch, plan, the
+    quantize module used)."""
+    from daliid_tpu_torch.augment.preprocess import normalize_images
+    from daliid_tpu_torch.models import get_model
+    from daliid_tpu_torch.ops import quantize as q8
+
+    gen = torch.Generator().manual_seed(13)
+    images = torch.randint(0, 256, (EXTRACT_BATCH, *IMG, 3), generator=gen,
+                           dtype=torch.uint8).to(dev)
+    module = get_model("resnet50", torch.Generator().manual_seed(12), img_size=IMG,
+                       dtype=torch.bfloat16, device=dev).module
+    x = normalize_images(images, dtype=torch.bfloat16)
+    plan = q8.prepare(module, q8.calibrate(module, x))
+    return module, x, plan, q8
+
+
+def _profile_int8_resnet(torch, dev) -> dict:
+    """One ``torch.profiler`` pass over the int8 ResNet-50 forward at batch
+    512 (the normalized batch made before it): the device time of
+    conv_int8's kernels against everything else, that no quantize pass
+    (``aten::round`` / ``aten::clamp``) runs, and that conv_int8 launched
+    once for each of the 53 convolutions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from daliid_tpu_torch.ops.conv_int8 import conv_int8
+
+    module, x, plan, q8 = _resnet50_int8(torch, dev)
+
+    def fwd():
+        with torch.inference_mode(), q8.quantized(module, plan):
+            return module(x)
+
+    fwd()
+    torch.cuda.synchronize(dev)
+    before = conv_int8.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fwd()
+        torch.cuda.synchronize(dev)
+    launched = conv_int8.launches - before
+    ops = {e.key for e in prof.key_averages()}
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    check(len(kernels) > 0, "the profiler saw no kernel on the device")
+    conv_us = sum(e.time_range.elapsed_us() for e in kernels
+                  if "conv_wgmma" in e.name or "conv_dw" in e.name)
+    total_us = sum(e.time_range.elapsed_us() for e in kernels)
+    quantize_ops = sorted(op for op in ops if op in ("aten::round", "aten::clamp"))
+    check(launched == 53, f"the int8 ResNet-50 forward launched conv_int8 {launched} times, "
+                          f"not once for each of its 53 convolutions")
+    check(not quantize_ops, f"the int8 ResNet-50 forward ran quantize passes {quantize_ops}")
+    top = {}
+    for e in kernels:
+        top[e.name[:80]] = top.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
+    out = {"conv_int8_launches": launched, "conv_int8_device_ms": conv_us / 1e3,
+           "other_device_ms": (total_us - conv_us) / 1e3, "kernels": len(kernels),
+           "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:8])}
+    log(f"profiled int8 ResNet-50 forward at batch {EXTRACT_BATCH}: {json.dumps(out)}; no "
+        f"aten::round / aten::clamp")
+    del module, x, plan
     return out
 
 
@@ -2456,7 +2672,8 @@ KERNELS = {
                   "replaces": "daliid_tpu/ops/quantize.py:278 (XLA int8 convolution; no "
                               "Pallas kernel)",
                   "check": "bit-exact (int32, f32 and bf16 out)",
-                  "library": "F.unfold(bf16) + torch._int_mm (groups = 1)"},
+                  "library": "none: no one PyTorch call computes it (quantize_sym + "
+                             "F.unfold + torch._int_mm, groups = 1, in im2col_int_mm_ms)"},
 }
 
 
@@ -2467,8 +2684,12 @@ PATH_KERNELS = {"rank_counts": ("rank_counts_kernel",),
                 "search_topk_sq8": ("topk_pass1<1>", "topk_pass2"),
                 "search_topk_f32": ("topk_pass1<0>", "topk_pass2"),
                 "flash_attention": ("attention_mma<64,8>", "attention_mma<64,4>"),
-                "conv_int8": ("conv_igemm<__nv_bfloat16,1>", "conv_igemm<__nv_bfloat16,0>",
-                              "conv_depthwise<__nv_bfloat16,4>")}
+                # the bf16 path's kernels: the gathering implicit GEMM (1x1
+                # convolutions), the staged window (the stems and k x k), depthwise
+                "conv_int8": tuple(f"conv_wgmma<__nv_bfloat16,{bn},{staged},{nwg}>"
+                                   for staged, nwg in ((0, 2), (1, 2), (1, 1))
+                                   for bn in (32, 64, 128, 256))
+                + tuple(f"conv_dw<__nv_bfloat16,{k},{k},{s}>" for k in (3, 5) for s in (1, 2))}
 
 
 def main() -> int:
@@ -2482,12 +2703,13 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--kernel-times"]:
         root, ps = sys.argv[2], [int(x) for x in sys.argv[3].split(",")]
-        print(json.dumps(kernel_times(torch, root, ps)), flush=True)
+        print(json.dumps(kernel_times(torch, root, ps, json.loads(sys.argv[4]))), flush=True)
         return 0
     sys.path.insert(0, str(REPO))
     if sys.argv[1:2] == ["--compare"]:
-        phase_device(torch)
-        print(json.dumps({"compare": compare(sys.argv[2])}), flush=True)
+        _, dev, _ = phase_device(torch)
+        geos = {" ".join(key): geo for key, geo in conv_shapes(torch, dev).items()}
+        print(json.dumps({"compare": compare(sys.argv[2], geos)}), flush=True)
         return 0
     t_start = time.time()
     card, dev, ptxas = phase_device(torch)
@@ -2586,8 +2808,10 @@ def main() -> int:
     results["conv_int8"].update(conv_times[CONV_MAIN])
     results["conv_int8"]["max_abs_err"] = conv_err
     results["conv_int8"]["at_shapes"] = [
-        {k: t[k] for k in ("shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
-                           "cudnn_bf16_ms")} for t in conv_times.values()]
+        {k: t[k] for k in ("shape", "plan", "ms", "bound_ms", "bound_by", "plain_ms",
+                           "im2col_int_mm_ms", "cudnn_bf16_ms", "int8_input_ms")}
+        for t in conv_times.values()]
+    results["conv_int8"]["profiled_resnet50_int8"] = _profile_int8_resnet(torch, dev)
     int8_rates = _time_int8_extraction(torch, dev)
     for name, r in results.items():
         r["launches"] = launches[name]
@@ -2650,7 +2874,8 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms", "check", "shape")
     extra = ("at_path_shape", "at_path_p", "at_max_positives_bound", "at_n53",
              "backward_max_abs_err",
-             "backward_ms", "ptxas", "library", "cudnn_bf16_ms", "at_shapes")
+             "backward_ms", "ptxas", "library", "plan", "im2col_int_mm_ms", "cudnn_bf16_ms",
+             "int8_input_ms", "at_shapes", "profiled_resnet50_int8")
     kernels = [{k: r[k] for k in keys + extra if k in r} for r in results.values()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,13 +27,18 @@ point (their hidden widths are below ``dense_min_dim``), as in JAX.
 
 Per layer (``make_quantized_interceptor``, ``:210-292``):
 
-- conv: ``s_in = float32(absmax) / 127`` (an f32 division), the input
-  quantized as ``clip(round(x / s_in), -127, 127)`` (round half to even),
-  the weights per output channel with ``s_w = max(max|w| / 127, 1e-12)``,
-  then :func:`daliid_tpu_torch.ops.conv_int8.conv_int8` (the kernel):
-  ``float32(acc) * (s_in * s_w)`` (the scales first), ``+ bias``, cast. A
-  conv without a scale, with a scale <= 0, or ``skip``-ped stays in floating
-  point. Dilation and padding modes other than zeros raise.
+- conv: ``s_in = float32(absmax) / 127`` (an f32 division), the weights
+  quantized per output channel with ``s_w = max(max|w| / 127, 1e-12)`` and
+  packed once for the kernel (``pack_weights``); the layer's floating-point
+  input goes to :func:`daliid_tpu_torch.ops.conv_int8.conv_int8` as it is,
+  and the kernel quantizes it while loading it to the codes of
+  ``clip(round(x / s_in), -127, 127)`` (a true f32 division, round half to
+  even: ``conv_int8.quantize_sym``), the JAX
+  ``_quantize_sym`` before the int8 convolution; then ``float32(acc) *
+  (s_in * s_w)`` (the scales first), ``+ bias``, cast. No int8 copy of the
+  input is written. A conv without a scale, with a scale <= 0, or
+  ``skip``-ped stays in floating point. Dilation and padding modes other
+  than zeros raise.
 - dense (``_quantized_dense``, ``:175-207``): only when both widths are at
   least ``dense_min_dim`` (else floating point); a static per-tensor scale
   ``max(float32(absmax), 1e-12) / 127`` when calibrated with absmax > 0,
@@ -64,7 +69,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from daliid_tpu_torch.models.resnet import Dense1x1
-from daliid_tpu_torch.ops.conv_int8 import conv_int8
+from daliid_tpu_torch.ops.conv_int8 import conv_int8, pack_weights, quantize_sym
 
 
 def quant_layers(module: nn.Module) -> Dict[str, str]:
@@ -81,12 +86,6 @@ def quant_layers(module: nn.Module) -> Dict[str, str]:
 
 def _scalar(value: float, device) -> torch.Tensor:
     return torch.tensor(np.float32(value), device=device)
-
-
-def quantize_sym(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Symmetric int8 quantization in f32: ``clip(round(x / scale), -127,
-    127)``; ``scale`` a tensor on ``x``'s device."""
-    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
 
 
 def _channel_scales(w: torch.Tensor, dims) -> torch.Tensor:
@@ -151,7 +150,8 @@ int8_matmul.calls = 0
 
 
 class _QuantConv:
-    """One conv in int8: weights quantized once, the input per call."""
+    """One conv in int8: weights quantized (and, on the card, packed for the
+    kernel) once; the kernel quantizes the input in its loads."""
 
     def __init__(self, m: nn.Conv2d, absmax: float):
         self.stride, self.padding, self.groups = conv_config(m)
@@ -160,12 +160,13 @@ class _QuantConv:
         self.s_in_t = _scalar(self.s_in, w.device)
         self.s_w = _channel_scales(w, (1, 2, 3))
         self.wq = quantize_sym(w, self.s_w.view(-1, 1, 1, 1)).permute(0, 2, 3, 1).contiguous()
+        self.w_packed = (pack_weights(self.wq, self.groups) if self.wq.device.type == "cuda"
+                         else None)
         self.bias = None if m.bias is None else m.bias.detach().float()
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        xq = quantize_sym(x, self.s_in_t).contiguous(memory_format=torch.channels_last)
-        return conv_int8(xq, self.wq, self.stride, self.padding, self.groups, self.s_in,
-                         self.s_w, self.bias, out_dtype=x.dtype)
+        return conv_int8(x, self.wq, self.stride, self.padding, self.groups, self.s_in,
+                         self.s_w, self.bias, out_dtype=x.dtype, w_packed=self.w_packed)
 
 
 class _QuantDense:

@@ -243,7 +243,7 @@ def test_conv_int8_wrapper_checks_and_refuses_other_group_counts():
         conv_int8(x, torch.zeros((16, 3, 3, 1), dtype=torch.int8), 1, 1, 8, 1.0,
                   torch.ones(16))
     with pytest.raises(TypeError, match="int8"):
-        conv_int8(x.float(), torch.zeros((8, 1, 1, 8), dtype=torch.int8), 1, 0, 1, 1.0, s_w)
+        conv_int8(x.half(), torch.zeros((8, 1, 1, 8), dtype=torch.int8), 1, 0, 1, 1.0, s_w)
     with pytest.raises(ValueError, match="groups 3"):
         conv_int8(x, torch.zeros((8, 1, 1, 8), dtype=torch.int8), 1, 0, 3, 1.0, s_w)
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
