@@ -95,6 +95,22 @@ Phases, in order; any failed check exits non-zero and prints no result:
     (the shortlist fetched by K3 SQ8 at k = 64), and a serve batch mixing
     re-ranked requests at depths 64 and 32 with plain topk 10 and 5: three
     dispatches, K3 once each, every answer like the same request alone.
+19b. datasets and targets, on trees generated on the host (an MSMT17_V2
+    tree of 32 train identities x 12 images with a val image each and 50
+    test identities, whose train and gallery images have turbulence copies
+    under MSMT17's pid-prefixed names only, so a wrong name fails to
+    decode; a PRCC tree; BRIAR ``.npy`` manifests with close-range probes
+    and probe-only identities), the counters reset before each step and
+    read after it: ``cli.train.main --dataset MSMT17 --kind_of_transform
+    1`` (ResNet-50, P16 K12, one epoch of 2 steps: K1 twice, K2 in the
+    validation, the val split's balanced accuracy printed);
+    ``cli.evaluate.main --targets MSMT17 --turbulence_dir_path ...
+    --turbulence_strength 3`` (K2 once); ``--targets PRCC`` (3 query sets x
+    10 gallery splits: K2 30 times); ``--targets BRIAR`` with the manifests
+    (K2 once) and ``cli.evaluate_ensemble.main --dataset BRIAR`` (K2 3
+    times); ``cli.search.main --dataset MSMT17`` (K3 f32); ``cli.stats.main``
+    (its table: MSMT17, PRCC:g0-g9, PRCC:q0-q2). Every CMC equal to the
+    numpy oracle.
 20. int8 extraction, the float phases above having launched no conv_int8:
     ``cli.evaluate.main --quantize int8`` with ResNet-50 (K2 once,
     conv_int8 launched, the CMC equal to the oracle), again with
@@ -116,7 +132,10 @@ Phases, in order; any failed check exits non-zero and prints no result:
     cores': bytes, or 3 TF32 products a multiply-add), and at the serve
     path's shape; K2 at the Market-1501 protocol shape (Q=3368, G=15913) at
     P=48, at the evaluate path's P (``queried_positives_bound``) and, kernel
-    only, at ``max_positives_bound``'s P=2800; K1 at the train shape; K4 and SDPA at the
+    only, at ``max_positives_bound``'s P=2800, and at MSMT17's (Q=11659,
+    G=82161, a 3.83 GB distmat) at P=64 and 256 with ``ignore_camera``
+    both ways, each against its plain version (counts equal; the plain
+    version timed once on the host clock); K1 at the train shape; K4 and SDPA at the
     JPM train shapes in bf16, with the attention backward (plain f32 torch)
     alone; one ResNet-50 train step split into augment, forward+backward and
     Adam+EMA, with img/s, peak device memory, the host decode time of one
@@ -147,7 +166,8 @@ Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 before each of the serve, search, evaluate, train, transformer evaluate,
 transformer train, fusion, ensemble, multi-head, k > 64 search, zoo
 evaluate (each family), densenet train, re-ranked evaluate, re-ranked
-search and each int8 phase and read just after.
+search, each step of the datasets phase and each int8 phase and read just
+after.
 
 Run from the repository root: ``python3 chip_smoke.py``. The kernels,
 the synthetic sets, the saved index and the checkpoints go under ``build/``.
@@ -1346,6 +1366,179 @@ def phase_search_rerank(torch, dev, counts):
     return {k: cli[k] + alone_launches[k] + mixed[k] for k in cli}
 
 
+# ---------------------------------------------------------------- phase 19b: datasets
+# the generated MSMT17_V2 tree: 32 train identities x 12 images (two P16 K12
+# steps an epoch), one val image each, 50 test identities x 4 gallery and 2
+# query images; every train and gallery image has its 5 turbulence copies,
+# under MSMT17's pid-prefixed names only
+MSMT17_TREE = dict(train_ids=TRAIN_IDS, imgs_per_train_id=TRAIN_IMGS, test_ids=50,
+                   gallery_per_id=4, query_per_id=2)
+
+
+class Tee:
+    """Standard output copied into a buffer while active."""
+
+    def __enter__(self):
+        import io
+
+        self.out, self.buf = sys.stdout, io.StringIO()
+        sys.stdout = self
+        return self
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def __exit__(self, *exc):
+        sys.stdout = self.out
+
+
+def make_target_data():
+    """The MSMT17_V2 tree, a PRCC tree and BRIAR manifests under
+    ``WORK/targets`` → (data root, MSMT17 turbulence dir, manifest paths)."""
+    from daliid_tpu_torch.data.synthetic import (
+        make_briar_manifests,
+        make_msmt17_tree,
+        make_prcc_tree,
+    )
+
+    t0 = time.time()
+    root = WORK / "targets"
+    turb = make_msmt17_tree(str(root), **MSMT17_TREE)
+    make_prcc_tree(str(root), train_ids=8, test_ids=40, imgs_per_id=2)
+    manifests = make_briar_manifests(str(root / "briar"), train_ids=8, test_ids=40)
+    log(f"generated MSMT17_V2 ({MSMT17_TREE}), PRCC (40 test identities) and BRIAR manifests "
+        f"(40 identities) in {time.time() - t0:.1f} s")
+    return root, turb, manifests
+
+
+def phase_datasets(torch, counts):
+    """Datasets and targets at full ResNet-50 width, the counters reset
+    before each step and read after it: ``train --dataset MSMT17
+    --kind_of_transform 1`` (1 epoch of 2 steps on the pid-prefixed copies:
+    K1 twice, K2 in the validation, the balanced accuracy printed);
+    ``evaluate --targets MSMT17`` on the turbulence gallery at strength 3
+    (K2 once); ``evaluate --targets PRCC`` (K2 30 times); ``evaluate
+    --targets BRIAR`` and ``evaluate-ensemble --dataset BRIAR`` on the
+    manifests (K2 once and 3 times); ``search --dataset MSMT17`` (K3);
+    ``stats``. Every CMC is held against the numpy oracle."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import evaluate, evaluate_ensemble, search, stats, train
+
+    root, turb, manifests = make_target_data()
+    trio = ["--train_file_path", manifests["train"], "--queries_file_path",
+            manifests["queries"], "--gallery_file_path", manifests["gallery"]]
+    flags = ["--data_root", str(root), "--compute_dtype", COMPUTE_DTYPE, *_img_flags()]
+    total, walls = {}, {}
+
+    def step(name, run, k2=None):
+        counts.reset()
+        t0 = time.time()
+        with RankRecorder() as rec:
+            out = run()
+        walls[name] = time.time() - t0
+        launched = counts.read()
+        if k2 is not None:
+            check(launched["rank_counts"] == k2,
+                  f"{name} launched K2 {launched['rank_counts']} times, not {k2}")
+        err = rec.check_oracle(name)
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+        return out, launched, err, rec
+
+    from daliid_tpu_torch.eval.validate import msmt17_balanced_accuracy
+
+    ckpt, metrics = WORK / "msmt17_ckpt", WORK / "msmt17_metrics"
+    accuracies = []
+
+    def balanced(*a, **kw):
+        accuracies.append(msmt17_balanced_accuracy(*a, **kw))
+        return accuracies[-1]
+
+    args = train.build_argparser().parse_args(
+        ["--dataset", "MSMT17", "--turbulence_dir_path", turb, "--kind_of_transform", "1",
+         "--P", str(P), "--K", str(K), "--epochs", "1", "--eval_freq", "1",
+         "--skip_initial_eval", "--path_to_save_models", str(ckpt),
+         "--path_to_save_metrics", str(metrics), *flags])
+    train.msmt17_balanced_accuracy = balanced
+    try:
+        with Tee() as tee:
+            _, launched, _, _ = step("train --dataset MSMT17", lambda: train.main(args))
+    finally:
+        train.msmt17_balanced_accuracy = msmt17_balanced_accuracy
+    steps = TRAIN_IDS // P
+    check(launched["fused_augment"] == steps,
+          f"train --dataset MSMT17 launched K1 {launched['fused_augment']} times for {steps} "
+          f"steps")
+    check(launched["rank_counts"] > 0, "the MSMT17 validation did not launch K2")
+    check(len(accuracies) == 1 and 0.0 <= accuracies[0] <= 1.0
+          and f"Balanced Accuracy on Validation Set: {accuracies[0]:.3%}" in tee.buf.getvalue(),
+          f"train --dataset MSMT17 printed no balanced accuracy ({accuracies})")
+    progress = json.loads((metrics / "progress_resnet50_v0.json").read_text())
+    check(all(np.isfinite(progress[0][k]) for k in ("loss", "center_loss", "proxy_loss")),
+          f"train --dataset MSMT17 losses {progress}")
+    log(f"train --dataset MSMT17 --kind_of_transform 1: {steps} steps of {2 * P * K} images on "
+        f"the pid-prefixed turbulence copies and a validation in "
+        f"{walls['train --dataset MSMT17']:.1f} s, loss {progress[0]['loss']:.5f}, balanced "
+        f"accuracy on val {accuracies[0]:.4f} (random init); launches {launched}")
+
+    args = evaluate.build_argparser().parse_args(
+        ["--targets", "MSMT17", "--turbulence_dir_path", turb, "--turbulence_strength", "3",
+         "--batch_size", str(EXTRACT_BATCH), *flags])
+    res, launched, err, rec = step("evaluate --targets MSMT17 turbulence 3",
+                                   lambda: evaluate.main(args), k2=1)
+    cmc, mAP = res["MSMT17"]
+    log(f"evaluate --targets MSMT17 --turbulence_strength 3: R1 {cmc[0]:.4f} mAP {mAP:.6f}, "
+        f"distmat {rec.calls[0][0].shape} (CMC equal to the numpy oracle, |mAP diff| "
+        f"{err:.3g}); launches {launched}")
+
+    args = evaluate.build_argparser().parse_args(
+        ["--targets", "PRCC", "--batch_size", str(EXTRACT_BATCH), *flags])
+    res, launched, err, rec = step("evaluate --targets PRCC", lambda: evaluate.main(args), k2=30)
+    check(list(res) == ["PRCC:q0", "PRCC:q1", "PRCC:q2"], f"evaluate PRCC reported {list(res)}")
+    log("evaluate --targets PRCC (3 query sets x 10 gallery splits): "
+        + ", ".join(f"{k} R1 {r1:.4f} mAP {m:.6f}" for k, (r1, m) in res.items())
+        + f"; 30 CMCs equal to the numpy oracle (|mAP diff| <= {err:.3g}); launches {launched}")
+
+    args = evaluate.build_argparser().parse_args(
+        ["--targets", "BRIAR", *trio, "--batch_size", str(EXTRACT_BATCH), *flags])
+    res, launched, err, rec = step("evaluate --targets BRIAR", lambda: evaluate.main(args), k2=1)
+    cmc, mAP = res["BRIAR"]
+    check(mAP > 0.0, "the BRIAR manifests ranked without a mAP (not the standard protocol)")
+    log(f"evaluate --targets BRIAR (manifests): R1 {cmc[0]:.4f} mAP {mAP:.6f}, distmat "
+        f"{rec.calls[0][0].shape} (CMC equal to the numpy oracle); launches {launched}")
+
+    args = evaluate_ensemble.build_argparser().parse_args(
+        ["--dataset", "BRIAR", *trio, "--model_name02", "resnet50IBN", "--batch_size",
+         str(EXTRACT_BATCH), *flags])
+    res, launched, err, _ = step("evaluate-ensemble --dataset BRIAR",
+                                 lambda: evaluate_ensemble.main(args), k2=3)
+    log("evaluate-ensemble --dataset BRIAR (resnet50 + resnet50IBN): "
+        + ", ".join(f"{t} R1 {r['rank1']:.4f} mAP {r['mAP']:.6f}" for t, r in res.items())
+        + f" (CMC equal to the numpy oracle); launches {launched}")
+
+    args = search.build_argparser().parse_args(
+        ["--dataset", "MSMT17", "--batch_size", "64", "--topk", "10", *flags])
+    (sims, _, pids), launched, _, _ = step("search --dataset MSMT17", lambda: search.main(args))
+    check(launched["search_topk_f32"] > 0 and np.isfinite(sims).all() and sims.shape[1] == 10,
+          f"search --dataset MSMT17: sims {sims.shape}, launches {launched}")
+    log(f"search --dataset MSMT17: sims {sims.shape}; launches {launched}")
+
+    with Tee() as tee:
+        table, launched, _, _ = step("stats", lambda: stats.main(
+            ["--targets", "MSMT17", "PRCC", "--data_root", str(root)]))
+    lines = table.splitlines()
+    check(tee.buf.getvalue() == table + "\n" and lines[0].startswith("Dataset")
+          and [ln.split()[0] for ln in lines[2:]]
+          == ["MSMT17"] + [f"PRCC:g{i}" for i in range(10)] + [f"PRCC:q{i}" for i in range(3)],
+          f"stats printed:\n{table}")
+    return total, {f"datasets: {k}": v for k, v in walls.items()}
+
+
 # ---------------------------------------------------------------- int8 extraction
 # the zoo's convolutions that conv_int8 is checked and timed at, by model and
 # module name: ResNet-50's stem (C = 3), a 1x1, a strided 3x3 and layer4's 3x3
@@ -2009,6 +2202,59 @@ def _time_k2(torch, dev, results):
             results["rank_counts"][role] = entry
         log(f"K2 at P={n_p}: {json.dumps(entry)}")
     del dist
+
+
+def msmt17_ids(seed: int = 6):
+    """MSMT17's test protocol ids: 3,060 identities over 82,161 gallery and
+    11,659 query rows, 15 cameras → (q_pids, g_pids, q_cams, g_cams)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g_pids = rng.integers(0, 3060, 82161)
+    q_pids = rng.integers(0, 3060, 11659)
+    return q_pids, g_pids, rng.integers(1, 16, q_pids.size), rng.integers(1, 16, g_pids.size)
+
+
+def _time_k2_msmt17(torch, dev) -> list:
+    """K2 at MSMT17's protocol shape (a 3.83 GB f32 distmat of uniform
+    random distances) at P = 64 and 256, ``ignore_camera`` both ways:
+    counts equal to the plain version's, kernel and plain times, bound."""
+    from daliid_tpu_torch.metrics.ranking import _positive_prologue, positive_columns
+    from daliid_tpu_torch.ops.rank_counts import positive_rank_counts, rank_counts_plain
+
+    q_pids, g_pids, q_cams, g_cams = msmt17_ids()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    dist = torch.rand((q_pids.size, g_pids.size), generator=gen, device=dev)
+    n_q, n_g = dist.shape
+    ids = [torch.as_tensor(a, dtype=torch.int32, device=dev) for a in (q_pids, q_cams, g_pids, g_cams)]
+    out = []
+    for n_p in (64, 256):
+        q_cols = torch.as_tensor(positive_columns(q_pids, g_pids, n_p), device=dev)
+        for ignore in (False, True):
+            posmask, _, p_dist, p_idx = _positive_prologue(dist, q_cols, ids[1], ids[3], ignore)
+            args = (dist, p_dist, p_idx, ids[0], ids[1], ids[2], ids[3])
+            torch.cuda.synchronize()
+            t0 = time.time()
+            want = rank_counts_plain(*args, ignore_camera=ignore)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t0) * 1e3
+            got = positive_rank_counts(*args, ignore_camera=ignore)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"K2 differs from plain at MSMT17's shape P={n_p} ignore_camera={ignore}")
+            ms = cuda_ms(torch, lambda: positive_rank_counts(*args, ignore_camera=ignore),
+                         reps=10)
+            valid = int(posmask.sum())
+            bytes_ = 4 * n_q * n_g + 8 * n_q * n_p + 8 * (n_q + n_g) + 4 * n_q * n_p
+            entry = _timing(f"Q={n_q} G={n_g} P={n_p} ignore_camera={ignore} valid positives "
+                            f"{valid}", ms, plain_ms, None, bytes_, n_g * valid, "f32", 0.0)
+            log(f"K2 at MSMT17's protocol shape: {json.dumps(entry)}")
+            out.append(entry)
+            del want, got
+    del dist
+    torch.cuda.empty_cache()
+    return out
 
 
 def _time_k1(torch, dev):
@@ -2756,7 +3002,8 @@ def main() -> int:
                   lambda: timed("train densenet121",
                                 lambda: phase_densenet_train(torch, counts, train_root)),
                   lambda: timed("evaluate --rerank", lambda: phase_rerank_evaluate(torch, counts)),
-                  lambda: phase_search_rerank(torch, dev, counts))
+                  lambda: phase_search_rerank(torch, dev, counts),
+                  lambda: walled(lambda: phase_datasets(torch, counts)))
     int8_phases = (lambda: walled(lambda: phase_evaluate_int8(torch, dev, splits, counts)),
                    lambda: phase_search_serve_int8(torch, splits, counts),
                    lambda: walled(lambda: phase_fusion_ensemble_int8(torch, counts)),
@@ -2784,6 +3031,7 @@ def main() -> int:
         results[name]["at_path_shape"] = entry
         log(f"timing {name} at the path's shape: {json.dumps(entry)}")
     _time_k2(torch, dev, results)
+    results["rank_counts"]["at_msmt17_protocol"] = _time_k2_msmt17(torch, dev)
     results["search_topk_f32"]["max_abs_err"] = max(results["search_topk_f32"]["max_abs_err"],
                                                     f32_err)
     results["fused_augment"].update(_time_k1(torch, dev))
@@ -2872,7 +3120,8 @@ def main() -> int:
     log(f"card: {card}; total {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check", "shape")
-    extra = ("at_path_shape", "at_path_p", "at_max_positives_bound", "at_n53",
+    extra = ("at_path_shape", "at_path_p", "at_max_positives_bound", "at_msmt17_protocol",
+             "at_n53",
              "backward_max_abs_err",
              "backward_ms", "ptxas", "library", "plan", "im2col_int_mm_ms", "cudnn_bf16_ms",
              "int8_input_ms", "at_shapes", "profiled_resnet50_int8")

@@ -18,6 +18,7 @@ COMMANDS = {
     "evaluate-fusion": ("cli.evaluate_fusion",
                         "clean+distorted magnitude fusion (evaluateCleanATModels.py)"),
     "search": ("cli.search", "gallery search service"),
+    "stats": ("cli.stats", "dataset statistics tables"),
     "train": ("cli.train", "training loop (mainKIT.py)"),
 }
 

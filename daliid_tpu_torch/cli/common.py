@@ -12,13 +12,6 @@ def reject_unported(args, defaults: dict) -> None:
             raise SystemExit(f"--{name} is not yet ported to daliid_tpu_torch")
 
 
-def reject_briar(*datasets: str) -> None:
-    """The BRIAR manifests are not ported yet."""
-    if "BRIAR" in datasets:
-        raise SystemExit("the BRIAR dataset (manifest evaluation) is not yet ported to "
-                         "daliid_tpu_torch")
-
-
 MULTIHOST_FLAGS = {"multihost": False, "coordinator_address": None,
                    "num_processes": None, "process_id": None}
 
@@ -34,8 +27,10 @@ def add_multihost_flags(parser) -> None:
 
 def check_camera_ids(sie_cameras: int, tables, what: str) -> None:
     """Raw camids index the SIE table: refuse a table too small for them
-    (an out-of-range index would stop the GPU with a device assert)."""
-    cam_max = max((int(t.camids.max()) for t in tables if len(t.camids)), default=0)
+    (an out-of-range index would stop the GPU with a device assert).
+    ``tables`` holds tables or lists of them (a multi-split protocol's)."""
+    flat = [t for x in tables for t in (x if isinstance(x, list) else [x])]
+    cam_max = max((int(t.camids.max()) for t in flat if len(t.camids)), default=0)
     if cam_max >= sie_cameras:
         raise SystemExit(f"--sie_cameras {sie_cameras} is too small for {what}: camids run up "
                          f"to {cam_max} and index the table directly (1-based datasets need "

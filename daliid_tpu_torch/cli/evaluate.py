@@ -3,18 +3,30 @@
 Loads a backbone and weights, extracts query and gallery embeddings, builds
 the cosine distance matrix on the device and ranks CMC/mAP through kernel
 K2. Flags are the JAX CLI's (``:31-110``) plus ``--device``, with its
-checks (``:136-150``, ``:170``, ``:203-216``): ``--sie_cameras`` and
-``--sie_coef`` for the SIE models, ``--gelu_approx`` for the ViT family,
-``--head_weighting`` only with ``--multiple_output``. A multi-head model
-with ``--multiple_output`` reports each head, then the heads' ensemble
-(``--head_weighting``), then with ``--mrfuse`` the meta-recognition fusion
-of the first three heads' similarities (``:278-317``, the replicated path).
-``--rerank`` applies k-reciprocal re-ranking before the metrics
-(``:225``, ``:323``), single-output evaluation only, as in JAX.
-``--quantize int8`` extracts in int8 (``--calib_batches`` of calibration).
-The flags of features not ported yet (turbulence galleries, BRIAR
-manifests, sharded and multi-host evaluation) exit with an error that
-names them.
+checks (``:136-170``, ``:203-216``): ``--sie_cameras`` and ``--sie_coef``
+for the SIE models, ``--gelu_approx`` for the ViT family,
+``--head_weighting`` only with ``--multiple_output``, the BRIAR manifest
+trio together and only with the ``BRIAR`` target.
+
+Each target is a registered dataset, or ``BRIAR`` read from the three
+``.npy`` manifests (``--train_file_path``, ``--queries_file_path``,
+``--gallery_file_path``) and ranked with the standard protocol
+(``:186-217``). A multi-split protocol (PRCC's 10 gallery splits and 3
+query sets, VC-Clothes, ImageNet) ranks every (query set, gallery split)
+pair and reports the mean over the gallery splits under ``<target>:q<i>``
+(``:229-255``); each gallery split is extracted once, after query set 0,
+which stays the first extraction (``--quantize int8`` calibrates on it).
+``--turbulence_dir_path`` with ``--turbulence_strength`` ranks clean
+queries against the gallery's turbulence copies at that strength
+(``:257-263``). A multi-head model with ``--multiple_output`` reports each
+head, then the heads' ensemble (``--head_weighting``), then with
+``--mrfuse`` the meta-recognition fusion of the first three heads'
+similarities (``:278-317``, the replicated path). ``--rerank`` applies
+k-reciprocal re-ranking before the metrics (``:225``, ``:323``),
+single-output evaluation only, as in JAX. ``--quantize int8`` extracts in
+int8 (``--calib_batches`` of calibration). Sharded and multi-host
+evaluation are not ported yet: their flags exit with an error that names
+them.
 
 Example::
 
@@ -26,16 +38,16 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from daliid_tpu_torch.cli.common import (
     MULTIHOST_FLAGS,
     add_multihost_flags,
     check_camera_ids,
-    reject_briar,
     reject_unported,
 )
-from daliid_tpu_torch.data.registry import load_dataset
+from daliid_tpu_torch.data.briar import load_eval_splits
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.eval.meta_recognition import mrfuse
@@ -48,13 +60,6 @@ from daliid_tpu_torch.models.factory import (
 )
 from daliid_tpu_torch.models.torch_port import load_state
 
-_UNPORTED = {
-    "turbulence_dir_path": None, "turbulence_strength": None,
-    "train_file_path": None, "queries_file_path": None, "gallery_file_path": None,
-    **MULTIHOST_FLAGS,
-}
-
-
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="DaliID single-model evaluation (PyTorch/CUDA)")
     p.add_argument("--targets", type=str, nargs="+", required=True)
@@ -66,11 +71,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--img_width", type=int, default=128)
     p.add_argument("--batch_size", type=int, default=512)
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
-    p.add_argument("--turbulence_dir_path", type=str, default=None, help="not yet ported")
-    p.add_argument("--turbulence_strength", type=int, default=None, help="not yet ported")
-    p.add_argument("--train_file_path", type=str, default=None, help="not yet ported")
-    p.add_argument("--queries_file_path", type=str, default=None, help="not yet ported")
-    p.add_argument("--gallery_file_path", type=str, default=None, help="not yet ported")
+    p.add_argument("--turbulence_dir_path", type=str, default=None,
+                   help="rank against the gallery's turbulence copies in this directory")
+    p.add_argument("--turbulence_strength", type=int, default=None,
+                   help="strength (1-5) of the gallery's turbulence copies")
+    p.add_argument("--train_file_path", type=str, default=None,
+                   help="BRIAR target: training-manifest .npy")
+    p.add_argument("--queries_file_path", type=str, default=None,
+                   help="BRIAR target: probe-manifest .npy")
+    p.add_argument("--gallery_file_path", type=str, default=None,
+                   help="BRIAR target: gallery-manifest .npy")
     p.add_argument("--multiple_output", action="store_true",
                    help="multi-head models: report every head and their ensemble")
     p.add_argument("--mrfuse", action="store_true",
@@ -135,16 +145,50 @@ def check_transformer_flags(args) -> None:
                          "without SIE embeddings the coefficient is unused")
 
 
+def check_manifest_flags(args) -> tuple:
+    """The BRIAR manifest trio: all three or none, and only with the BRIAR
+    target (JAX ``:153-168``) → the three paths."""
+    paths = (args.train_file_path, args.queries_file_path, args.gallery_file_path)
+    if any(paths):
+        if not all(paths):
+            raise SystemExit("--train_file_path/--queries_file_path/--gallery_file_path "
+                             "must be given together (evaluate.py:77)")
+        if "BRIAR" not in args.targets:
+            raise SystemExit("manifest paths are consumed by the BRIAR target only — "
+                             "add BRIAR to --targets (evaluate.py:130-136)")
+    return paths
+
+
+def rank_multisplit(target, extractor, validator, queries, gallery, results) -> None:
+    """Every (query set, gallery split) pair; the mean rank-1 and mAP over
+    the gallery splits of each query set go to ``results["<target>:q<i>"]``.
+    Each split is extracted once, query set 0 first."""
+    galleries = gallery if isinstance(gallery, list) else [gallery]
+    query_sets = queries if isinstance(queries, list) else [queries]
+    q_fvs = [extractor.extract(query_sets[0], verbose=False)]
+    g_fvs = [extractor.extract(g, verbose=False) for g in galleries]
+    q_fvs += [extractor.extract(q, verbose=False) for q in query_sets[1:]]
+    for qi, (qset, qf) in enumerate(zip(query_sets, q_fvs)):
+        r1s, maps = [], []
+        for gset, gf in zip(galleries, g_fvs):
+            cmc, mAP = validator.rank_features(qf, gf, qset, gset)
+            r1s.append(float(cmc[0]))
+            maps.append(float(mAP))
+        print(f"[{target}:q{qi}] mean over {len(galleries)} gallery splits: "
+              f"mAP {np.mean(maps):.2%}  Rank-1 {np.mean(r1s):.2%}")
+        results[f"{target}:q{qi}"] = (float(np.mean(r1s)), float(np.mean(maps)))
+
+
 def main(args):
-    reject_unported(args, _UNPORTED)
+    reject_unported(args, MULTIHOST_FLAGS)
     if args.sharded_eval:
         raise SystemExit("--sharded_eval is not yet ported to daliid_tpu_torch")
-    reject_briar(*args.targets)
     check_transformer_flags(args)
-    if args.head_weighting != "mean" and not args.multiple_output:
-        raise SystemExit("--head_weighting applies only with --multiple_output")
     if args.rerank and (args.multiple_output or args.model_name in MULTIHEAD_MODELS):
         raise SystemExit("--rerank supports single-output evaluation only")
+    manifests = check_manifest_flags(args)
+    if args.head_weighting != "mean" and not args.multiple_output:
+        raise SystemExit("--head_weighting applies only with --multiple_output")
     device = resolve_device(args.device)
     img_size = (args.img_height, args.img_width)
     bundle = load_bundle(args.model_name, args.model_path, img_size,
@@ -155,14 +199,25 @@ def main(args):
                                  calib_batches=args.calib_batches)
     results = {}
     for target in args.targets:
-        splits = load_dataset(target, root=args.data_root)
+        splits = load_eval_splits(target, args.data_root,
+                                  *(manifests if target == "BRIAR" else (None,) * 3))
         queries, gallery = splits["query"], splits["gallery"]
         if args.sie_cameras:
             check_camera_ids(args.sie_cameras, (queries, gallery), target)
-        validator = get_validator(target, img_size=img_size, batch_size=args.batch_size,
+        # the manifests rank with the standard protocol (evaluate.py:318-330)
+        validator = get_validator("standard" if target == "BRIAR" else target,
+                                  img_size=img_size, batch_size=args.batch_size,
                                   device=device, rerank=args.rerank)
+        if isinstance(gallery, list) or isinstance(queries, list):
+            if args.multiple_output:
+                raise SystemExit(f"--multiple_output is not supported on multi-split targets "
+                                 f"({target}); evaluate per head instead")
+            rank_multisplit(target, extractor, validator, queries, gallery, results)
+            continue
         q_fvs = extractor.extract(queries, verbose=True)
-        g_fvs = extractor.extract(gallery, verbose=True)
+        g_fvs = extractor.extract(gallery, turbulence_dir=args.turbulence_dir_path,
+                                  turb_strength=args.turbulence_strength, dataset=target,
+                                  verbose=True)
 
         def report(tag, distmat):
             cmc, mAP = validator.rank(distmat, queries, gallery)

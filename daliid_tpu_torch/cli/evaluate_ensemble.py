@@ -5,9 +5,10 @@ Loads two trained models, possibly of different backbones, ranks each
 one's cosine distmat and then their mean, through kernel K2 on the device,
 and returns ``{model01, model02, ensemble}`` with each one's rank-1 and
 mAP. ``--quantize int8`` extracts in int8, each model's extractor
-calibrated on its first batches (the queries). Flags are the JAX CLI's plus
-``--device``; the BRIAR manifests and the multi-host flags exit with an
-error that names them.
+calibrated on its first batches (the queries). ``--dataset BRIAR`` with
+the three manifest flags reads the ``.npy`` manifests and ranks with the
+standard protocol (JAX ``:62-72``). Flags are the JAX CLI's plus
+``--device``; the multi-host flags exit with an error that names them.
 
 Example::
 
@@ -21,14 +22,9 @@ import argparse
 
 import torch
 
-from daliid_tpu_torch.cli.common import reject_briar, reject_unported
+from daliid_tpu_torch.cli.common import MULTIHOST_FLAGS, reject_unported
 from daliid_tpu_torch.cli.evaluate import load_bundle
-from daliid_tpu_torch.cli.evaluate_fusion import (
-    UNPORTED,
-    add_quantize_flags,
-    add_unported_flags,
-)
-from daliid_tpu_torch.data.registry import load_dataset
+from daliid_tpu_torch.cli.evaluate_fusion import add_manifest_flags, add_quantize_flags, eval_splits
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.eval.fusion import average_distmats
@@ -50,21 +46,21 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=512)
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     add_quantize_flags(p)
-    add_unported_flags(p)
+    add_manifest_flags(p)
     add_device_flag(p)
     return p
 
 
 def main(args):
-    reject_unported(args, UNPORTED)
-    reject_briar(args.dataset)
+    reject_unported(args, MULTIHOST_FLAGS)
     device = resolve_device(args.device)
     img_size = (args.img_height, args.img_width)
     dtype = parse_dtype(args.compute_dtype)
-    splits = load_dataset(args.dataset, root=args.data_root)
+    splits = eval_splits(args)
     queries, gallery = splits["query"], splits["gallery"]
-    validator = get_validator(args.dataset, img_size=img_size, batch_size=args.batch_size,
-                              device=device)
+    # the manifests rank with the standard protocol (evaluate_ensembled_models.py:318-330)
+    validator = get_validator("standard" if args.dataset == "BRIAR" else args.dataset,
+                              img_size=img_size, batch_size=args.batch_size, device=device)
     results = {}
     distmats = []
     for tag, name, path in (("model01", args.model_name01, args.model_path01),

@@ -17,9 +17,12 @@ the JAX CLI extracts again with the same numbers.
 
 ``--quantize int8`` extracts in int8, calibrated per (model, pooling) and
 split, as the JAX CLI builds one extractor for each (``:105-123``); the
-magnitude fusions then weigh raw int8 embedding norms. Flags are the JAX
-CLI's plus ``--device``; the BRIAR manifests and the multi-host flags exit
-with an error that names them.
+magnitude fusions then weigh raw int8 embedding norms. ``--dataset BRIAR``
+with ``--train_file_path``, ``--queries_file_path`` and
+``--gallery_file_path`` reads the ``.npy`` manifests
+(:func:`~daliid_tpu_torch.data.briar.load_eval_splits`, JAX ``:91``).
+Flags are the JAX CLI's plus ``--device``; the multi-host flags exit with
+an error that names them.
 
 Example::
 
@@ -35,14 +38,9 @@ import copy
 import numpy as np
 import torch
 
-from daliid_tpu_torch.cli.common import (
-    MULTIHOST_FLAGS,
-    add_multihost_flags,
-    reject_briar,
-    reject_unported,
-)
+from daliid_tpu_torch.cli.common import MULTIHOST_FLAGS, add_multihost_flags, reject_unported
 from daliid_tpu_torch.cli.evaluate import load_bundle
-from daliid_tpu_torch.data.registry import load_dataset
+from daliid_tpu_torch.data.briar import load_eval_splits
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.eval.fusion import (
@@ -57,10 +55,6 @@ from daliid_tpu_torch.eval.validate import Validator
 from daliid_tpu_torch.metrics.ranking import cosine_distance_matrix
 from daliid_tpu_torch.models.factory import ModelBundle
 
-UNPORTED = {"train_file_path": None, "queries_file_path": None, "gallery_file_path": None,
-            **MULTIHOST_FLAGS}
-
-
 def add_quantize_flags(p: argparse.ArgumentParser) -> None:
     """The two fusion CLIs' int8 extraction flags."""
     p.add_argument("--quantize", type=str, default=None, choices=["int8"],
@@ -71,12 +65,23 @@ def add_quantize_flags(p: argparse.ArgumentParser) -> None:
                         "absmax)")
 
 
-def add_unported_flags(p: argparse.ArgumentParser) -> None:
-    """The two fusion CLIs' flags of features not ported yet."""
-    p.add_argument("--train_file_path", type=str, default=None, help="not yet ported")
-    p.add_argument("--queries_file_path", type=str, default=None, help="not yet ported")
-    p.add_argument("--gallery_file_path", type=str, default=None, help="not yet ported")
+def add_manifest_flags(p: argparse.ArgumentParser) -> None:
+    """The two fusion CLIs' BRIAR manifest trio (``--dataset BRIAR``) and
+    the multi-host flags, not ported yet."""
+    p.add_argument("--train_file_path", type=str, default=None,
+                   help="BRIAR dataset: training-manifest .npy")
+    p.add_argument("--queries_file_path", type=str, default=None,
+                   help="BRIAR dataset: probe-manifest .npy")
+    p.add_argument("--gallery_file_path", type=str, default=None,
+                   help="BRIAR dataset: gallery-manifest .npy")
     add_multihost_flags(p)
+
+
+def eval_splits(args) -> dict:
+    """The dataset's splits, or the BRIAR manifests'."""
+    return load_eval_splits(args.dataset, root=args.data_root, train_npy=args.train_file_path,
+                            queries_npy=args.queries_file_path,
+                            gallery_npy=args.gallery_file_path)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -94,7 +99,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--roc_version", type=str, default=None,
                    help="dump FPR/TPR arrays with this tag")
     add_quantize_flags(p)
-    add_unported_flags(p)
+    add_manifest_flags(p)
     add_device_flag(p)
     return p
 
@@ -124,12 +129,11 @@ def with_pooling(bundle, pooling: str):
 
 
 def main(args):
-    reject_unported(args, UNPORTED)
-    reject_briar(args.dataset)
+    reject_unported(args, MULTIHOST_FLAGS)
     device = resolve_device(args.device)
     img_size = (args.img_height, args.img_width)
     dtype = parse_dtype(args.compute_dtype)
-    splits = load_dataset(args.dataset, root=args.data_root)
+    splits = eval_splits(args)
     queries, gallery = splits["query"], splits["gallery"]
     clean = load_bundle(args.model_name, args.model_path_clean, img_size, dtype, device)
     dist = load_bundle(args.model_name, args.model_path_distortion, img_size, dtype, device)

@@ -12,7 +12,11 @@ and replays the RNG stream. Flags are the JAX CLI's (``:36-145``) plus
 ``--device``, with its checks of the classifier, margin-head and SIE flags
 (``:214-264``). ``--mining_quantize int8`` re-embeds the train set for
 mining through a separate int8 extractor that recalibrates each epoch
-(``--mining_calib_batches``); validation stays in full precision. The
+(``--mining_calib_batches``); validation stays in full precision. With
+``--dataset MSMT17`` (first of the list) each validation also prints the
+balanced accuracy of the online model on MSMT17's ``val`` split (JAX
+``:370-372``). The sampler names the turbulence copies by the first
+dataset of ``--dataset`` (JAX ``:285``), for every merged table. The
 flags of features not ported yet (remat, fault injection, multi-host) exit with an error that names them, and so
 does a multi-head model, whose tuple of embeddings the losses do not take.
 
@@ -40,7 +44,7 @@ from daliid_tpu_torch.cli.common import (
 from daliid_tpu_torch.config import TrainConfig
 from daliid_tpu_torch.data.registry import data_root, load_dataset, merge_train_tables
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
-from daliid_tpu_torch.eval.validate import get_validator
+from daliid_tpu_torch.eval.validate import get_validator, msmt17_balanced_accuracy
 from daliid_tpu_torch.models.factory import (
     MARGIN_HEAD_MODELS,
     MULTIHEAD_MODELS,
@@ -211,7 +215,7 @@ def main(args):
 
     sampler = PKBatchSampler(train_table, train_table.pids, P=cfg.P, K=cfg.K,
                              kind_of_transform=cfg.kind_of_transform,
-                             turbulence_dir=turbulence_dir, seed=cfg.seed)
+                             turbulence_dir=turbulence_dir, dataset=names[0], seed=cfg.seed)
     trainer = Trainer(
         online, momentum, sampler, img_size=cfg.img_size, base_lr=cfg.lr,
         weight_decay=cfg.weight_decay, tau=cfg.tau, beta=cfg.beta,
@@ -270,6 +274,9 @@ def main(args):
             cmc, mAP, _ = validator.validate(queries, gallery, trainer.extractor, verbose=True)
             trainer.extractor.update_variables(trainer.momentum.state_dict())
             cmc_m, mAP_m, _ = validator.validate(queries, gallery, trainer.extractor, verbose=True)
+            if names[0] == "MSMT17" and "val" in splits:
+                trainer.extractor.update_variables(trainer.online.state_dict())
+                msmt17_balanced_accuracy(train_table, splits["val"], trainer.extractor)
             r1 = float(max(cmc[0], cmc_m[0]))
             if r1 > best_r1:
                 best_r1, best_iter = r1, epoch

@@ -1,9 +1,10 @@
-"""One typed training configuration: model, data, sampler, losses, schedule,
-eval.
+"""Typed configurations: training (model, data, sampler, losses, schedule,
+eval) and evaluation.
 
 Copy of ``daliid_tpu/config.py::TrainConfig`` (the reference's
-``mainKIT.py:316-344`` flags), plus ``device``. The field of a feature that
-is not ported yet (remat) is left out; ``cli/train.py`` rejects its flag.
+``mainKIT.py:316-344`` flags) and ``EvalConfig`` (``:100-117``), each plus
+``device``. The field of a feature that is not ported yet (remat) is left
+out; ``cli/train.py`` rejects its flag.
 """
 
 from __future__ import annotations
@@ -63,6 +64,28 @@ class TrainConfig:
     mining_calib_batches: int = 1
     decode_workers: int = 16
     grad_accum: int = 1                   # microbatches per optimizer step
+    device: str = "cuda"
+
+    @property
+    def img_size(self) -> Tuple[int, int]:
+        return (self.img_height, self.img_width)
+
+
+@dataclasses.dataclass
+class EvalConfig:
+    model_name: str = "resnet50"
+    model_path: Optional[str] = None
+    model_path_second: Optional[str] = None   # ensemble / fusion second model
+    img_height: int = 256
+    img_width: int = 128
+    compute_dtype: str = "bfloat16"
+    dataset: str = "Market"
+    data_root: Optional[str] = None
+    batch_size: int = 512
+    turbulence_dir: Optional[str] = None
+    turb_strength: Optional[int] = None
+    multiple_output: bool = False
+    roc_version: Optional[str] = None
     device: str = "cuda"
 
     @property

@@ -27,9 +27,12 @@ Port of ``daliid_tpu/eval/features.py``: :class:`FeatureExtractor`
   rows tiled to the batch size (padding rows normalize to the most extreme
   constant image and would skew the scales), and an extract of nothing never
   calibrates. :meth:`FeatureExtractor.update_variables` drops the scales, so
-  the next extract recalibrates on the new weights.
-
-Not ported yet: turbulence galleries; the CLIs reject their flags.
+  the next extract recalibrates on the new weights;
+- ``turbulence_dir=`` embeds each image's pre-rendered turbulence copy at
+  ``turb_strength`` instead of the image (the paper's distorted gallery,
+  ``:236-258``): the paths are rewritten before decode, with the naming of
+  ``dataset`` (default: the table's name; MSMT17's copies are
+  pid-prefixed).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import torch
 
 from daliid_tpu_torch.augment.preprocess import decode_images, normalize_images
 from daliid_tpu_torch.data.registry import ReidTable
+from daliid_tpu_torch.data.turbulence import turbulence_path
 from daliid_tpu_torch.ops import quantize as q8
 
 
@@ -131,15 +135,21 @@ class FeatureExtractor:
             x = normalize_images(x, dtype=getattr(self.bundle.module, "dtype", torch.float32))
         return x, kw
 
-    def extract(self, table_or_paths, verbose: bool = False):
-        """Embed every image → (N, feature_dim) float32 numpy array, or a
-        tuple of (N, D_h) arrays for a multi-head model."""
+    def extract(self, table_or_paths, turbulence_dir: str | None = None,
+                turb_strength: int | None = None, dataset: str | None = None,
+                verbose: bool = False):
+        """Embed every image (or, with ``turbulence_dir``, its turbulence
+        copy at ``turb_strength``) → (N, feature_dim) float32 numpy array,
+        or a tuple of (N, D_h) arrays for a multi-head model."""
         if isinstance(table_or_paths, ReidTable):
             paths = [str(p) for p in table_or_paths.paths]
             camids = np.asarray(table_or_paths.camids, np.int64)
+            dataset = dataset or table_or_paths.name
         else:
             paths = [str(p) for p in table_or_paths]
             camids = np.zeros(len(paths), np.int64)
+        if turbulence_dir:
+            paths = [turbulence_path(p, turbulence_dir, turb_strength, dataset) for p in paths]
         n = len(paths)
         bs = self.batch_size
         num_batches = -(-n // bs)
@@ -224,9 +234,12 @@ class FeatureExtractor:
 
 
 def extract_features(table_or_paths, bundle, img_size=(256, 128), batch_size: int = 512,
-                     device=None, verbose: bool = False, quantize: str | None = None,
+                     device=None, turbulence_dir: str | None = None,
+                     turb_strength: int | None = None, dataset: str | None = None,
+                     verbose: bool = False, quantize: str | None = None,
                      calib_batches: int = 1):
     """One-shot wrapper: build a :class:`FeatureExtractor` and extract."""
     ex = FeatureExtractor(bundle, img_size=img_size, batch_size=batch_size, device=device,
                           quantize=quantize, calib_batches=calib_batches)
-    return ex.extract(table_or_paths, verbose=verbose)
+    return ex.extract(table_or_paths, turbulence_dir=turbulence_dir,
+                      turb_strength=turb_strength, dataset=dataset, verbose=verbose)

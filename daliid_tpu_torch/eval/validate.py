@@ -9,10 +9,15 @@ attributes. A multi-head model's tuple of head embeddings ranks by the
 mean of the heads' distmats or their per-pair max-norm weighting
 (``:168-188``), on the device. ``rerank=True`` applies k-reciprocal
 re-ranking (``:82-106``, :func:`reranked_distance_matrix`) on the device.
+:func:`msmt17_balanced_accuracy` (``:302-335``) and :class:`MSMT17Validator`
+(``:252-299``) score a validation split by its nearest train-class center,
+in numpy on the extracted features as the JAX function computes it.
 Not ported yet: the sharded path (the evaluate CLI rejects its flag).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -146,3 +151,75 @@ def get_validator(dataset_name: str, **kw) -> Validator:
     if dataset_name == "BRIAR":
         return BriarValidator(**kw)
     return Validator(**kw)
+
+
+def _l2n(x: np.ndarray) -> np.ndarray:
+    return x / (np.linalg.norm(x, axis=1, keepdims=True) + 1e-12)
+
+
+class MSMT17Validator:
+    """Best balanced accuracy over training: each :meth:`validate` scores
+    the online and the momentum model on the val split and, when the better
+    of the two beats the best so far, saves both models' weights as
+    ``model_{online,momentum}_bestACC_<model>_<version>.pt`` under
+    ``save_dir``."""
+
+    def __init__(self, train_table, val_table, img_size=(256, 128), batch_size: int = 512,
+                 save_dir=None, model_name: str = "model", version: str = "v0"):
+        self.train_table = train_table
+        self.val_table = val_table
+        self.img_size = img_size
+        self.batch_size = batch_size
+        self.save_dir = save_dir
+        self.model_name = model_name
+        self.version = version
+        self.best_accuracy = 0.0
+        self.best_iter = 0
+
+    def validate(self, pipeline_iter, online_extractor, momentum_extractor,
+                 online_state=None, momentum_state=None, verbose: bool = True):
+        """→ (online accuracy, momentum accuracy); ``*_state`` are the
+        models' state dicts to snapshot on a new best."""
+        from daliid_tpu_torch.train.checkpoint import save_weights
+
+        acc_online = msmt17_balanced_accuracy(self.train_table, self.val_table,
+                                              online_extractor, verbose=verbose)
+        acc_momentum = msmt17_balanced_accuracy(self.train_table, self.val_table,
+                                                momentum_extractor, verbose=verbose)
+        best = max(acc_online, acc_momentum)
+        if best > self.best_accuracy:
+            self.best_accuracy, self.best_iter = best, pipeline_iter
+            if self.save_dir and online_state is not None:
+                os.makedirs(self.save_dir, exist_ok=True)
+                for which, state in (("online", online_state), ("momentum", momentum_state)):
+                    if state is not None:
+                        save_weights(os.path.join(
+                            self.save_dir,
+                            f"model_{which}_bestACC_{self.model_name}_{self.version}.pt"), state)
+        if verbose:
+            print(f"Best Balanced Accuracy: {self.best_accuracy:.2%} and best iter: "
+                  f"{self.best_iter}")
+        return acc_online, acc_momentum
+
+
+def msmt17_balanced_accuracy(train_table: ReidTable, val_table: ReidTable, bundle_or_extractor,
+                             img_size=(256, 128), batch_size: int = 512, device=None,
+                             verbose: bool = True) -> float:
+    """Center-based balanced accuracy on a validation split: per-class
+    centers of the L2-normalized train features, the nearest center (by
+    cosine) predicts each val sample, and the mean over val classes of the
+    share predicted right."""
+    extractor = (bundle_or_extractor if isinstance(bundle_or_extractor, FeatureExtractor)
+                 else FeatureExtractor(bundle_or_extractor, img_size=img_size,
+                                       batch_size=batch_size, device=device))
+    train_fvs = _l2n(extractor.extract(train_table))
+    val_fvs = _l2n(extractor.extract(val_table))
+    labels = np.unique(train_table.pids)
+    centers = _l2n(np.stack([train_fvs[train_table.pids == l].mean(axis=0) for l in labels]))
+    predicted = labels[np.argmax(val_fvs @ centers.T, axis=1)]
+    true_match = predicted == val_table.pids
+    acc = float(np.mean([true_match[val_table.pids == l].mean()
+                         for l in np.unique(val_table.pids)]))
+    if verbose:
+        print(f"Balanced Accuracy on Validation Set: {acc:.3%}")
+    return acc

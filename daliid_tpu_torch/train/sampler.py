@@ -16,7 +16,9 @@ Re-implements the reference's ``samplePKBatches`` dataset
   (``train_encodersKIT.py:350-360``);
 - ``kind_of_transform == 1``: every image is paired with its pre-rendered
   turbulence copy at a uniformly random strength 1-5, emitted adjacently
-  with distortion labels ``[0, s]`` (``train_encodersKIT.py:365-394``).
+  with distortion labels ``[0, s]`` (``train_encodersKIT.py:365-394``); the
+  copy's name follows ``dataset`` (default: the table's name), as
+  :func:`~daliid_tpu_torch.data.turbulence.turbulence_path` reads it.
 
 Departure kept from the JAX package: the reference tolerates ragged
 batches (classes with < K images yield fewer samples); here every batch is
@@ -65,6 +67,7 @@ class PKBatchSampler:
         K: int = 12,
         kind_of_transform: int = 1,
         turbulence_dir: str | None = None,
+        dataset: str | None = None,
         turbulence_strengths=(1, 2, 3, 4, 5),
         seed: int = 12,
     ):
@@ -77,6 +80,8 @@ class PKBatchSampler:
         self.K = K
         self.kind_of_transform = kind_of_transform
         self.turbulence_dir = turbulence_dir
+        # names the turbulence copies (MSMT17's are pid-prefixed)
+        self.dataset = dataset or table.name
         self.strengths = tuple(turbulence_strengths)
         self._rng = np.random.default_rng(seed)
         if kind_of_transform == 1 and not turbulence_dir:
@@ -122,7 +127,7 @@ class PKBatchSampler:
                 camid = int(self.table.camids[row])
                 if self.kind_of_transform == 1:
                     s = int(self._rng.choice(self.strengths))
-                    at_path = turbulence_path(img_path, self.turbulence_dir, s)
+                    at_path = turbulence_path(img_path, self.turbulence_dir, s, self.dataset)
                     paths += [img_path, at_path]
                     labels += [cls, cls]
                     distortions += [0, s]

@@ -448,7 +448,11 @@ def test_serve_int8_extractor_answers_like_jax(world, tmp_path, one_torch_thread
 
 def test_evaluate_cli_rejects_unported_flags(world):
     parse = port_evaluate.build_argparser().parse_args
-    for extra in (["--turbulence_dir_path", "x"], ["--queries_file_path", "x"],
-                  ["--multihost"]):
+    for extra in (["--multihost"], ["--sharded_eval"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             port_evaluate.main(parse(["--targets", "Synthetic", "--device", "cpu", *extra]))
+    # the turbulence and manifest flags are ported (tests/test_torch_datasets.py):
+    # a manifest flag without the rest of its trio is refused as in JAX
+    with pytest.raises(SystemExit, match="must be given together"):
+        port_evaluate.main(parse(["--targets", "Synthetic", "--device", "cpu",
+                                  "--queries_file_path", "x"]))
