@@ -111,7 +111,51 @@ Phases, in order; any failed check exits non-zero and prints no result:
     times); ``cli.search.main --dataset MSMT17`` (K3 f32); ``cli.stats.main``
     (its table: MSMT17, PRCC:g0-g9, PRCC:q0-q2). Every CMC equal to the
     numpy oracle.
-20. int8 extraction, the float phases above having launched no conv_int8:
+20. multi-process runs on the one card (``daliid_tpu_torch/parallel``),
+    each process started by this script with ``python3 chip_smoke.py
+    --gang-child <spec>`` or ``python -m daliid_tpu_torch supervise``:
+    20a. the crash drill: ``supervise --multihost 1`` over ``cli.train``
+    (ResNet-50, P16 K12 paired, 3 epochs of 2 steps, ``--ckpt_freq 1``, no
+    validation) on NCCL, once clean (beside ``supervise --multihost 0``
+    with ``--fault_inject_epoch 2``: the process raises and resumes from
+    epoch 1) and once with ``--fault_inject_epoch 2 --fault_inject_rank
+    0``: the SIGKILL (rc -9), attempt 2, "Resumed from epoch 1", completion
+    after 2 attempts; the epoch-1 checkpoint, copied when the rank died,
+    through ``Trainer.load_state_dict`` and back equals itself bit for bit
+    (RNG streams too); the stitched final state equal to the clean one bit
+    for bit (parameters, BN statistics, Adam's state, RNG streams).
+    20b. two ranks on the one card (gloo), one gang for all of: ``evaluate
+    --multihost --sharded_eval`` in bf16 and with ``--quantize int8``,
+    ``search`` at k = 10 on SQ8 and on f32, the first train step's summed
+    gradient (before Adam), one ``train`` epoch of 2 steps at P16 K12 with
+    its (sharded) validation, and the timed step. Each
+    command's K1 / K2 / K3 / conv_int8 counts print on a line of their own,
+    and each must rise on both ranks. The same commands in this process at
+    half the batch (a rank's forward batch): every CMC equal, mAP within
+    1e-12, search ids equal, SQ8 scores bit-exact, embeddings within cosine
+    0.999 (int8 0.998), both ranks' answers equal; the first step's (f32)
+    gradient within ``GRAD_L2_TOL`` in relative L2 norm of one process's
+    and its BN running-statistics updates within ``BN_STEP_TOL`` of the
+    largest of each (the floor, one process against itself with native BN
+    kernels, printed beside it); after the bf16 epoch the parameters within
+    Adam's reach of two steps, the BN running statistics within
+    ``BN_EPOCH_TOL`` in relative L2 norm, Adam's step counts equal and its
+    moments' norms within ``MOMENT_NORM_FACTOR``. A third process times the
+    plain step and, after joining a 1-rank NCCL gang, holds the gang's
+    fused BN (``models/norm.py::_GangBatchNorm``) against its eager version
+    and against one process's cuDNN BN at ResNet-50's layer1 shape, forward
+    and backward, and times all three and the gang's step; the 2-rank gang
+    times
+    its step and a gradient-sized (94 MB) all-reduce on gloo (a 1-rank
+    NCCL all-reduce exchanges nothing, so NCCL's is not measurable on one
+    card).
+    20c. ``evaluate_rank_sharded`` on one process at MSMT17's protocol shape
+    (Q 11,659, G 82,161, 2048-d rows of +-1 at 64 coordinates, so every
+    distance is exact whatever the product's order) with ``query_chunk``
+    512: K2 23 times, CMC equal to the replicated ``evaluate_rank`` on the
+    whole distmat and mAP within 1e-12; time and peak memory of both; K2 at
+    the chunk shape (512, 82,161) equal to its plain version.
+21. int8 extraction, the float phases above having launched no conv_int8:
     ``cli.evaluate.main --quantize int8`` with ResNet-50 (K2 once,
     conv_int8 launched, the CMC equal to the oracle), again with
     ``--calib_batches 2 --batch_size 128``; 16 query images in f32 on the
@@ -127,7 +171,7 @@ Phases, in order; any failed check exits non-zero and prints no result:
     embedding, 48 ``torch._int_mm`` Dense layers a forward); ``cli.train.main
     --mining_quantize int8``, one epoch of 2 steps (K1 twice, conv_int8 in
     mining and not in the two validations, finite losses).
-21. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
+22. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
     D=2048, k=10 over 2^20 gallery rows (the f32 bound is the tensor
     cores': bytes, or 3 TF32 products a multiply-add), and at the serve
     path's shape; K2 at the Market-1501 protocol shape (Q=3368, G=15913) at
@@ -166,8 +210,8 @@ Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 before each of the serve, search, evaluate, train, transformer evaluate,
 transformer train, fusion, ensemble, multi-head, k > 64 search, zoo
 evaluate (each family), densenet train, re-ranked evaluate, re-ranked
-search, each step of the datasets phase and each int8 phase and read just
-after.
+search, each step of the datasets phase, each int8 phase and each command
+of phase 20's processes (which print theirs) and read just after.
 
 Run from the repository root: ``python3 chip_smoke.py``. The kernels,
 the synthetic sets, the saved index and the checkpoints go under ``build/``.
@@ -575,6 +619,7 @@ def phase_serve(torch, splits, counts):
     # normalizes again, which moves ulps and with them int8 roundings)
     reference = GalleryIndex.__new__(GalleryIndex)
     reference.quantize, reference.device, reference.gallery_pids = "int8", "cpu", row_pids
+    reference._ranks = 1
     reference._commit(rows, normalized=True)
     probes = rows[:64]
     r = c.request({"op": "search", "embeddings": probes.tolist(), "topk": 10})
@@ -2871,6 +2916,785 @@ def _time_int8_extraction(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 20: multi-process
+# the crash drill's runs: 3 epochs of 2 steps over the 32-identity train set
+DRILL_EPOCHS = 3
+# the gang's train step, timed over this many steps after 2 of warm-up
+GANG_STEPS = 5
+# the bounded-memory ranking's query chunk (MSMT17's 11,659 queries: 23 chunks)
+RANK_CHUNK = 512
+# how far two runs whose gradients differ in their last bits may part in a
+# step: Adam moves a parameter by at most about 3.2 lr ((1 - b1) / sqrt(1 - b2)
+# at 0.9, 0.999) whatever its gradient's size, each run so, at lr 3.5e-4
+ADAM_PART = 2 * 3.2 * 3.5e-4
+# the gang's first step (f32) against one process's: the summed gradient in
+# relative L2 norm, and each BN running-statistics update (after - before)
+# within this share of its largest entry. ResNet-50's step at its
+# initialization is chaotic: one process against itself with torch's
+# native BN kernels in place of cuDNN's (the same function, rounded
+# differently) moves the gradient by about 2e-2 (printed as the floor), so
+# the tolerance is twice that; a gang that sums one rank's gradient, skips
+# the all-reduce or the BN reduction is off by 0.5 or more
+GRAD_L2_TOL = 4e-2
+BN_STEP_TOL = 1e-4
+# after the 2-step bf16 epoch, where bf16 rounding alone decorrelates the
+# chaotic gradients (Adam's moments 1.0-1.3 apart in relative L2 norm) and
+# so the second step's activations: the BN running statistics within this
+# relative L2 distance of one process's (measured 0.043); Adam's moments'
+# norms within this factor of one process's either way (a sum over the
+# ranks gone wrong scales them)
+BN_EPOCH_TOL = 0.1
+MOMENT_NORM_FACTOR = 1.5
+
+
+def _train_flags(root, ckpt, epochs: int, eval_freq: int = 100) -> list:
+    """The train CLI at its defaults (ResNet-50, P16 K12 paired), bf16, a
+    crash-resume checkpoint every epoch, no initial validation."""
+    return ["--dataset", "Synthetic", "--data_root", str(root), "--model_name", "resnet50",
+            "--compute_dtype", COMPUTE_DTYPE, "--P", str(P), "--K", str(K),
+            "--epochs", str(epochs), "--eval_freq", str(eval_freq), "--skip_initial_eval",
+            "--ckpt_freq", "1", "--path_to_save_models", str(ckpt),
+            "--path_to_save_metrics", f"{ckpt}_metrics", *_img_flags()]
+
+
+def _run_children(cmds, name: str, timeout: float, on_line=None) -> list:
+    """Run ``cmds`` at once, each in its own process group, their output in
+    ``build/chip_smoke/<name>_<i>.log``; kill every group at ``timeout`` →
+    the outputs. Any command that fails fails the phase."""
+    procs, logs = [], []
+    for i, cmd in enumerate(cmds):
+        logs.append(open(WORK / f"{name}_{i}.log", "w"))
+        procs.append(subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True,
+                                      start_new_session=True))
+    outs = [[] for _ in cmds]
+
+    def pump(i):
+        for line in procs[i].stdout:
+            outs[i].append(line)
+            logs[i].write(line)
+            if on_line is not None:
+                on_line(line)
+
+    pumps = [threading.Thread(target=pump, args=(i,), daemon=True) for i in range(len(cmds))]
+    for t in pumps:
+        t.start()
+    deadline = time.time() + timeout
+    for t in pumps:
+        t.join(max(0.0, deadline - time.time()))
+    hung = False
+    for p in procs:
+        try:
+            p.wait(timeout=max(0.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            hung = True
+    for p in procs:  # whatever is left of the process groups
+        try:
+            os.killpg(p.pid, 9)
+        except ProcessLookupError:
+            pass
+        p.wait()
+    for f in logs:
+        f.close()
+    texts = ["".join(o) for o in outs]
+    for i, (p, text) in enumerate(zip(procs, texts)):
+        check(not hung and p.returncode == 0,
+              f"{name} process {i} exited {p.returncode}"
+              f"{f' (killed past {timeout:.0f} s)' if hung else ''}:\n{text[-3000:]}")
+    return texts
+
+
+def _supervise(name: str, multihost: int, root, epochs: int, *extra) -> list:
+    """The command of ``python -m daliid_tpu_torch supervise --multihost N``
+    over the train CLI, checkpoints under ``build/chip_smoke/<name>``."""
+    ckpt = WORK / name
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return [sys.executable, "-m", "daliid_tpu_torch", "supervise", "--multihost", str(multihost),
+            "--max_restarts", "1", "--backoff_seconds", "0", "--teardown_grace_seconds", "5",
+            "--", *_train_flags(root, ckpt, epochs), *extra]
+
+
+def _leaves(tree, path=""):
+    """(path, tensor) of every tensor in a nested checkpoint state."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    elif hasattr(tree, "dtype"):
+        yield path, tree
+
+
+def _state_diff(torch, a, b) -> dict:
+    """Two checkpoint states compared leaf by leaf → per group (parameters,
+    BN statistics, Adam's first and second moments and step counts) the
+    count of bit-equal leaves, the largest |difference|, the largest
+    |difference| of a leaf over that leaf's largest |entry| in ``b``, and
+    the group's relative L2 distance ``|a - b| / |b|`` and norm ratio
+    ``|a| / |b|``."""
+    lb, out = dict(_leaves(b)), {}
+    for path, x in _leaves(a):
+        y = lb[path]
+        group = (("adam_m" if path.endswith("exp_avg") else "adam_v"
+                  if path.endswith("exp_avg_sq") else "adam") if path.startswith("/optimizer")
+                 else "bn_stats" if "running_" in path else "params")
+        g = out.setdefault(group, {"leaves": 0, "bit_equal": 0, "max_abs_diff": 0.0,
+                                   "max_rel_to_largest": 0.0, "sq_diff": 0.0, "sq_a": 0.0,
+                                   "sq_ref": 0.0})
+        g["leaves"] += 1
+        g["bit_equal"] += int(torch.equal(x, y))
+        if x.is_floating_point() and x.numel():
+            d, ref = (x.double() - y.double()).abs(), y.double().abs()
+            g["max_abs_diff"] = max(g["max_abs_diff"], float(d.max()))
+            g["max_rel_to_largest"] = max(g["max_rel_to_largest"],
+                                          float(d.max() / ref.max().clamp_min(1e-30)))
+            g["sq_diff"] += float((d * d).sum())
+            g["sq_a"] += float((x.double() ** 2).sum())
+            g["sq_ref"] += float((ref * ref).sum())
+    for g in out.values():
+        ref = max(g.pop("sq_ref"), 1e-300)
+        g["rel_l2"] = (g.pop("sq_diff") / ref) ** 0.5
+        g["norm_ratio"] = (g.pop("sq_a") / ref) ** 0.5
+    return out
+
+
+def _drill_trainer(torch, dev, root, dtype_name: str = COMPUTE_DTYPE):
+    """A Trainer as the train CLI builds it for the drill's runs."""
+    from daliid_tpu_torch.data import load_dataset
+    from daliid_tpu_torch.device import parse_dtype
+    from daliid_tpu_torch.models import build_model_pair
+    from daliid_tpu_torch.train.sampler import PKBatchSampler
+    from daliid_tpu_torch.train.trainer import Trainer
+
+    dtype = parse_dtype(dtype_name)
+    table = load_dataset("Synthetic", root=str(root))["train"]
+    online, momentum = build_model_pair("resnet50", torch.Generator().manual_seed(12),
+                                        img_size=IMG, dtype=dtype, device=dev)
+    sampler = PKBatchSampler(table, table.pids, P=P, K=K, kind_of_transform=1,
+                             turbulence_dir=str(root / "Synthetic" / "turbulence"), seed=12)
+    return Trainer(online, momentum, sampler, img_size=IMG, tau=0.05, lambda_proxy=0.4,
+                   compute_dtype=dtype, extractor_batch=512)
+
+
+def phase_drill(torch, dev, root) -> dict:
+    """20a: the crash drill on one rank, on NCCL, and on one plain process."""
+    import numpy as np
+
+    from daliid_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.time()
+    # the clean gang run and the single-process drill at once (they share
+    # nothing but the card)
+    clean, single = _run_children(
+        [_supervise("drill_clean", 1, root, DRILL_EPOCHS),
+         _supervise("drill_single", 0, root, 2, "--fault_inject_epoch", "2")], "drill", 600)
+    check("training completed after 1 attempt(s)" in clean, "the clean drill run did not finish")
+    check(_multihost_info(clean)["backend"] == "nccl",
+          "the 1-rank gang did not run on NCCL")
+    for line in ("fault injection: simulated crash after epoch 2", "trainer exited rc=1",
+                 "[supervise] attempt 2", "Resumed from epoch 1",
+                 "training completed after 2 attempt(s)"):
+        check(line in single, f"the single-process drill printed no {line!r}")
+    check("multihost:" not in single, "supervise --multihost 0 started a gang")
+    t1 = time.time()
+    snap = WORK / "drill_restore" / "1.pt"
+    shutil.rmtree(snap.parent, ignore_errors=True)
+
+    def on_line(line):  # the epoch-1 checkpoint, when the trainer dies
+        if "exited rc=" in line and not snap.exists():
+            snap.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(WORK / "drill_fault" / "latest" / "1.pt", snap)
+
+    fault = _run_children([_supervise("drill_fault", 1, root, DRILL_EPOCHS,
+                                      "--fault_inject_epoch", "2", "--fault_inject_rank", "0")],
+                          "drill_fault", 600, on_line)[0]
+    for line in ("fault injection: SIGKILL rank 0 after epoch 2", "exited rc=-9",
+                 "[supervise] attempt 2", "Resumed from epoch 1",
+                 "training completed after 2 attempt(s)"):
+        check(line in fault, f"the NCCL drill printed no {line!r}")
+    check(all(i["backend"] == "nccl" for i in _multihost_infos(fault)),
+          "the drill's gang did not run on NCCL")
+    t2 = time.time()
+    # what the resumed run restored: the epoch-1 checkpoint through the
+    # Trainer and back, bit for bit
+    check(snap.exists(), "no epoch-1 checkpoint when the trainer died")
+    state, epoch, rng = CheckpointManager(str(snap.parent), track_best=False).restore(epoch=1)
+    check(epoch == 1, f"the snapshot holds epoch {epoch}")
+    trainer = _drill_trainer(torch, dev, root)
+    trainer.load_state_dict(state)
+    trainer.set_rng_state(rng)
+    back = trainer.state_dict()
+    restore = _state_diff(torch, state, _to_cpu(torch, back))
+    check(all(g["bit_equal"] == g["leaves"] for g in restore.values()),
+          f"the restored state differs from the epoch-1 checkpoint: {restore}")
+    check(all(np.array_equal(trainer.rng_state()[k], v) for k, v in rng.items()),
+          "the restored RNG streams differ from the checkpoint's")
+    del trainer
+    torch.cuda.empty_cache()
+    a = torch.load(WORK / "drill_clean" / "latest" / f"{DRILL_EPOCHS}.pt", weights_only=True)
+    b = torch.load(WORK / "drill_fault" / "latest" / f"{DRILL_EPOCHS}.pt", weights_only=True)
+    stitched = _state_diff(torch, a["state"], b["state"])
+    rng_equal = all(torch.equal(a["rng"][k], b["rng"][k]) for k in a["rng"])
+    exact = all(g["bit_equal"] == g["leaves"] for g in stitched.values())
+    check(rng_equal, "the stitched run's RNG streams differ from the clean run's")
+    check(exact, f"the stitched state is not the clean one bit for bit: {stitched}")
+    info = {"clean_and_single_s": t1 - t0, "fault_s": t2 - t1, "stitched_bit_exact": exact,
+            "stitched_vs_clean": stitched, "restored_bit_exact": True}
+    log(f"20a crash drill (ResNet-50 {COMPUTE_DTYPE}, P{P} K{K} paired, {DRILL_EPOCHS} epochs "
+        f"of {TRAIN_IDS // P} steps): supervise --multihost 1 on NCCL clean, beside supervise "
+        f"--multihost 0 (the process raises after epoch 2, resumes from 1) "
+        f"{info['clean_and_single_s']:.1f} s; SIGKILL of rank 0 after epoch 2 and resume from "
+        f"epoch 1 {info['fault_s']:.1f} s (restored state equal to the epoch-1 checkpoint bit "
+        f"for bit); stitched against clean: bit-exact {json.dumps(stitched)}")
+    return info
+
+
+def _to_cpu(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(torch, v) for v in tree)
+    return tree.cpu() if hasattr(tree, "cpu") else tree
+
+
+class _RecordExtract:
+    """Records what every ``FeatureExtractor.extract`` returns while active."""
+
+    def __init__(self):
+        from daliid_tpu_torch.eval import features
+
+        self.cls, self.original, self.out = features.FeatureExtractor, \
+            features.FeatureExtractor.extract, []
+
+    def __enter__(self):
+        original, out = self.original, self.out
+
+        def extract(ex, *a, **kw):
+            res = original(ex, *a, **kw)
+            out.append(res)
+            return res
+
+        self.cls.extract = extract
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.extract = self.original
+
+
+def _cli_arrays(module: str, res) -> dict:
+    """A CLI's result as arrays: evaluate's CMC and mAP, search's answer."""
+    import numpy as np
+
+    if module == "evaluate":
+        cmc, mAP = res["Synthetic"]
+        return {"cmc": np.asarray(cmc), "map": np.asarray([mAP])}
+    if module == "search":
+        return dict(zip(("sims", "ids", "pids"), (np.asarray(r) for r in res)))
+    return {}
+
+
+class _NativeBatchNorm:
+    """While active, one process's BN runs torch's native CUDA kernels
+    instead of cuDNN's: the same function, rounded differently."""
+
+    def __enter__(self):
+        import torch
+
+        from daliid_tpu_torch.models.norm import TorchBatchNorm
+
+        self.cls, self.original = TorchBatchNorm, TorchBatchNorm.forward
+        original = self.original
+
+        def forward(bn, x):
+            with torch.backends.cudnn.flags(enabled=False):
+                return original(bn, x)
+
+        TorchBatchNorm.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.original
+
+def _first_step(torch, root, dtype_name: str) -> dict:
+    """The drill's Trainer's first step up to Adam in ``dtype_name`` (this
+    rank's block of the batch in a gang) → its flat gradient, summed over
+    the gang, and each BN running statistic's update (after - before), as
+    arrays."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    trainer = _drill_trainer(torch, dev, root, dtype_name)
+
+    def stats():
+        return {k.replace(".", "/"): v.detach().clone() for k, v in
+                trainer.online.state_dict().items() if "running_" in k}
+
+    pset = trainer.mine_proxies()
+    before = stats()
+    images_u8, labels, dist, mask, camids = (t.to(dev) for t in trainer._stage(
+        next(iter(trainer.sampler.epoch()))))
+    trainer.forward_backward(trainer.augment(images_u8), labels, dist, mask,
+                             torch.as_tensor(pset.centers, device=dev),
+                             torch.as_tensor(pset.proxies, device=dev),
+                             torch.as_tensor(pset.proxy_labels, device=dev).long(), 1, camids)
+    grad = torch.cat([p.grad.reshape(-1).float() for p in trainer._params if p.grad is not None])
+    out = {"grad": grad.cpu().numpy()}
+    out.update({f"bn{k}": (v - before[k]).cpu().numpy() for k, v in stats().items()})
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _gang_bn_check(torch) -> dict:
+    """In a 1-rank gang: the gang BN's fused path (``_GangBatchNorm``)
+    against its eager version (``_global_batch_norm_plain``) and against
+    one process's BN (cuDNN's ``F.batch_norm``) on the same bf16 input at
+    ResNet-50's layer1 shape (384 x 256 x 64 x 32, channels-last,
+    per-channel scales and shifts): the output, the input's and the
+    affine's gradients and the running statistics, each's largest
+    |difference| over its largest |entry|; the forward + backward time of
+    all three."""
+    import copy
+
+    from daliid_tpu_torch.models.norm import TorchBatchNorm
+    from daliid_tpu_torch.parallel import mesh
+
+    check(mesh.active(), "the BN check runs in a gang")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    c = 256
+    scale = torch.rand((1, c, 1, 1), generator=gen, device=dev) * 3 + 0.1
+    shift = torch.randn((1, c, 1, 1), generator=gen, device=dev)
+    x = (torch.randn((2 * P * K, c, 64, 32), generator=gen, device=dev) * scale + shift)
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    base = TorchBatchNorm(c, dtype=torch.bfloat16).to(dev).train()
+    with torch.no_grad():
+        base.weight.uniform_(0.5, 1.5, generator=gen)
+        base.bias.uniform_(-0.2, 0.2, generator=gen)
+
+    def run(bn, forward):
+        xi = x.detach().clone().requires_grad_(True)
+        y = forward(bn, xi)
+        y.backward(dy)
+        return {"y": y.float(), "grad_x": xi.grad.float(), "grad_weight": bn.weight.grad,
+                "grad_bias": bn.bias.grad, "running_mean": bn.running_mean.clone(),
+                "running_var": bn.running_var.clone()}
+
+    def single(bn, xi):  # TorchBatchNorm's train mode without a gang
+        return torch.nn.functional.batch_norm(xi, bn.running_mean, bn.running_var, bn.weight,
+                                              bn.bias, True, 0.1, bn.eps).to(torch.bfloat16)
+
+    routes = {"fused": lambda bn, xi: bn(xi),
+              "plain": lambda bn, xi: bn._global_batch_norm_plain(xi), "single_process": single}
+    got = {name: run(copy.deepcopy(base), fwd) for name, fwd in routes.items()}
+    rel = {ref: {k: float((got["fused"][k] - got[ref][k]).abs().max() / got[ref][k].abs().max())
+                 for k in got[ref]} for ref in ("plain", "single_process")}
+    for ref in rel:
+        for k, tol in (("y", 2 ** -7), ("grad_x", 2 ** -7), ("grad_weight", 1e-3),
+                       ("grad_bias", 1e-3), ("running_mean", 1e-4), ("running_var", 1e-4)):
+            check(rel[ref][k] <= tol, f"the gang BN's fused {k} is off the {ref} BN: {rel}")
+    xi = x.detach().clone().requires_grad_(True)
+    times = {}
+    for name, fwd in routes.items():
+        bn = copy.deepcopy(base)
+        times[f"{name}_ms"] = cuda_ms(torch, lambda: fwd(bn, xi).backward(dy), reps=10, warmup=3)
+    return {"shape": list(x.shape), "fused_max_rel_err_against": rel, "forward_backward": times}
+
+
+def _gang_step(torch, root, steps: int) -> dict:
+    """The ResNet-50 train step at the path's batch (this rank's block of it
+    in a gang), host clock around synchronized steps, and, in a gang of more
+    than one rank, one all-reduce of a gradient's bytes (f32, every
+    parameter); a 1-rank all-reduce exchanges nothing."""
+    from daliid_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    trainer = _drill_trainer(torch, dev, root)
+    pset = trainer.mine_proxies()
+    put = lambda a: torch.as_tensor(a, device=dev)
+    rest = (put(pset.centers), put(pset.proxies), put(pset.proxy_labels).long(), 1)
+    images_u8, labels, dist, mask, _ = (t.to(dev) for t in trainer._stage(
+        next(iter(trainer.sampler.epoch()))))
+    step = lambda: trainer.train_step(images_u8, labels, dist, mask, *rest)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    out = {"ranks": mesh.world(), "gang": mesh.active(), "rows_per_rank": images_u8.shape[0],
+           "step_ms": (time.time() - t0) / steps * 1e3}
+    if mesh.world() > 1:
+        grad = torch.ones(sum(p.numel() for p in trainer._params), device=dev)
+        mesh.all_reduce_(grad)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(5):
+            mesh.all_reduce_(grad)
+        torch.cuda.synchronize()
+        out["all_reduce_mb"] = grad.numel() * 4 / 1e6
+        out["all_reduce_ms"] = (time.time() - t0) / 5 * 1e3
+    del trainer
+    return out
+
+
+def gang_child(torch, spec_path: str) -> int:
+    """One process of phase 20 (``chip_smoke.py --gang-child <spec>``): run
+    the spec's commands in order, each with the launch counters at 0, and
+    print each one's counts on a line of its own; results go to ``.npz``
+    files beside the spec."""
+    import importlib
+
+    import numpy as np
+
+    from daliid_tpu_torch.parallel import distributed, mesh
+
+    spec = json.loads(Path(spec_path).read_text())
+    out = Path(spec["out"])
+    counts = Counts()
+    init = distributed.initialize_multihost
+
+    def timed_init(*a, **kw):  # the CLIs' --multihost goes through here
+        t0 = time.time()
+        info = init(*a, **kw)
+        info["bootstrap_s"] = time.time() - t0
+        return info
+
+    distributed.initialize_multihost = timed_init
+    for cmd in spec["commands"]:
+        counts.reset()
+        t0 = time.time()
+        arrays = {}
+        with _RecordExtract() as rec:
+            if cmd["kind"] == "cli":
+                module = importlib.import_module(f"daliid_tpu_torch.cli.{cmd['module']}")
+                res = module.main(module.build_argparser().parse_args(cmd["argv"]))
+                arrays = _cli_arrays(cmd["module"], res)
+            elif cmd["kind"] == "join":
+                info = distributed.initialize_multihost(cmd["address"], cmd["ranks"], 0)
+                print(f"multihost: {info}", flush=True)
+            elif cmd["kind"] == "grad":
+                arrays = _first_step(torch, Path(cmd["root"]), cmd["dtype"])
+            elif cmd["kind"] == "bn":
+                print(f"[bn] {json.dumps(_gang_bn_check(torch))}", flush=True)
+            else:
+                print(f"[timing] {json.dumps({'tag': cmd['tag'], **_gang_step(torch, Path(cmd['root']), GANG_STEPS)})}",
+                      flush=True)
+        torch.cuda.synchronize()
+        launched = counts.read()
+        arrays.update({f"extract{i}": np.asarray(e) for i, e in enumerate(rec.out)
+                       if not isinstance(e, tuple)})
+        np.savez(out / f"{cmd['tag']}_rank{mesh.rank()}.npz", **arrays)
+        print("[counts] " + json.dumps({"tag": cmd["tag"], "rank": mesh.rank(),
+                                        "seconds": time.time() - t0, **launched}), flush=True)
+    distributed.shutdown_multihost()
+    return 0
+
+
+def _gang_commands(root, bs: int, train_ckpt) -> list:
+    """20b's commands: evaluate (bf16, sharded), evaluate int8, search SQ8
+    and f32 at k = 10, the first train step's gradient (f32), one train
+    epoch of 2 steps with its validation."""
+    data = str(WORK / "data")
+    ev = ["--targets", "Synthetic", "--data_root", data, "--model_name", "resnet50",
+          "--compute_dtype", COMPUTE_DTYPE, "--sharded_eval", "--batch_size", str(bs),
+          *_img_flags()]
+    se = ["--dataset", "Synthetic", "--data_root", data, "--model_name", "resnet50",
+          "--compute_dtype", COMPUTE_DTYPE, "--topk", "10", "--batch_size", str(bs),
+          *_img_flags()]
+    return [{"kind": "cli", "module": "evaluate", "tag": "evaluate_bf16", "argv": ev},
+            {"kind": "cli", "module": "evaluate", "tag": "evaluate_int8",
+             "argv": ev + ["--quantize", "int8"]},
+            {"kind": "cli", "module": "search", "tag": "search_sq8",
+             "argv": se + ["--index_quantize", "int8"]},
+            {"kind": "cli", "module": "search", "tag": "search_f32", "argv": se},
+            {"kind": "grad", "tag": "grad", "root": str(root), "dtype": "float32"},
+            {"kind": "cli", "module": "train", "tag": "train",
+             "argv": _train_flags(root, train_ckpt, 1, eval_freq=1)}]
+
+
+# what each command of 20b must launch, on every rank
+GANG_EXPECT = {"evaluate_bf16": ("rank_counts",), "evaluate_int8": ("rank_counts", "conv_int8"),
+               "search_sq8": ("search_topk_sq8",), "search_f32": ("search_topk_f32",),
+               "grad": ("fused_augment",), "train": ("fused_augment", "rank_counts")}
+
+
+def _parse_lines(text: str, prefix: str) -> list:
+    return [json.loads(line[len(prefix):]) for line in text.splitlines()
+            if line.startswith(prefix)]
+
+
+def _multihost_infos(text: str) -> list:
+    """Every ``multihost: {...}`` line of ``text``, as dicts."""
+    import ast
+
+    return [ast.literal_eval(line[len("multihost: "):]) for line in text.splitlines()
+            if line.startswith("multihost: ")]
+
+
+def _multihost_info(text: str) -> dict:
+    """The one ``multihost: {...}`` line a process printed, as a dict."""
+    infos = _multihost_infos(text)
+    check(len(infos) == 1, f"expected one multihost line, got {infos}")
+    return infos[0]
+
+
+def _child_cmd(spec) -> list:
+    return [sys.executable, str(REPO / "chip_smoke.py"), "--gang-child", str(spec)]
+
+
+def _cosines(a, b):
+    import numpy as np
+
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1) + 1e-12)
+
+
+def phase_gang(torch, dev, root, counts) -> tuple:
+    """20b: two ranks on the one card (gloo) against one process, and the
+    timing processes: the plain step and the 1-rank NCCL gang in one
+    process, the 2-rank gloo step in the gang."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import evaluate, search, train
+
+    out = WORK / "gang"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    addr = f"127.0.0.1:{_free_port()}"
+    cmds = []
+    for r in range(2):
+        commands = _gang_commands(root, 512, WORK / "gang_train")
+        commands[0]["argv"] += ["--multihost", "--coordinator_address", addr,
+                                "--num_processes", "2", "--process_id", str(r)]
+        commands.append({"kind": "timing", "tag": "timing_gloo", "root": str(root)})
+        spec = out / f"rank{r}.json"
+        spec.write_text(json.dumps({"out": str(out), "commands": commands}))
+        cmds.append(_child_cmd(spec))
+    t0 = time.time()
+    texts = _run_children(cmds, "gang", 900)
+    gang_s = time.time() - t0
+    launched = {name: 0 for name in KERNELS}
+    for r, text in enumerate(texts):
+        info = _multihost_info(text)
+        check(info["backend"] == "gloo" and info["device"] == "cuda:0"
+              and info["process_index"] == r, f"rank {r} did not join a gloo gang: {info}")
+        rows = {row["tag"]: row for row in _parse_lines(text, "[counts] ")}
+        for tag, kernels in GANG_EXPECT.items():
+            for k in kernels:
+                check(rows[tag][k] > 0, f"rank {r}'s {tag} launched no {k}: {rows[tag]}")
+        check(rows["train"]["fused_augment"] == 2, f"rank {r} trained {rows['train']} steps")
+        check(rows["evaluate_bf16"]["conv_int8"] == 0, "the float evaluate launched conv_int8")
+        for row in rows.values():
+            for name in launched:
+                launched[name] += row[name]
+    bootstrap = _multihost_info(texts[0])["bootstrap_s"]
+    timing_gloo = _parse_lines(texts[0], "[timing] ")[0]
+    per_tag = {r: {row["tag"]: row for row in _parse_lines(t, "[counts] ")}
+               for r, t in enumerate(texts)}
+
+    # the same commands as one process, here, at half the batch: each rank's
+    # forward batch, so both sides convolve the same images together
+    one = WORK / "one"
+    shutil.rmtree(one, ignore_errors=True)
+    one.mkdir()
+    shutil.rmtree(WORK / "one_train", ignore_errors=True)
+    shutil.rmtree(WORK / "one_train_metrics", ignore_errors=True)
+    modules = {"evaluate": evaluate, "search": search, "train": train}
+    for cmd in _gang_commands(root, 256, WORK / "one_train"):
+        counts.reset()
+        if cmd["kind"] == "grad":
+            arrays = _first_step(torch, root, cmd["dtype"])
+            with _NativeBatchNorm():  # the floor: one process against itself
+                np.savez(one / "grad_native.npz", **_first_step(torch, root, cmd["dtype"]))
+        else:
+            module = modules[cmd["module"]]
+            with _RecordExtract() as rec:
+                res = module.main(module.build_argparser().parse_args(cmd["argv"]))
+            arrays = {**_cli_arrays(cmd["module"], res),
+                      **{f"extract{i}": np.asarray(e) for i, e in enumerate(rec.out)}}
+        for name, n in counts.read().items():
+            launched[name] += n
+        np.savez(one / f"{cmd['tag']}.npz", **arrays)
+    report = {"gang_s": gang_s, "bootstrap_gloo_s": bootstrap, "timing_gloo": timing_gloo,
+              "seconds": {tag: [per_tag[r][tag]["seconds"] for r in range(2)]
+                          for tag in per_tag[0]}}
+    for tag in ("evaluate_bf16", "evaluate_int8", "search_sq8", "search_f32"):
+        ranks = [np.load(out / f"{tag}_rank{r}.npz") for r in range(2)]
+        want = np.load(one / f"{tag}.npz")
+        for key in ranks[0].files:
+            check(np.array_equal(ranks[0][key], ranks[1][key]), f"{tag}: the ranks' {key} differ")
+        got = ranks[0]
+        if tag.startswith("evaluate"):
+            check(np.array_equal(got["cmc"], want["cmc"]), f"{tag}: CMC differs from one process")
+            check(abs(float(got["map"][0]) - float(want["map"][0])) <= 1e-12,
+                  f"{tag}: mAP {got['map']} != one process's {want['map']}")
+        else:
+            check(np.array_equal(got["ids"], want["ids"]), f"{tag}: ids differ from one process")
+            if tag == "search_sq8":
+                check(np.array_equal(got["sims"], want["sims"]),
+                      f"{tag}: SQ8 scores differ from one process")
+        cos = min(float(_cosines(got[f"extract{i}"], want[f"extract{i}"]).min())
+                  for i in range(2))
+        check(cos >= (0.998 if tag == "evaluate_int8" else 0.999),
+              f"{tag}: embeddings off one process's, min cosine {cos}")
+        report[tag] = {"min_cosine": cos, "embeddings_bit_equal": all(
+            np.array_equal(got[f"extract{i}"], want[f"extract{i}"]) for i in range(2)),
+            "max_abs_score_diff": (float(np.abs(got["sims"] - want["sims"]).max())
+                                   if "sims" in got.files else None)}
+    # the first step up to Adam: the summed gradient and the BN updates
+    ranks = [np.load(out / f"grad_rank{r}.npz") for r in range(2)]
+    want, native = np.load(one / "grad.npz"), np.load(one / "grad_native.npz")
+    check(np.array_equal(ranks[0]["grad"], ranks[1]["grad"]), "grad: the ranks' gradients differ")
+    g, w = ranks[0]["grad"].astype(np.float64), want["grad"].astype(np.float64)
+    floor = native["grad"].astype(np.float64)
+    step = {"grad_rel_l2": float(np.linalg.norm(g - w) / np.linalg.norm(w)),
+            "floor_rel_l2": float(np.linalg.norm(floor - w) / np.linalg.norm(w)),
+            "grad_norm_ratio": float(np.linalg.norm(g) / np.linalg.norm(w)), "bn_leaves": 0,
+            "bn_update_max_rel_to_largest": 0.0}
+    for key in (k for k in want.files if k.startswith("bn")):
+        d = float(np.abs(ranks[0][key] - want[key]).max() / max(np.abs(want[key]).max(), 1e-30))
+        step["bn_leaves"] += 1
+        step["bn_update_max_rel_to_largest"] = max(step["bn_update_max_rel_to_largest"], d)
+    log(f"20b first step (f32), 2 gloo ranks against one process: {json.dumps(step)}")
+    check(step["grad_rel_l2"] <= GRAD_L2_TOL, f"the gang's first gradient is off one process's: {step}")
+    check(step["bn_leaves"] > 50 and step["bn_update_max_rel_to_largest"] <= BN_STEP_TOL,
+          f"the gang's first BN updates are off one process's: {step}")
+    report["first_step_vs_one_process"] = step
+    a = torch.load(WORK / "gang_train" / "latest" / "1.pt", weights_only=True)
+    b = torch.load(WORK / "one_train" / "latest" / "1.pt", weights_only=True)
+    trained = _state_diff(torch, a["state"], b["state"])
+    ratios = [trained[k]["norm_ratio"] for k in ("adam_m", "adam_v")]
+    check(trained["params"]["max_abs_diff"] <= ADAM_PART * 2
+          and trained["bn_stats"]["rel_l2"] <= BN_EPOCH_TOL
+          and trained["adam"]["bit_equal"] == trained["adam"]["leaves"]
+          and all(1 / MOMENT_NORM_FACTOR <= r <= MOMENT_NORM_FACTOR for r in ratios),
+          f"the gang's trained state is off one process's: {trained}")
+    report["train_vs_one_process"] = trained
+
+    # the plain single-process step and the 1-rank NCCL gang, one process
+    spec = out / "timing.json"
+    spec.write_text(json.dumps({"out": str(out), "commands": [
+        {"kind": "timing", "tag": "timing_plain", "root": str(root)},
+        {"kind": "join", "tag": "join", "address": f"127.0.0.1:{_free_port()}", "ranks": 1},
+        {"kind": "bn", "tag": "bn"},
+        {"kind": "timing", "tag": "timing_nccl", "root": str(root)}]}))
+    text = _run_children([_child_cmd(spec)], "timing", 600)[0]
+    info = _multihost_info(text)
+    check(info["backend"] == "nccl", f"the 1-rank timing gang did not run on NCCL: {info}")
+    timings = {row["tag"]: row for row in _parse_lines(text, "[timing] ")}
+    report["timing_plain"], report["timing_nccl"] = timings["timing_plain"], timings["timing_nccl"]
+    report["gang_bn"] = _parse_lines(text, "[bn] ")[0]
+    report["bootstrap_nccl_s"] = info["bootstrap_s"]
+    log(f"20b two ranks on one card (gloo) against one process: {json.dumps(report)}")
+    log(f"20b gang launches (both ranks) and the one-process runs: {launched}")
+    return launched, report
+
+
+def _exact_embeddings(torch, gen, dev, n_ids: int, *pid_sets, d: int = 2048, nnz: int = 64,
+                      chunk: int = 8192) -> list:
+    """For each array of pids, (N, d) rows of +-1 at exactly ``nnz``
+    coordinates: every norm is 8 and every dot product an integer, so each
+    cosine distance ``1 - dot / 64`` is exact in f32 whatever order a product
+    sums in (the chunked and the whole distance matrix agree bit for bit,
+    many at exact ties). A row takes the first k (0-24) coordinates of its
+    identity's order with their signs, and random ones for the rest."""
+    id_rank = torch.rand((n_ids, d), generator=gen, device=dev).argsort(dim=1).argsort(dim=1)
+    id_rank = id_rank.to(torch.int16)
+    id_sign = torch.randint(0, 2, (n_ids, d), generator=gen, device=dev).float() * 2 - 1
+    sets = []
+    for pids in pid_sets:
+        p_all = torch.as_tensor(pids, dtype=torch.long, device=dev)
+        out = torch.zeros((p_all.numel(), d), device=dev)
+        for s in range(0, p_all.numel(), chunk):
+            p = p_all[s:s + chunk]
+            n = p.numel()
+            rank = id_rank[p].int()
+            k = torch.randint(0, 25, (n, 1), generator=gen, device=dev)
+            keys = torch.rand((n, d), generator=gen, device=dev)
+            keys = torch.where(rank < k, -1.0, torch.where(rank < nnz, 2.0, keys))
+            cols = keys.topk(nnz, dim=1, largest=False).indices
+            own = rank.gather(1, cols) < k
+            other = torch.randint(0, 2, (n, nnz), generator=gen, device=dev).float() * 2 - 1
+            out[s:s + n].scatter_(1, cols, torch.where(own, id_sign[p].gather(1, cols), other))
+        sets.append(out)
+    return sets
+
+
+def phase_bounded_ranking(torch, dev, counts) -> tuple:
+    """20c: ``evaluate_rank_sharded`` on one process at MSMT17's protocol
+    shape, query_chunk 512, against the replicated ``evaluate_rank`` on the
+    whole distmat; K2 at the chunk shape against its plain version."""
+    import numpy as np
+
+    from daliid_tpu_torch.metrics.ranking import (
+        _positive_prologue,
+        cosine_distance_matrix,
+        evaluate_rank,
+        evaluate_rank_sharded,
+        positive_columns,
+        queried_positives_bound,
+    )
+    from daliid_tpu_torch.ops.rank_counts import positive_rank_counts, rank_counts_plain
+
+    q_pids, g_pids, q_cams, g_cams = msmt17_ids()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    n_ids = int(max(q_pids.max(), g_pids.max())) + 1
+    q, g = _exact_embeddings(torch, gen, dev, n_ids, q_pids, g_pids)
+    runs = {}
+    for route in ("sharded", "replicated"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        counts.reset()
+        t0 = time.time()
+        if route == "sharded":
+            cmc, mAP = evaluate_rank_sharded(q, g, q_pids, g_pids, q_cams, g_cams,
+                                             query_chunk=RANK_CHUNK)
+        else:
+            cmc, mAP = evaluate_rank(cosine_distance_matrix(q, g), q_pids, g_pids, q_cams,
+                                     g_cams)
+        torch.cuda.synchronize()
+        runs[route] = {"ms": (time.time() - t0) * 1e3, "cmc": cmc, "map": mAP,
+                       "peak_gb_above_inputs": (torch.cuda.max_memory_allocated(dev) - base) / 1e9,
+                       "k2_launches": counts.read()["rank_counts"]}
+    launched = {name: 0 for name in KERNELS}
+    launched["rank_counts"] = runs["sharded"]["k2_launches"] + runs["replicated"]["k2_launches"]
+    n_chunks = -(-len(q_pids) // RANK_CHUNK)
+    check(runs["sharded"]["k2_launches"] == n_chunks,
+          f"the sharded ranking launched K2 {runs['sharded']['k2_launches']} times, not {n_chunks}")
+    check(np.array_equal(runs["sharded"]["cmc"], runs["replicated"]["cmc"]),
+          "the bounded-memory CMC differs from the replicated one")
+    check(abs(runs["sharded"]["map"] - runs["replicated"]["map"]) <= 1e-12,
+          f"bounded-memory mAP {runs['sharded']['map']} != replicated {runs['replicated']['map']}")
+    # K2 at the chunk shape against its plain version (not counted)
+    n_p = queried_positives_bound(q_pids, g_pids)
+    qn, gn = (x / torch.linalg.norm(x, dim=1, keepdim=True) for x in (q[:RANK_CHUNK], g))
+    dist = 1.0 - qn @ gn.T
+    ids = [torch.as_tensor(a[:RANK_CHUNK] if i < 2 else a, dtype=torch.int32, device=dev)
+           for i, a in enumerate((q_pids, q_cams, g_pids, g_cams))]
+    cols = torch.as_tensor(positive_columns(q_pids[:RANK_CHUNK], g_pids, n_p), device=dev)
+    _, _, p_dist, p_idx = _positive_prologue(dist, cols, ids[1], ids[3], False)
+    args = (dist, p_dist, p_idx, ids[0], ids[1], ids[2], ids[3])
+    check(torch.equal(positive_rank_counts(*args), rank_counts_plain(*args)),
+          "K2 differs from its plain version at the chunk shape")
+    counts.reset()
+    report = {route: {k: v for k, v in r.items() if k != "cmc"} for route, r in runs.items()}
+    report["rank1"] = float(runs["sharded"]["cmc"][0])
+    report["chunk_shape"] = [RANK_CHUNK, len(g_pids), n_p]
+    log(f"20c bounded-memory ranking at MSMT17's shape (Q {len(q_pids)}, G {len(g_pids)}, "
+        f"2048-d, query_chunk {RANK_CHUNK}): {json.dumps(report)}; K2 equal to its plain "
+        f"version at ({RANK_CHUNK}, {len(g_pids)}) P {n_p}")
+    del q, g, dist
+    torch.cuda.empty_cache()
+    return launched, report
+
+
 # ---------------------------------------------------------------- counts
 class Counts:
     """The launch counters of every kernel wrapper on the main path."""
@@ -2952,6 +3776,8 @@ def main() -> int:
         print(json.dumps(kernel_times(torch, root, ps, json.loads(sys.argv[4]))), flush=True)
         return 0
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--gang-child"]:
+        return gang_child(torch, sys.argv[2])
     if sys.argv[1:2] == ["--compare"]:
         _, dev, _ = phase_device(torch)
         geos = {" ".join(key): geo for key, geo in conv_shapes(torch, dev).items()}
@@ -3016,6 +3842,16 @@ def main() -> int:
         check(launched["conv_int8"] == 0, f"a float phase launched conv_int8: {launched}")
         for name, n in launched.items():
             launches[name] += n
+    counts.reset()
+    torch.cuda.empty_cache()
+    t_multi = time.time()
+    drill = phase_drill(torch, dev, train_root)
+    gang_launched, gang = phase_gang(torch, dev, train_root, counts)
+    ranked_launched, bounded = phase_bounded_ranking(torch, dev, counts)
+    for launched in (gang_launched, ranked_launched):
+        for name, n in launched.items():
+            launches[name] += n
+    walls["multi-process (phase 20)"] = time.time() - t_multi
     for phase in int8_phases:
         launched = phase()
         check(launched["conv_int8"] > 0, f"an int8 phase launched no conv_int8: {launched}")
@@ -3117,6 +3953,24 @@ def main() -> int:
     log("int8 extraction at batch 512 (256x128; bf16 in the same call): "
         + ", ".join(f"{n} int8 {r['int8_img_per_s']:.1f} img/s (bf16 {r['bf16_img_per_s']:.1f}) "
                     f"peak {r['int8_peak_memory_gb']:.2f} GB" for n, r in int8_rates.items()))
+    g = gang
+    bn_t = g["gang_bn"]["forward_backward"]
+    log(f"multi-process (phase 20): gang bootstrap {g['bootstrap_gloo_s']:.3f} s (2 ranks, "
+        f"gloo), {g['bootstrap_nccl_s']:.3f} s (1 rank, NCCL); train step (ResNet-50 bf16, "
+        f"{2 * P * K} images a step): one process {g['timing_plain']['step_ms']:.1f} ms, the "
+        f"1-rank NCCL gang {g['timing_nccl']['step_ms']:.1f} ms (its BN reductions and gradient "
+        f"all-reduce), 2 gloo ranks of {g['timing_gloo']['rows_per_rank']} rows on the one card "
+        f"{g['timing_gloo']['step_ms']:.1f} ms; gang BN forward+backward at "
+        f"{g['gang_bn']['shape']}: fused {bn_t['fused_ms']:.3f} ms, eager "
+        f"{bn_t['plain_ms']:.3f} ms, one process's F.batch_norm "
+        f"{bn_t['single_process_ms']:.3f} ms; a {g['timing_gloo']['all_reduce_mb']:.1f} MB "
+        f"all-reduce: gloo (2 ranks) {g['timing_gloo']['all_reduce_ms']:.3f} ms, NCCL not "
+        f"measurable on one card; first step against one process: "
+        f"{json.dumps(g['first_step_vs_one_process'])}; bounded-memory ranking at MSMT17's shape "
+        f"{bounded['sharded']['ms']:.1f} ms, {bounded['sharded']['peak_gb_above_inputs']:.2f} GB "
+        f"(K2 {bounded['sharded']['k2_launches']} launches) against replicated "
+        f"{bounded['replicated']['ms']:.1f} ms, {bounded['replicated']['peak_gb_above_inputs']:.2f} "
+        f"GB; drill stitched state bit-exact")
     log(f"card: {card}; total {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check", "shape")

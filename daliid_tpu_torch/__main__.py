@@ -19,6 +19,7 @@ COMMANDS = {
                         "clean+distorted magnitude fusion (evaluateCleanATModels.py)"),
     "search": ("cli.search", "gallery search service"),
     "stats": ("cli.stats", "dataset statistics tables"),
+    "supervise": ("cli.supervise", "training supervisor: auto crash-resume, gang scheduling"),
     "train": ("cli.train", "training loop (mainKIT.py)"),
 }
 

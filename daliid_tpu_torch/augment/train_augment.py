@@ -27,12 +27,17 @@ from daliid_tpu_torch.ops.fused_augment import draw_scalars, fused_augment
 def train_augment(images_u8: torch.Tensor, generator: torch.Generator, pad: int = 10,
                   brightness: float = 0.4, contrast: float = 0.3, saturation: float = 0.4,
                   erase_scale: tuple = (0.05, 0.30), erase_ratio: tuple = (0.3, 3.3),
-                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                  dtype: torch.dtype = torch.bfloat16, rows: tuple | None = None) -> torch.Tensor:
     """Augment and normalize a (B, H, W, 3) uint8 batch → (B, 3, H, W)
     ``dtype`` in ``channels_last`` memory. The scalars come from the CPU
-    ``generator`` and are copied to the images' device."""
+    ``generator`` and are copied to the images' device. ``rows = (start,
+    total)`` marks the batch as rows ``start:start + B`` of a global batch of
+    ``total`` (a rank's block): the whole table is drawn and the block's
+    rows taken, so each image meets the scalars it would meet in one
+    process."""
     b, h, w, _ = images_u8.shape
-    scal = draw_scalars(b, h, w, pad, brightness, contrast, saturation, erase_scale,
-                        erase_ratio, generator)
+    start, total = rows if rows is not None else (0, b)
+    scal = draw_scalars(total, h, w, pad, brightness, contrast, saturation, erase_scale,
+                        erase_ratio, generator)[start:start + b]
     scal = scal.to(images_u8.device, non_blocking=True)
     return fused_augment(images_u8, scal, pad, dtype)

@@ -1,5 +1,5 @@
-"""Shared CLI plumbing of the port: flags of features not yet ported, and
-the SIE camera-id check."""
+"""Shared CLI plumbing of the port: flags of features not yet ported, the
+multi-split refusal and the SIE camera-id check."""
 
 from __future__ import annotations
 
@@ -12,17 +12,15 @@ def reject_unported(args, defaults: dict) -> None:
             raise SystemExit(f"--{name} is not yet ported to daliid_tpu_torch")
 
 
-MULTIHOST_FLAGS = {"multihost": False, "coordinator_address": None,
-                   "num_processes": None, "process_id": None}
-
-
-def add_multihost_flags(parser) -> None:
-    """The JAX CLIs' multi-host bootstrap flags, kept so that a command
-    line names them; the multi-host path is not ported yet."""
-    parser.add_argument("--multihost", action="store_true", help="not yet ported")
-    parser.add_argument("--coordinator_address", type=str, default=None, help="not yet ported")
-    parser.add_argument("--num_processes", type=int, default=None, help="not yet ported")
-    parser.add_argument("--process_id", type=int, default=None, help="not yet ported")
+def refuse_multisplit(target: str, splits: dict, command: str) -> None:
+    """Exit with an error that names ``target`` when its query or gallery
+    is a list of splits (PRCC, VC-Clothes, ImageNet): only ``evaluate``
+    ranks such a protocol, split by split; ``command`` would hand the list
+    to the extractor as if it were one table."""
+    if isinstance(splits["query"], list) or isinstance(splits["gallery"], list):
+        raise SystemExit(f"{target} is a multi-split protocol (lists of query sets and "
+                         f"gallery splits), which {command} does not rank; evaluate it with "
+                         f"`evaluate --targets {target}`")
 
 
 def check_camera_ids(sie_cameras: int, tables, what: str) -> None:

@@ -24,9 +24,17 @@ head, then the heads' ensemble (``--head_weighting``), then with
 similarities (``:278-317``, the replicated path). ``--rerank`` applies
 k-reciprocal re-ranking before the metrics (``:225``, ``:323``),
 single-output evaluation only, as in JAX. ``--quantize int8`` extracts in
-int8 (``--calib_batches`` of calibration). Sharded and multi-host
-evaluation are not ported yet: their flags exit with an error that names
-them.
+int8 (``--calib_batches`` of calibration).
+
+``--multihost`` (with ``--coordinator_address``, ``--num_processes`` and
+``--process_id``) joins a gang (:mod:`daliid_tpu_torch.parallel`): every
+rank extracts its block of each batch and holds the whole embeddings.
+``--sharded_eval`` (``:80-83``, ``:226``, ``:283-321``; the default turns it
+on in a gang of more than one rank) ranks each rank's block of the queries
+against the whole gallery, ``query_chunk`` rows at a time, and merges the
+sums over the gang, so no (Q, G) matrix is built; with
+``--multiple_output`` (not ``--mrfuse``) each head and the heads' ensemble
+rank that way too. Every rank prints the metrics; this CLI writes no file.
 
 Example::
 
@@ -41,12 +49,7 @@ import argparse
 import numpy as np
 import torch
 
-from daliid_tpu_torch.cli.common import (
-    MULTIHOST_FLAGS,
-    add_multihost_flags,
-    check_camera_ids,
-    reject_unported,
-)
+from daliid_tpu_torch.cli.common import check_camera_ids
 from daliid_tpu_torch.data.briar import load_eval_splits
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
@@ -59,6 +62,11 @@ from daliid_tpu_torch.models.factory import (
     get_model,
 )
 from daliid_tpu_torch.models.torch_port import load_state
+from daliid_tpu_torch.parallel.distributed import (
+    add_multihost_flags,
+    maybe_initialize_from_args,
+    shutdown_multihost,
+)
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="DaliID single-model evaluation (PyTorch/CUDA)")
@@ -98,7 +106,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="SIE camera-embedding table size for TransReID backbones "
                         "(cfg.MODEL.SIE_CAMERA; must match the checkpoint)")
     p.add_argument("--sharded_eval", action=argparse.BooleanOptionalAction, default=None,
-                   help="only --no-sharded_eval (the replicated path) is ported")
+                   help="rank each rank's block of the queries in chunks, with no whole "
+                        "(Q, G) distmat (default: on in a gang of more than one rank; "
+                        "--no-sharded_eval forces the replicated distmat)")
     p.add_argument("--sie_coef", type=float, default=1.5,
                    help="SIE embedding scale (sie_xishu; must match the checkpoint)")
     p.add_argument("--gelu_approx", action="store_true",
@@ -180,9 +190,7 @@ def rank_multisplit(target, extractor, validator, queries, gallery, results) -> 
 
 
 def main(args):
-    reject_unported(args, MULTIHOST_FLAGS)
-    if args.sharded_eval:
-        raise SystemExit("--sharded_eval is not yet ported to daliid_tpu_torch")
+    maybe_initialize_from_args(args)
     check_transformer_flags(args)
     if args.rerank and (args.multiple_output or args.model_name in MULTIHEAD_MODELS):
         raise SystemExit("--rerank supports single-output evaluation only")
@@ -207,7 +215,7 @@ def main(args):
         # the manifests rank with the standard protocol (evaluate.py:318-330)
         validator = get_validator("standard" if target == "BRIAR" else target,
                                   img_size=img_size, batch_size=args.batch_size,
-                                  device=device, rerank=args.rerank)
+                                  device=device, rerank=args.rerank, sharded=args.sharded_eval)
         if isinstance(gallery, list) or isinstance(queries, list):
             if args.multiple_output:
                 raise SystemExit(f"--multiple_output is not supported on multi-split targets "
@@ -219,18 +227,27 @@ def main(args):
                                   turb_strength=args.turbulence_strength, dataset=target,
                                   verbose=True)
 
-        def report(tag, distmat):
-            cmc, mAP = validator.rank(distmat, queries, gallery)
+        def report_metrics(tag, cmc, mAP):
             print(f"[{target}{tag}] mAP: {mAP:.2%}")
             for r in (1, 5, 10, 20):
                 if r <= len(cmc):
                     print(f"[{target}{tag}] Rank-{r:<3}: {cmc[r - 1]:.2%}")
             return cmc, mAP
 
+        def report(tag, distmat):
+            return report_metrics(tag, *validator.rank(distmat, queries, gallery))
+
         if args.multiple_output and not isinstance(q_fvs, tuple):
             raise SystemExit(f"--multiple_output requires a multi-head model; "
                              f"{args.model_name} returns a single embedding")
-        if args.multiple_output:
+        sharded = validator.sharded_active()
+        if args.multiple_output and sharded and not args.mrfuse:
+            # each head and the heads' ensemble without a (Q, G) matrix
+            for h, (qh, gh) in enumerate(zip(q_fvs, g_fvs)):
+                report_metrics(f":head{h}", *validator.rank_features(qh, gh, queries, gallery))
+            results[target] = report_metrics(":ensemble (sharded)", *validator.rank_features(
+                q_fvs, g_fvs, queries, gallery, head_weighting=args.head_weighting))
+        elif args.multiple_output:
             distmats = []
             for h, (qh, gh) in enumerate(zip(q_fvs, g_fvs)):
                 distmats.append(validator.distance_matrix(qh, gh))
@@ -240,6 +257,9 @@ def main(args):
             if args.mrfuse and len(distmats) >= 3:
                 fused_sim = mrfuse(*[1.0 - d for d in distmats[:3]])
                 results[target + ":mrfuse"] = report(":mrfuse", 1.0 - fused_sim)
+        elif sharded:  # distance rows stay with each rank's block of the queries
+            results[target] = report_metrics(" (sharded)", *validator.rank_features(
+                q_fvs, g_fvs, queries, gallery))
         else:  # a multi-head model without --multiple_output ranks its heads' mean
             results[target] = report("", validator.multihead_distance_matrix(q_fvs, g_fvs)
                                      if isinstance(q_fvs, tuple)
@@ -250,3 +270,4 @@ def main(args):
 
 if __name__ == "__main__":
     main(build_argparser().parse_args())
+    shutdown_multihost()

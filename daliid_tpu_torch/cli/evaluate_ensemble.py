@@ -7,8 +7,12 @@ and returns ``{model01, model02, ensemble}`` with each one's rank-1 and
 mAP. ``--quantize int8`` extracts in int8, each model's extractor
 calibrated on its first batches (the queries). ``--dataset BRIAR`` with
 the three manifest flags reads the ``.npy`` manifests and ranks with the
-standard protocol (JAX ``:62-72``). Flags are the JAX CLI's plus
-``--device``; the multi-host flags exit with an error that names them.
+standard protocol (JAX ``:62-72``). A multi-split target (PRCC,
+VC-Clothes, ImageNet) is refused with an error that names it: only
+``evaluate`` ranks split by split. ``--multihost`` joins a gang
+(:mod:`daliid_tpu_torch.parallel`): each rank extracts its block of every
+batch, and every rank ranks and prints the whole result. Flags are the JAX
+CLI's plus ``--device``.
 
 Example::
 
@@ -22,7 +26,7 @@ import argparse
 
 import torch
 
-from daliid_tpu_torch.cli.common import MULTIHOST_FLAGS, reject_unported
+from daliid_tpu_torch.cli.common import refuse_multisplit
 from daliid_tpu_torch.cli.evaluate import load_bundle
 from daliid_tpu_torch.cli.evaluate_fusion import add_manifest_flags, add_quantize_flags, eval_splits
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
@@ -30,6 +34,7 @@ from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.eval.fusion import average_distmats
 from daliid_tpu_torch.eval.validate import get_validator
 from daliid_tpu_torch.metrics.ranking import cosine_distance_matrix
+from daliid_tpu_torch.parallel.distributed import maybe_initialize_from_args, shutdown_multihost
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -52,11 +57,12 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def main(args):
-    reject_unported(args, MULTIHOST_FLAGS)
+    maybe_initialize_from_args(args)
     device = resolve_device(args.device)
     img_size = (args.img_height, args.img_width)
     dtype = parse_dtype(args.compute_dtype)
     splits = eval_splits(args)
+    refuse_multisplit(args.dataset, splits, "evaluate-ensemble")
     queries, gallery = splits["query"], splits["gallery"]
     # the manifests rank with the standard protocol (evaluate_ensembled_models.py:318-330)
     validator = get_validator("standard" if args.dataset == "BRIAR" else args.dataset,
@@ -83,3 +89,4 @@ def main(args):
 
 if __name__ == "__main__":
     main(build_argparser().parse_args())
+    shutdown_multihost()

@@ -20,9 +20,12 @@ split, as the JAX CLI builds one extractor for each (``:105-123``); the
 magnitude fusions then weigh raw int8 embedding norms. ``--dataset BRIAR``
 with ``--train_file_path``, ``--queries_file_path`` and
 ``--gallery_file_path`` reads the ``.npy`` manifests
-(:func:`~daliid_tpu_torch.data.briar.load_eval_splits`, JAX ``:91``).
-Flags are the JAX CLI's plus ``--device``; the multi-host flags exit with
-an error that names them.
+(:func:`~daliid_tpu_torch.data.briar.load_eval_splits`, JAX ``:91``). A
+multi-split target (PRCC, VC-Clothes, ImageNet) is refused with an error
+that names it: only ``evaluate`` ranks split by split. ``--multihost`` joins
+a gang (:mod:`daliid_tpu_torch.parallel`): each rank extracts its block of
+every batch, every rank ranks and prints the whole result, and rank 0
+alone writes the ROC files. Flags are the JAX CLI's plus ``--device``.
 
 Example::
 
@@ -38,7 +41,7 @@ import copy
 import numpy as np
 import torch
 
-from daliid_tpu_torch.cli.common import MULTIHOST_FLAGS, add_multihost_flags, reject_unported
+from daliid_tpu_torch.cli.common import refuse_multisplit
 from daliid_tpu_torch.cli.evaluate import load_bundle
 from daliid_tpu_torch.data.briar import load_eval_splits
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
@@ -54,6 +57,12 @@ from daliid_tpu_torch.eval.fusion import (
 from daliid_tpu_torch.eval.validate import Validator
 from daliid_tpu_torch.metrics.ranking import cosine_distance_matrix
 from daliid_tpu_torch.models.factory import ModelBundle
+from daliid_tpu_torch.parallel.distributed import (
+    add_multihost_flags,
+    maybe_initialize_from_args,
+    shutdown_multihost,
+)
+from daliid_tpu_torch.parallel.mesh import rank
 
 def add_quantize_flags(p: argparse.ArgumentParser) -> None:
     """The two fusion CLIs' int8 extraction flags."""
@@ -67,7 +76,7 @@ def add_quantize_flags(p: argparse.ArgumentParser) -> None:
 
 def add_manifest_flags(p: argparse.ArgumentParser) -> None:
     """The two fusion CLIs' BRIAR manifest trio (``--dataset BRIAR``) and
-    the multi-host flags, not ported yet."""
+    the multi-process flags."""
     p.add_argument("--train_file_path", type=str, default=None,
                    help="BRIAR dataset: training-manifest .npy")
     p.add_argument("--queries_file_path", type=str, default=None,
@@ -129,11 +138,12 @@ def with_pooling(bundle, pooling: str):
 
 
 def main(args):
-    reject_unported(args, MULTIHOST_FLAGS)
+    maybe_initialize_from_args(args)
     device = resolve_device(args.device)
     img_size = (args.img_height, args.img_width)
     dtype = parse_dtype(args.compute_dtype)
     splits = eval_splits(args)
+    refuse_multisplit(args.dataset, splits, "evaluate-fusion")
     queries, gallery = splits["query"], splits["gallery"]
     clean = load_bundle(args.model_name, args.model_path_clean, img_size, dtype, device)
     dist = load_bundle(args.model_name, args.model_path_distortion, img_size, dtype, device)
@@ -164,7 +174,7 @@ def main(args):
             feats = extract(clean, pooling) + extract(dist, pooling)
         fused = magnitude_weighted_distmat(d_clean, d_dist, *map(magnitude_weights, feats))
         report(f"magnitude_{pooling}", validator, fused, queries, gallery, results)
-        if args.roc_version and pooling == "gap":
+        if args.roc_version and pooling == "gap" and rank() == 0:
             fpr, tpr, thr = roc_curve(*roc_arrays(fused, queries.pids, gallery.pids))
             np.save(f"FPR_{args.roc_version}", fpr)
             np.save(f"TPR_{args.roc_version}", tpr)
@@ -175,3 +185,4 @@ def main(args):
 
 if __name__ == "__main__":
     main(build_argparser().parse_args())
+    shutdown_multihost()

@@ -7,8 +7,13 @@ through kernel K3. ``--rerank`` re-orders each probe's top
 ``--rerank_depth`` shortlist by k-reciprocal re-ranking (exact f32 even on
 an int8 index; scores become 1 - re-ranked distance). Flags are the JAX
 CLI's plus ``--device``: ``--quantize int8`` extracts in int8 (apart from
-``--index_quantize``, which stores the index in int8); the multi-host flags
-name a feature not ported yet and exit with an error.
+``--index_quantize``, which stores the index in int8). A multi-split target
+(PRCC, VC-Clothes, ImageNet) is refused with an error that names it.
+``--multihost`` joins a gang (:mod:`daliid_tpu_torch.parallel`): each rank
+extracts its block of every batch, holds its block of the index's rows and
+searches it through K3, and the ranks' candidates merge into the same
+answer on every rank, which each prints; rank 0 alone writes
+``--save_index``.
 
 Example::
 
@@ -23,14 +28,18 @@ import time
 
 import numpy as np
 
-from daliid_tpu_torch.cli.common import MULTIHOST_FLAGS, add_multihost_flags, reject_unported
+from daliid_tpu_torch.cli.common import refuse_multisplit
 from daliid_tpu_torch.cli.evaluate import load_bundle
 from daliid_tpu_torch.data.registry import load_dataset
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.eval.matcher import GalleryIndex
-
-_UNPORTED = MULTIHOST_FLAGS
+from daliid_tpu_torch.parallel.distributed import (
+    add_multihost_flags,
+    maybe_initialize_from_args,
+    shutdown_multihost,
+)
+from daliid_tpu_torch.parallel.mesh import rank
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -70,10 +79,11 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def main(args):
-    reject_unported(args, _UNPORTED)
+    maybe_initialize_from_args(args)
     device = resolve_device(args.device)
     img_size = (args.img_height, args.img_width)
     splits = load_dataset(args.dataset, root=args.data_root)
+    refuse_multisplit(args.dataset, splits, "search")
     gallery, queries = splits["gallery"], splits["query"]
 
     bundle = load_bundle(args.model_name, args.model_path, img_size,
@@ -94,7 +104,7 @@ def main(args):
         g_fvs = extractor.extract(gallery, verbose=True)
         index = GalleryIndex(g_fvs, gallery_pids=gallery.pids, quantize=index_quantize,
                              device=device)
-        if args.save_index:
+        if args.save_index and rank() == 0:
             index.save(args.save_index)
             print(f"Saved index ({index.num_gallery} entries) to {args.save_index}")
 
@@ -122,3 +132,4 @@ def main(args):
 
 if __name__ == "__main__":
     main(build_argparser().parse_args())
+    shutdown_multihost()

@@ -16,9 +16,21 @@ mining through a separate int8 extractor that recalibrates each epoch
 ``--dataset MSMT17`` (first of the list) each validation also prints the
 balanced accuracy of the online model on MSMT17's ``val`` split (JAX
 ``:370-372``). The sampler names the turbulence copies by the first
-dataset of ``--dataset`` (JAX ``:285``), for every merged table. The
-flags of features not ported yet (remat, fault injection, multi-host) exit with an error that names them, and so
-does a multi-head model, whose tuple of embeddings the losses do not take.
+dataset of ``--dataset`` (JAX ``:285``), for every merged table. A
+multi-split first dataset (PRCC, VC-Clothes, ImageNet) is refused before
+the first epoch when a validation would rank it. ``--remat`` (not ported
+yet) exits with an error that names it, and so does a multi-head model,
+whose tuple of embeddings the losses do not take.
+
+``--multihost`` (``--coordinator_address``, ``--num_processes``,
+``--process_id``; JAX ``:441-446``) joins a gang (:mod:`daliid_tpu_torch.parallel`;
+``cli/supervise.py`` launches one): each rank trains on its block of every
+batch (``train/trainer.py``), validation ranks sharded, checkpoints pass a
+barrier and rank 0 writes them, the weight files and the progress JSON.
+``--fault_inject_epoch e`` is the drill hook of ``cli/supervise.py`` (JAX
+``:403-422``): after epoch ``e``, before its crash-resume save, every rank
+raises, or with ``--fault_inject_rank r`` rank ``r`` alone is SIGKILLed; a
+``--resume`` run injects nothing.
 
 Example::
 
@@ -31,16 +43,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import time
 
 import torch
 
-from daliid_tpu_torch.cli.common import (
-    MULTIHOST_FLAGS,
-    add_multihost_flags,
-    check_camera_ids,
-    reject_unported,
-)
+from daliid_tpu_torch.cli.common import check_camera_ids, refuse_multisplit, reject_unported
 from daliid_tpu_torch.config import TrainConfig
 from daliid_tpu_torch.data.registry import data_root, load_dataset, merge_train_tables
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
@@ -53,14 +61,17 @@ from daliid_tpu_torch.models.factory import (
     check_model_name,
 )
 from daliid_tpu_torch.models.torch_port import load_state
+from daliid_tpu_torch.parallel.distributed import (
+    add_multihost_flags,
+    maybe_initialize_from_args,
+    shutdown_multihost,
+)
+from daliid_tpu_torch.parallel.mesh import rank
 from daliid_tpu_torch.train.checkpoint import CheckpointManager, save_weights
 from daliid_tpu_torch.train.sampler import PKBatchSampler
 from daliid_tpu_torch.train.trainer import Trainer
 
-_UNPORTED = {
-    "remat": "none",
-    "fault_inject_epoch": 0, "fault_inject_rank": -1, **MULTIHOST_FLAGS,
-}
+_UNPORTED = {"remat": "none"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -109,8 +120,12 @@ def build_argparser() -> argparse.ArgumentParser:
                         "paired batches)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--skip_initial_eval", action="store_true")
-    p.add_argument("--fault_inject_epoch", type=int, default=0, help="not yet ported")
-    p.add_argument("--fault_inject_rank", type=int, default=-1, help="not yet ported")
+    p.add_argument("--fault_inject_epoch", type=int, default=0,
+                   help="drill hook for supervise: crash after this epoch, before its "
+                        "crash-resume checkpoint (not on a --resume run); 0 = off")
+    p.add_argument("--fault_inject_rank", type=int, default=-1,
+                   help="with --fault_inject_epoch in a gang: SIGKILL only this rank (the "
+                        "others block in their next collective); -1 = every rank raises")
     p.add_argument("--num_classes", type=int, default=0,
                    help="classifier head size for transreid_jpm and densenet121; "
                         "-1 = #train ids")
@@ -178,8 +193,23 @@ def _head_kwargs(cfg: TrainConfig, train_table) -> dict:
                 sie_coef=cfg.sie_coef, margin_s=cfg.margin_s, margin_m=cfg.margin_m)
 
 
+def _inject_fault(epoch: int, target_rank: int) -> None:
+    """The drill's crash (JAX ``:403-422``): SIGKILL ``target_rank`` (no
+    cleanup: the others block until the supervisor tears them down), or, for
+    -1, raise on every rank."""
+    if target_rank >= 0:
+        if rank() != target_rank:
+            return
+        print(f"fault injection: SIGKILL rank {rank()} after epoch {epoch} "
+              f"(--fault_inject_rank)", flush=True)
+        os.kill(os.getpid(), signal.SIGKILL)
+    raise RuntimeError(f"fault injection: simulated crash after epoch {epoch} "
+                       f"(--fault_inject_epoch)")
+
+
 def main(args):
     """→ (best rank-1, its epoch)."""
+    maybe_initialize_from_args(args)
     reject_unported(args, _UNPORTED)
     cfg = config_from_args(args)
     check_model_name(cfg.model_name)
@@ -199,6 +229,8 @@ def main(args):
     splits = all_splits[0]
     train_table = merge_train_tables([s["train"] for s in all_splits])
     gallery, queries = splits["gallery"], splits["query"]
+    if not args.skip_initial_eval or cfg.eval_freq <= cfg.num_epochs:
+        refuse_multisplit(names[0], splits, "train's validation")
     print(f"Number of training examples: {len(train_table)} ({train_table.num_ids} ids)")
 
     online, momentum = build_model_pair(
@@ -227,7 +259,9 @@ def main(args):
         mining_quantize=cfg.mining_quantize, mining_calib_batches=cfg.mining_calib_batches,
     )
 
-    os.makedirs(cfg.metrics_dir, exist_ok=True)
+    writer = rank() == 0  # the weight files and the progress JSON
+    if writer:
+        os.makedirs(cfg.metrics_dir, exist_ok=True)
     ckpt = CheckpointManager(cfg.save_dir)
     # crash-resume channel: full state + RNG every ckpt_freq epochs, newest
     # kept (the best-metric manager only writes on new-best epochs)
@@ -289,10 +323,14 @@ def main(args):
             progress.append({"epoch": epoch, "rank1": float(cmc[0]), "mAP": float(mAP),
                              "rank1_momentum": float(cmc_m[0]), "mAP_momentum": float(mAP_m),
                              **{k: float(v) for k, v in means.items()}})
-            with open(os.path.join(cfg.metrics_dir,
-                                   f"progress_{cfg.model_name}_{cfg.version}.json"), "w") as f:
-                json.dump(progress, f, indent=2)
+            if writer:
+                with open(os.path.join(cfg.metrics_dir,
+                                       f"progress_{cfg.model_name}_{cfg.version}.json"), "w") as f:
+                    json.dump(progress, f, indent=2)
             print(f"Best R1: {best_r1 * 100:.2f} and best iter: {best_iter}")
+
+        if args.fault_inject_epoch and epoch == args.fault_inject_epoch and not args.resume:
+            _inject_fault(epoch, args.fault_inject_rank)
 
         if latest_ckpt is not None and epoch % cfg.ckpt_freq == 0:
             latest_ckpt.save(epoch, trainer.state_dict(), rng=trainer.rng_state())
@@ -307,3 +345,4 @@ def main(args):
 
 if __name__ == "__main__":
     main(build_argparser().parse_args())
+    shutdown_multihost()

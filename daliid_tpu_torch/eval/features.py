@@ -32,7 +32,17 @@ Port of ``daliid_tpu/eval/features.py``: :class:`FeatureExtractor`
   ``turb_strength`` instead of the image (the paper's distorted gallery,
   ``:236-258``): the paths are rewritten before decode, with the naming of
   ``dataset`` (default: the table's name; MSMT17's copies are
-  pid-prefixed).
+  pid-prefixed);
+- in a gang of more than one rank (:mod:`daliid_tpu_torch.parallel`,
+  ``:238-310``) the batch splits into one contiguous block a rank, each
+  rank decoding and forwarding only its block, and
+  :func:`~daliid_tpu_torch.parallel.mesh.gather_rows` returns the whole
+  batch to every rank, so every rank returns the full (N, D). The batch
+  size is rounded up to a multiple of the rank count. An int8 calibration
+  batch merges each layer's absmax over the ranks with a MAX
+  ``all_reduce``: the JAX package calibrates on the global batch
+  (``:139-160``), so every rank quantizes with the scales one process
+  would use.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from daliid_tpu_torch.augment.preprocess import decode_images, normalize_images
 from daliid_tpu_torch.data.registry import ReidTable
 from daliid_tpu_torch.data.turbulence import turbulence_path
 from daliid_tpu_torch.ops import quantize as q8
+from daliid_tpu_torch.parallel.mesh import all_reduce_, gather_rows, rank, world
 
 
 class FeatureExtractor:
@@ -93,8 +104,12 @@ class FeatureExtractor:
         batches; with ``rebuild`` the scales become final and the int8
         forward is built. The extract loop passes ``rebuild=False`` for each
         of its calibration batches and finalizes once."""
-        x, kw = self._inputs(images_u8, camera_ids)
-        new = q8.calibrate(self.bundle.module, x, **kw)
+        new = {}
+        if len(images_u8):
+            x, kw = self._inputs(images_u8, camera_ids)
+            new = q8.calibrate(self.bundle.module, x, **kw)
+        if world() > 1:
+            new = self._max_over_ranks(new)
         if self.quant_scales is None:
             self.quant_scales = new
         else:
@@ -102,6 +117,16 @@ class FeatureExtractor:
                                  for k, v in new.items()}
         if rebuild:
             self._finalize_calibration()
+
+    def _max_over_ranks(self, stats: dict) -> dict:
+        """Each layer's absmax, the largest over the gang's ranks; a layer
+        no rank ran (-1 on every rank) is left out, as one process leaves
+        it out. A rank without real images passes an empty ``stats``."""
+        names = sorted(q8.quant_layers(self.bundle.module))
+        vec = torch.tensor([stats.get(n, -1.0) for n in names], dtype=torch.float64,
+                           device=self.device)
+        vals = all_reduce_(vec, "max").tolist()
+        return {n: v for n, v in zip(names, vals) if v >= 0.0}
 
     def _finalize_calibration(self) -> None:
         # degenerate (<= 0) scales are left out: a conv without a scale
@@ -151,7 +176,11 @@ class FeatureExtractor:
         if turbulence_dir:
             paths = [turbulence_path(p, turbulence_dir, turb_strength, dataset) for p in paths]
         n = len(paths)
-        bs = self.batch_size
+        # in a gang each rank takes one block of ``lb`` rows of every batch
+        n_ranks = world()
+        lb = -(-self.batch_size // n_ranks)
+        bs = lb * n_ranks
+        lo = rank() * lb
         num_batches = -(-n // bs)
         t0 = time.time()
         batch_q: queue.Queue = queue.Queue(maxsize=2)
@@ -162,14 +191,16 @@ class FeatureExtractor:
                 for b in range(num_batches):
                     if stop.is_set():
                         return
-                    chunk = paths[b * bs:(b + 1) * bs]
-                    imgs = self._decode_paths(chunk)
-                    cams = camids[b * bs:(b + 1) * bs]
-                    if len(chunk) < bs:  # pad the tail to the fixed batch shape
+                    valid = min(bs, n - b * bs)
+                    mine = paths[b * bs + lo:b * bs + min(lo + lb, valid)]
+                    imgs = (self._decode_paths(mine) if mine
+                            else np.zeros((0, *self.img_size, 3), np.uint8))
+                    cams = camids[b * bs + lo:b * bs + lo + len(mine)]
+                    if len(mine) < lb:  # pad the tail to the fixed batch shape
                         imgs = np.concatenate(
-                            [imgs, np.zeros((bs - len(chunk), *imgs.shape[1:]), np.uint8)])
-                        cams = np.pad(cams, (0, bs - len(chunk)))
-                    batch_q.put((b, imgs, cams, len(chunk)))
+                            [imgs, np.zeros((lb - len(mine), *imgs.shape[1:]), np.uint8)])
+                        cams = np.pad(cams, (0, lb - len(mine)))
+                    batch_q.put((b, imgs, cams, valid, len(mine)))
                 batch_q.put(None)
             except BaseException as exc:  # surface decode errors to the caller
                 batch_q.put(exc)
@@ -182,6 +213,9 @@ class FeatureExtractor:
 
         def run_batch(imgs, cams, valid):
             out = self.forward_batch(imgs, cams)
+            if n_ranks > 1:
+                out = (tuple(gather_rows(o, [lb] * n_ranks) for o in out)
+                       if isinstance(out, tuple) else gather_rows(out, [lb] * n_ranks))
             outputs.append(tuple(o[:valid] for o in out) if isinstance(out, tuple)
                            else out[:valid])
 
@@ -192,12 +226,12 @@ class FeatureExtractor:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                b, imgs, cams, valid = item
+                b, imgs, cams, valid, real = item
                 if self.quantize is not None and not self._calib_final and valid > 0:
-                    # calibrate on the real rows, tiled over the padding
-                    reps = -(-bs // valid)
-                    self.calibrate(np.tile(imgs[:valid], (reps, 1, 1, 1))[:bs],
-                                   np.tile(cams[:valid], reps)[:bs], rebuild=False)
+                    # calibrate on this rank's real rows, tiled over the padding
+                    reps = -(-lb // max(real, 1))
+                    self.calibrate(np.tile(imgs[:real], (reps, 1, 1, 1))[:lb],
+                                   np.tile(cams[:real], reps)[:lb], rebuild=False)
                     calib_seen += 1
                     pending.append((imgs, cams, valid))
                     if calib_seen >= self.calib_batches or b == num_batches - 1:

@@ -24,7 +24,16 @@ with the JAX matcher's numpy expressions (so an SQ8 index re-ranks in f32
 too), and :func:`~daliid_tpu_torch.eval.rerank.rerank_shortlists` runs on
 the index's device.
 
-Not ported yet: the sharded, multi-host index.
+In a gang of more than one rank (:mod:`daliid_tpu_torch.parallel`) the
+index is sharded as the JAX index is over its ``data`` axis
+(``:117-171``, ``:252-345``): every rank holds the whole f32 host copy, the
+capacity is the rank count times a per-rank power of two, and each rank's
+device holds its contiguous block of the rows. A search runs K3 (or the
+library route for k > 64) over the rank's block for its local top-k; the
+candidates, with their global indices, are all-gathered and merged by
+(score descending, index ascending) into the global top-k, which every rank
+returns. ``add`` writes the new rows into the blocks they fall in while the
+capacity holds; ``remove`` rebuilds. Re-ranking reads the host copy.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import torch
 from daliid_tpu_torch.device import resolve_device
 from daliid_tpu_torch.eval.rerank import rerank_shortlists
 from daliid_tpu_torch.ops.search_topk import MAX_K, f32_search_topk, sq8_search_topk
+from daliid_tpu_torch.parallel.mesh import gather_rows, rank, world
 
 
 def _quantize_rows(x: np.ndarray, _chunk: int = 1 << 16) -> tuple[np.ndarray, np.ndarray]:
@@ -71,6 +81,7 @@ class GalleryIndex:
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
         self.quantize = quantize
         self.device = resolve_device(device)
+        self._ranks = world()
         self.gallery_pids = None if gallery_pids is None else np.asarray(gallery_pids)
         self._commit(serving_embedding(gallery_fvs), normalized=False)
 
@@ -84,7 +95,10 @@ class GalleryIndex:
         ``normalized=False`` L2-normalizes chunk-wise in place."""
         n = g_rows.shape[0]
         self.num_gallery = n
-        self._capacity = 1 << (max(n, 1) - 1).bit_length()  # next power of two
+        # a power of two a rank (next power of two of its share)
+        self._per_rank = 1 << (max(-(-n // self._ranks), 1) - 1).bit_length()
+        self._capacity = self._ranks * self._per_rank
+        self._base = rank() * self._per_rank  # this rank's first row
         buf = np.zeros((self._capacity, g_rows.shape[1]), np.float32)
         buf[:n] = g_rows
         if not normalized:
@@ -92,14 +106,16 @@ class GalleryIndex:
                 blk = buf[i : min(i + (1 << 16), n)]
                 blk /= np.linalg.norm(blk, axis=1, keepdims=True) + 1e-12
         self._host_buf = buf
+        block = slice(self._base, self._base + self._per_rank)
         if self.quantize == "int8":
-            qbuf = np.zeros(buf.shape, np.int8)
-            sbuf = np.zeros(self._capacity, np.float32)
-            qbuf[:n], sbuf[:n] = _quantize_rows(buf[:n])
+            qbuf = np.zeros((self._per_rank, buf.shape[1]), np.int8)
+            sbuf = np.zeros(self._per_rank, np.float32)
+            mine = buf[:n][block]
+            qbuf[:len(mine)], sbuf[:len(mine)] = _quantize_rows(mine)
             self._gallery = torch.from_numpy(qbuf).to(self.device)
             self._gallery_scale = torch.from_numpy(sbuf).to(self.device)
         else:
-            self._gallery = torch.from_numpy(buf).to(self.device)
+            self._gallery = torch.from_numpy(buf[block]).to(self.device)
 
     def add(self, fvs: np.ndarray, pids=None) -> None:
         """Enroll rows (raw embeddings; normalized here): an in-place copy of
@@ -124,12 +140,17 @@ class GalleryIndex:
         else:
             self._host_buf[off : off + n_new] = f
             self.num_gallery = off + n_new
-            if self.quantize == "int8":
-                q, s = _quantize_rows(f)
-                self._gallery[off : off + n_new].copy_(torch.from_numpy(q))
-                self._gallery_scale[off : off + n_new].copy_(torch.from_numpy(s))
-            else:
-                self._gallery[off : off + n_new].copy_(torch.from_numpy(f))
+            # the new rows that fall in this rank's block
+            lo = max(off, self._base)
+            hi = min(off + n_new, self._base + self._per_rank)
+            if lo < hi:
+                rows, dst = f[lo - off : hi - off], slice(lo - self._base, hi - self._base)
+                if self.quantize == "int8":
+                    q, s = _quantize_rows(rows)
+                    self._gallery[dst].copy_(torch.from_numpy(q))
+                    self._gallery_scale[dst].copy_(torch.from_numpy(s))
+                else:
+                    self._gallery[dst].copy_(torch.from_numpy(rows))
         # pids last: a failed add leaves the pid table consistent with the rows
         if pids is not None:
             self.gallery_pids = np.concatenate([self.gallery_pids, np.asarray(pids)])
@@ -188,19 +209,9 @@ class GalleryIndex:
             pids = self.gallery_pids[idx] if self.gallery_pids is not None else None
             return np.zeros((q.shape[0], 0), np.float32), idx, pids
         k_fetch = min(max(k, rerank_depth), self.num_gallery) if rerank else k
-        if k_fetch > MAX_K:
-            vals, idx = self._search_library(q, k_fetch)
-        elif self.quantize == "int8":
-            q8, q_scale = _quantize_rows(q)
-            vals, idx = sq8_search_topk(
-                torch.from_numpy(q8).to(self.device), self._gallery, self._gallery_scale,
-                self.num_gallery, k_fetch,
-            )
-            # the probe's per-row scale is rank-invariant → applied after the kernel
-            vals = vals * torch.from_numpy(q_scale).to(self.device)[:, None]
-        else:
-            vals, idx = f32_search_topk(torch.from_numpy(q).to(self.device), self._gallery,
-                                        self.num_gallery, k_fetch)
+        vals, idx = self._local_topk(q, min(k_fetch, self._per_rank), k_fetch)
+        if self._ranks > 1:
+            vals, idx = self._merge(vals, idx, k_fetch)
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         if rerank and self.num_gallery > 1:
             vals, idx = self._rerank_shortlist(q, idx, k, rerank_k1, rerank_k2, rerank_lambda)
@@ -208,6 +219,37 @@ class GalleryIndex:
             vals, idx = vals[:, :k], idx[:, :k]
         pids = self.gallery_pids[idx] if self.gallery_pids is not None else None
         return vals, idx, pids
+
+    def _local_topk(self, q: np.ndarray, k: int, k_fetch: int):
+        """This rank's top-``k`` over its block of the live rows, as global
+        (value, index) pairs; (-inf, -1) past its live rows. K3 when the
+        fetch is within its cap, the library route otherwise."""
+        num_real = min(max(self.num_gallery - self._base, 0), self._per_rank)
+        if k_fetch > MAX_K:
+            vals, idx = self._search_library(q, k, num_real)
+        elif self.quantize == "int8":
+            q8, q_scale = _quantize_rows(q)
+            vals, idx = sq8_search_topk(
+                torch.from_numpy(q8).to(self.device), self._gallery, self._gallery_scale,
+                num_real, k,
+            )
+            # the probe's per-row scale is rank-invariant → applied after the kernel
+            vals = vals * torch.from_numpy(q_scale).to(self.device)[:, None]
+        else:
+            vals, idx = f32_search_topk(torch.from_numpy(q).to(self.device), self._gallery,
+                                        num_real, k)
+        return vals, torch.where(idx >= 0, idx + self._base, idx)
+
+    def _merge(self, vals: torch.Tensor, idx: torch.Tensor, k: int):
+        """Every rank's candidates → the global top-``k``. Each rank's list
+        is ordered (value descending, index ascending) and the blocks are in
+        rank order, so a stable descending sort of the concatenation keeps
+        ties lowest index first (the JAX merge's ``top_k``)."""
+        sizes = [vals.shape[1]] * self._ranks
+        all_v = gather_rows(vals.T.contiguous(), sizes).T  # (Q, ranks * k_local)
+        all_i = gather_rows(idx.T.contiguous(), sizes).T
+        order = torch.sort(all_v, dim=1, descending=True, stable=True).indices[:, :k]
+        return torch.take_along_dim(all_v, order, dim=1), torch.take_along_dim(all_i, order, dim=1)
 
     def _rerank_shortlist(self, q: np.ndarray, idx: np.ndarray, k: int, k1: int, k2: int,
                           lam: float):
@@ -229,13 +271,13 @@ class GalleryIndex:
         return (1.0 - np.take_along_axis(new_dist, order, axis=1),
                 np.take_along_axis(idx, order, axis=1))
 
-    def _search_library(self, q: np.ndarray, k: int):
+    def _search_library(self, q: np.ndarray, k: int, n: int):
         """The JAX matcher's XLA route for k above K3's cap: every score of
-        the live rows, then a stable descending sort (ties lowest index
-        first). SQ8 scores take the XLA route's order, ``acc * q_scale *
-        g_scale``, over an exact integer product (float64 holds every int8
-        dot product), so they are bit-exact with the JAX index."""
-        n = self.num_gallery
+        the block's ``n`` live rows, then a stable descending sort (ties
+        lowest index first), (-inf, -1) past them. SQ8 scores take the XLA
+        route's order, ``acc * q_scale * g_scale``, over an exact integer
+        product (float64 holds every int8 dot product), so they are
+        bit-exact with the JAX index."""
         if self.quantize == "int8":
             q8, q_scale = _quantize_rows(q)
             acc = torch.from_numpy(q8).to(self.device).double() @ self._gallery[:n].double().T
@@ -244,4 +286,9 @@ class GalleryIndex:
         else:
             sims = torch.from_numpy(q).to(self.device) @ self._gallery[:n].T
         vals, idx = torch.sort(sims, dim=1, descending=True, stable=True)
-        return vals[:, :k], idx[:, :k].to(torch.int32)
+        vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)
+        if vals.shape[1] < k:  # a block with fewer live rows than k
+            pad = k - vals.shape[1]
+            vals = torch.cat([vals, vals.new_full((vals.shape[0], pad), float("-inf"))], dim=1)
+            idx = torch.cat([idx, idx.new_full((idx.shape[0], pad), -1)], dim=1)
+        return vals, idx

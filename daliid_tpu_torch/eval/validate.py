@@ -12,7 +12,14 @@ re-ranking (``:82-106``, :func:`reranked_distance_matrix`) on the device.
 :func:`msmt17_balanced_accuracy` (``:302-335``) and :class:`MSMT17Validator`
 (``:252-299``) score a validation split by its nearest train-class center,
 in numpy on the extracted features as the JAX function computes it.
-Not ported yet: the sharded path (the evaluate CLI rejects its flag).
+
+``sharded`` (``:41-77``, ``:125-160``) routes :meth:`Validator.rank_features`
+and :meth:`Validator.validate` through
+:func:`~daliid_tpu_torch.metrics.ranking.evaluate_rank_sharded` (multi-head:
+``evaluate_rank_sharded_multihead``): no (Q, G) matrix is built, each rank
+of a gang ranks its block of the queries, and ``validate`` returns ``None``
+for the distmat. ``None`` (the default) means on in a gang of more than one
+rank; re-ranking needs the whole matrices and keeps the replicated path.
 """
 
 from __future__ import annotations
@@ -26,7 +33,13 @@ from daliid_tpu_torch.data.registry import ReidTable
 from daliid_tpu_torch.device import resolve_device
 from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.eval.rerank import re_ranking
-from daliid_tpu_torch.metrics.ranking import cosine_distance_matrix, evaluate_rank
+from daliid_tpu_torch.metrics.ranking import (
+    cosine_distance_matrix,
+    evaluate_rank,
+    evaluate_rank_sharded,
+    evaluate_rank_sharded_multihead,
+)
+from daliid_tpu_torch.parallel.mesh import world
 
 
 class Validator:
@@ -39,12 +52,19 @@ class Validator:
     _report_map = True       # BRIAR reports mAP as 0
 
     def __init__(self, img_size=(256, 128), batch_size: int = 512, device="cuda",
-                 max_rank: int = 50, rerank: bool = False):
+                 max_rank: int = 50, rerank: bool = False, sharded: bool | None = None):
         self.img_size = img_size
         self.batch_size = batch_size
         self.device = resolve_device(device)
         self.max_rank = max_rank
         self.rerank = rerank  # the commented path at validateModels.py:49-53
+        self.sharded = sharded
+
+    def sharded_active(self) -> bool:
+        """Whether ranking takes the sharded path (``_sharded_active``)."""
+        if self.rerank:
+            return False
+        return world() > 1 if self.sharded is None else bool(self.sharded)
 
     def distance_matrix(self, query_fvs, gallery_fvs) -> torch.Tensor:
         return cosine_distance_matrix(
@@ -80,12 +100,24 @@ class Validator:
 
     def rank_features(self, q_fvs, g_fvs, queries: ReidTable, gallery: ReidTable,
                       head_weighting: str = "mean"):
-        """CMC/mAP straight from raw embeddings (full distmat, one device);
-        head tuples through :meth:`multihead_distance_matrix`."""
-        if isinstance(q_fvs, (tuple, list)):
-            if self.rerank:
-                raise ValueError("re-ranking a multi-head ensemble is undefined upstream "
-                                 "(evaluate.py never combines them); rerank per head instead")
+        """CMC/mAP straight from raw embeddings: sharded (no distmat) when
+        :meth:`sharded_active`, else the full distmat on the device; head
+        tuples merge as :meth:`multihead_distance_matrix` does."""
+        multi = isinstance(q_fvs, (tuple, list))
+        if multi and self.rerank:
+            raise ValueError("re-ranking a multi-head ensemble is undefined upstream "
+                             "(evaluate.py never combines them); rerank per head instead")
+        if self.sharded_active():
+            kw = dict(max_rank=self.max_rank, count_all=self._count_all,
+                      ignore_camera=self._ignore_camera, device=self.device)
+            ids = (queries.pids, gallery.pids, queries.camids, gallery.camids)
+            if multi:
+                cmc, mAP = evaluate_rank_sharded_multihead(q_fvs, g_fvs, *ids,
+                                                           head_weighting=head_weighting, **kw)
+            else:
+                cmc, mAP = evaluate_rank_sharded(q_fvs, g_fvs, *ids, **kw)
+            return cmc, (mAP if self._report_map else 0.0)
+        if multi:
             return self.rank(self.multihead_distance_matrix(q_fvs, g_fvs, head_weighting),
                              queries, gallery)
         return self.rank(self.reranked_distance_matrix(q_fvs, g_fvs), queries, gallery)
@@ -112,8 +144,8 @@ class Validator:
 
     def validate(self, queries: ReidTable, gallery: ReidTable, bundle_or_extractor,
                  verbose: bool = True):
-        """→ (cmc, mAP, distmat as numpy). Takes a ModelBundle or a reusable
-        FeatureExtractor."""
+        """→ (cmc, mAP, distmat as numpy, or None on the sharded path). Takes
+        a ModelBundle or a reusable FeatureExtractor."""
         extractor = (
             bundle_or_extractor
             if isinstance(bundle_or_extractor, FeatureExtractor)
@@ -122,16 +154,21 @@ class Validator:
         )
         q_fvs = extractor.extract(queries, verbose=verbose)
         g_fvs = extractor.extract(gallery, verbose=verbose)
-        if isinstance(q_fvs, tuple):
-            distmat = self.multihead_distance_matrix(q_fvs, g_fvs)
+        if self.sharded_active():
+            cmc, mAP = self.rank_features(q_fvs, g_fvs, queries, gallery)
+            distmat = None
         else:
-            distmat = self.reranked_distance_matrix(q_fvs, g_fvs, verbose=verbose)
-        cmc, mAP = self.rank(distmat, queries, gallery)
+            if isinstance(q_fvs, tuple):
+                distmat = self.multihead_distance_matrix(q_fvs, g_fvs)
+            else:
+                distmat = self.reranked_distance_matrix(q_fvs, g_fvs, verbose=verbose)
+            cmc, mAP = self.rank(distmat, queries, gallery)
+            distmat = distmat.cpu().numpy()
         if verbose:
             print(f"** Results ** mAP: {mAP:.2%}")
             for r in (1, 5, 10):
                 print(f"Rank-{r:<3}: {cmc[r - 1]:.2%}")
-        return cmc, mAP, distmat.cpu().numpy()
+        return cmc, mAP, distmat
 
 
 class BriarValidator(Validator):
@@ -142,9 +179,9 @@ class BriarValidator(Validator):
     _report_map = False
 
     def __init__(self, img_size=(256, 128), batch_size: int = 512, device="cuda",
-                 max_rank: int = 20, rerank: bool = False):
+                 max_rank: int = 20, rerank: bool = False, sharded: bool | None = None):
         super().__init__(img_size=img_size, batch_size=batch_size, device=device,
-                         max_rank=max_rank, rerank=rerank)
+                         max_rank=max_rank, rerank=rerank, sharded=sharded)
 
 
 def get_validator(dataset_name: str, **kw) -> Validator:

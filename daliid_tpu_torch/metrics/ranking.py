@@ -26,7 +26,17 @@ counts (an argsort) rather than the JAX package's (B, P, P) compare, which
 grows with P squared. The CMC is exact; mAP agrees with the float64 oracle
 to summation order (about 1e-16).
 
-Not ported yet: the sharded and multi-head ranking programs.
+:func:`evaluate_rank_sharded` (``:464``) and
+:func:`evaluate_rank_sharded_multihead` (``:528``, the per-pair head merge
+of ``:686-744``) rank from raw embeddings without the whole (Q, G) matrix:
+each rank of a gang (:mod:`daliid_tpu_torch.parallel.mesh`) takes its
+block of the queries and ranks it ``query_chunk`` rows at a time through
+K2 against the whole gallery, so a chunk's (``query_chunk``, G) distances
+are the largest buffer; the CMC sums, AP sum and valid count merge with
+one ``all_reduce``. P is :func:`queried_positives_bound` over the whole
+query set (the JAX package's ``:509`` and ``:591`` take
+``max_positives_bound``), so every rank launches K2 with the same P. On one
+process the same code ranks in bounded memory.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import numpy as np
 import torch
 
 from daliid_tpu_torch.ops.rank_counts import positive_rank_counts
+from daliid_tpu_torch.parallel.mesh import all_reduce_, row_range
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -180,6 +191,111 @@ def evaluate_rank(distmat, q_pids, g_pids, q_camids, g_camids, max_rank: int = 5
     denom = float(num_q) if count_all else max(float(n_valid), 1.0)
     denom = max(denom, 1.0)
     return cmc_sum.cpu().numpy() / denom, float(ap_sum) / denom
+
+
+def _host(x) -> np.ndarray:
+    return np.asarray(x.cpu() if torch.is_tensor(x) else x)
+
+
+def _rows(x, device) -> torch.Tensor:
+    """Embeddings (numpy or torch) as f32 rows on ``device``."""
+    t = x.float() if torch.is_tensor(x) else torch.as_tensor(np.asarray(x, np.float32))
+    return t.to(device)
+
+
+def _normalized(x, device) -> torch.Tensor:
+    """:func:`_rows`, L2-normalized as :func:`cosine_distance_matrix`
+    normalizes them."""
+    t = _rows(x, device)
+    return t / (torch.linalg.norm(t, dim=1, keepdim=True) + 1e-12)
+
+
+def _device_of(x, device):
+    if device is not None:
+        return torch.device(device)
+    return x.device if torch.is_tensor(x) else torch.device("cpu")
+
+
+def _rank_rows_sharded(rows_dist, num_q: int, q_pids, g_pids, q_camids, g_camids,
+                       device, max_rank: int, count_all: bool, ignore_camera: bool,
+                       query_chunk: int):
+    """This rank's block of the queries, ``query_chunk`` rows at a time:
+    ``rows_dist(a, b)`` gives the distances of queries [a, b) to the whole
+    gallery; K2 counts each chunk; the sums merge over the gang."""
+    qp_np, gp_np = _host(q_pids).astype(np.int32), _host(g_pids).astype(np.int32)
+    qc_np = _host(q_camids).astype(np.int32)
+    max_positives = queried_positives_bound(qp_np, gp_np)
+    gp, gc = _ids(gp_np, device), _ids(g_camids, device)
+    n_g = gp_np.shape[0]
+    sums = torch.zeros(max_rank + 2, dtype=torch.float64, device=device)
+    start, stop = row_range(num_q)
+    cols = torch.as_tensor(positive_columns(qp_np[start:stop], gp_np, max_positives),
+                           device=device)
+    qp, qc = _ids(qp_np[start:stop], device), _ids(qc_np[start:stop], device)
+    for a in range(0, stop - start, max(1, query_chunk)):
+        b = min(a + max(1, query_chunk), stop - start)
+        dist = rows_dist(start + a, start + b)
+        posmask, num_rel, p_dist, p_idx = _positive_prologue(dist, cols[a:b], qc[a:b], gc,
+                                                             ignore_camera)
+        counts = positive_rank_counts(dist, p_dist, p_idx, qp[a:b], qc[a:b], gp, gc,
+                                      ignore_camera=ignore_camera)
+        cmc_rows, ap, valid = _counts_epilogue(counts, posmask, num_rel, n_g, max_rank)
+        v = valid.double()
+        sums[:max_rank] += (cmc_rows * v[:, None]).sum(dim=0)
+        sums[max_rank] += (ap * v).sum()
+        sums[max_rank + 1] += v.sum()
+    all_reduce_(sums)
+    sums = sums.cpu()
+    denom = float(num_q) if count_all else float(sums[max_rank + 1])
+    denom = max(denom, 1.0)
+    return sums[:max_rank].numpy() / denom, float(sums[max_rank]) / denom
+
+
+def evaluate_rank_sharded(query_fvs, gallery_fvs, q_pids, g_pids, q_camids, g_camids,
+                          max_rank: int = 50, count_all: bool = False,
+                          ignore_camera: bool = False, query_chunk: int = 512, device=None):
+    """CMC (max_rank,) float64 and mAP from raw embeddings (normalized
+    here) without the whole distance matrix: this rank's queries against
+    the whole gallery, ``query_chunk`` rows at a time, merged over the gang.
+    ``device`` defaults to the query tensor's (the CPU for numpy)."""
+    dev = _device_of(query_fvs, device)
+    q, g = _normalized(query_fvs, dev), _normalized(gallery_fvs, dev)
+    return _rank_rows_sharded(lambda a, b: 1.0 - q[a:b] @ g.T, q.shape[0], q_pids, g_pids,
+                              q_camids, g_camids, dev, max_rank, count_all, ignore_camera,
+                              query_chunk)
+
+
+def evaluate_rank_sharded_multihead(q_heads, g_heads, q_pids, g_pids, q_camids, g_camids,
+                                    max_rank: int = 50, count_all: bool = False,
+                                    ignore_camera: bool = False, query_chunk: int = 512,
+                                    head_weighting: str = "mean", device=None):
+    """:func:`evaluate_rank_sharded` of a multi-head ensemble: each chunk's
+    distances are the heads' cosine distances merged per pair, their mean
+    (``"mean"``) or weighted by the larger of the two raw-embedding norms
+    (``"magnitude"``), so no per-head (Q, G) matrix exists either."""
+    if head_weighting not in ("mean", "magnitude"):
+        raise ValueError(f"head_weighting must be mean|magnitude, got {head_weighting!r}")
+    if len(q_heads) != len(g_heads) or any(
+            qh.shape[1] != gh.shape[1] for qh, gh in zip(q_heads, g_heads)):
+        raise ValueError("query/gallery head dims differ")
+    dev = _device_of(q_heads[0], device)
+    qs, gs = [_normalized(h, dev) for h in q_heads], [_normalized(h, dev) for h in g_heads]
+    q_mag = [torch.linalg.vector_norm(_rows(h, dev), dim=1) for h in q_heads]
+    g_mag = [torch.linalg.vector_norm(_rows(h, dev), dim=1) for h in g_heads]
+
+    def rows_dist(a, b):
+        num, den = 0.0, 0.0
+        for qh, gh, qm, gm in zip(qs, gs, q_mag, g_mag):
+            d = 1.0 - qh[a:b] @ gh.T
+            if head_weighting == "magnitude":
+                w = torch.maximum(qm[a:b, None], gm[None, :])
+                num, den = num + w * d, den + w
+            else:
+                num = num + d
+        return num / (den if head_weighting == "magnitude" else float(len(qs)))
+
+    return _rank_rows_sharded(rows_dist, qs[0].shape[0], q_pids, g_pids, q_camids, g_camids,
+                              dev, max_rank, count_all, ignore_camera, query_chunk)
 
 
 def evaluate_rank_numpy(distmat, q_pids, g_pids, q_camids, g_camids, max_rank=50):

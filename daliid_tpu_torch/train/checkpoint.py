@@ -13,6 +13,13 @@ manager, ``:316-319``). :func:`save_weights` writes the weights-only
 
 Files are written to a temporary name and renamed into place, so a crash
 never leaves a half-written checkpoint under its final name.
+
+In a gang (:mod:`daliid_tpu_torch.parallel`) every save begins with a
+barrier over the ranks, then rank 0 alone writes; every rank keeps the same
+index in memory and restores from the same file. The barrier stands in for
+orbax's (``daliid_tpu/train/checkpoint.py:64-103``): a survivor whose gang
+lost a rank blocks there, so it never commits an epoch the gang did not
+finish. :func:`save_weights` writes on rank 0 only.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from daliid_tpu_torch.parallel.mesh import barrier, rank
 
 _INDEX = "index.json"
 
@@ -56,7 +65,8 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.track_best = track_best
-        os.makedirs(self.directory, exist_ok=True)
+        if rank() == 0:
+            os.makedirs(self.directory, exist_ok=True)
         index = os.path.join(self.directory, _INDEX)
         self._metrics: Dict[int, Dict[str, float]] = {}
         if os.path.exists(index):
@@ -71,9 +81,12 @@ class CheckpointManager:
         """``state`` is :meth:`Trainer.state_dict`; ``rng`` its
         :meth:`~Trainer.rng_state` (a resumed run then replays the stream)."""
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
-        payload = {"state": state, "epoch": int(epoch), "metrics": metrics,
-                   "rng": _rng_to_tensors(rng) if rng is not None else None}
-        _atomic_save(payload, self._path(epoch))
+        barrier()  # the whole gang reached this epoch's save
+        writer = rank() == 0
+        if writer:
+            payload = {"state": state, "epoch": int(epoch), "metrics": metrics,
+                       "rng": _rng_to_tensors(rng) if rng is not None else None}
+            _atomic_save(payload, self._path(epoch))
         self._metrics[int(epoch)] = metrics
         if self.track_best:
             keep = sorted(self._metrics, key=lambda e: (self._metrics[e].get("rank1", 0.0), e),
@@ -81,8 +94,11 @@ class CheckpointManager:
         else:
             keep = sorted(self._metrics, reverse=True)[:self.max_to_keep]
         for e in set(self._metrics) - set(keep):
-            os.remove(self._path(e))
+            if writer:
+                os.remove(self._path(e))
             del self._metrics[e]
+        if not writer:
+            return
         tmp = os.path.join(self.directory, f"{_INDEX}.{os.getpid()}.tmp")
         with open(tmp, "w") as f:
             json.dump({str(k): v for k, v in self._metrics.items()}, f)
@@ -112,5 +128,6 @@ class CheckpointManager:
 
 def save_weights(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
     """Weights-only export (the reference's ``torch.save(state_dict)``,
-    ``mainKIT.py:169-170``), on the CPU."""
-    _atomic_save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    ``mainKIT.py:169-170``), on the CPU; rank 0 of a gang writes."""
+    if rank() == 0:
+        _atomic_save({k: v.detach().cpu() for k, v in state_dict.items()}, path)

@@ -46,6 +46,25 @@ The RNG state (the augmentation and drop-path torch Generators and the
 numpy PCG64 streams of the miner and the sampler) round-trips through
 :meth:`Trainer.rng_state`, so a resumed run replays the stream of an
 uninterrupted one.
+
+In a gang (:mod:`daliid_tpu_torch.parallel`; ``trainer.py:216-232``,
+``:300-330``, ``:620-670``) the sampler stays global and deterministic, so
+every rank draws the same PK batch. Each rank decodes its contiguous block
+of the batch's rows and runs K1 on it with its rows of the global (B, 16)
+scalar table, so its pixels equal one process's rows bit for bit. The
+forward runs on the block (BN reduces over the gang, ``models/norm.py``);
+the model's outputs are all-gathered with a backward that keeps the rank's
+own rows (``parallel/mesh.py::gather_rows``), so every rank computes the
+global loss and metrics, and its backward carries its share: the gradient
+through its rows of every sample term over the global denominator (the
+weighted sums, the valid count). The gradients are then summed over the
+ranks with one ``all_reduce`` before Adam; Adam and the EMA run alike on
+every rank. With ``grad_accum`` each rank takes the strided chunks of its
+own block; since the blocks are whole multiples of the chunk stride, the
+ranks' chunk ``c`` together are one process's chunk ``c``, in its order,
+with its valid-slot weight. Mining re-embeds through the gang extractor, so
+every rank mines the same centers and proxies. Drop-path draws (the ViT
+family) are each rank's own.
 """
 
 from __future__ import annotations
@@ -65,6 +84,7 @@ from daliid_tpu_torch.augment import train_augment as augment_mod
 from daliid_tpu_torch.augment.preprocess import decode_images
 from daliid_tpu_torch.eval.features import FeatureExtractor
 from daliid_tpu_torch.models.factory import ModelBundle
+from daliid_tpu_torch.parallel.mesh import active, all_reduce_, gather_rows, rank, world
 from daliid_tpu_torch.train.proxies import mine_proxies_and_centers
 from daliid_tpu_torch.train.sampler import PKBatchSampler
 from daliid_tpu_torch.utils.profiling import PhaseTimer
@@ -160,6 +180,15 @@ class Trainer:
     ):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        self._ranks, self._rank = world(), rank()
+        if self._ranks > 1:
+            # each rank's block holds whole grad-accum chunks (whole pairs)
+            unit = grad_accum * (2 if sampler.kind_of_transform == 1 else 1)
+            if sampler.batch_size % (self._ranks * unit):
+                raise ValueError(f"the batch of {sampler.batch_size} does not split into "
+                                 f"{self._ranks} ranks of whole grad-accum chunks "
+                                 f"(grad_accum={grad_accum})")
+        self._local_batch = sampler.batch_size // self._ranks
         self.online = bundle_online.module.train()
         self.momentum = bundle_momentum.module.eval().requires_grad_(False)
         self.device = next(self.online.parameters()).device
@@ -219,8 +248,11 @@ class Trainer:
     # ------------------------------------------------------------------
     # the step
     def augment(self, images_u8: torch.Tensor) -> torch.Tensor:
-        """K1 over a (B, H, W, 3) uint8 batch on the device."""
-        return augment_mod.train_augment(images_u8, self._gen, dtype=self.compute_dtype)
+        """K1 over this rank's block of (B, H, W, 3) uint8 rows on the
+        device, with the block's rows of the global scalar table."""
+        b = images_u8.shape[0]
+        return augment_mod.train_augment(images_u8, self._gen, dtype=self.compute_dtype,
+                                         rows=(self._rank * b, self._ranks * b))
 
     def _forward(self, images, labels, camids):
         kw = {}
@@ -246,9 +278,22 @@ class Trainer:
             epoch, self.num_epochs, tau=self.tau, sample_mask=mask) for f in feats]
         return mix(ce) + mix(tri)
 
+    def _gathered(self, out):
+        """The model's outputs of every rank's rows (the identity on one
+        process)."""
+        if self._ranks == 1:
+            return out
+        if isinstance(out, (tuple, list)):
+            return type(out)(self._gathered(o) for o in out)
+        return gather_rows(out, [out.shape[0]] * self._ranks)
+
     def _losses(self, images, labels, distortions, mask, camids, centers, proxies, proxy_labels,
-                epoch):
-        out = self._forward(images, labels, camids)
+                epoch, rows=None):
+        """The loss terms of the global batch (chunk) whose labels, weights
+        and mask are given; ``images`` are this rank's ``rows`` of it
+        (all of them on one process)."""
+        rows = slice(None) if rows is None else rows
+        out = self._gathered(self._forward(images, labels[rows], camids[rows]))
         id_loss = None
         if isinstance(out, tuple) and len(out) == 2 and isinstance(out[0], (list, tuple)):
             # JPM in train mode: ([scores...], [feats...])
@@ -286,33 +331,52 @@ class Trainer:
         """Forward and backward of one batch into the parameters' ``.grad``
         → (5,) f32 on the device: loss, center, proxy, balanced accuracy,
         mean max probability (valid-slot weighted over the chunks).
-        ``camids`` (B,) are read by SIE models only."""
+        ``camids`` (B,) are read by SIE models only. In a gang ``images``
+        are this rank's block of the rows and the other arguments the
+        global batch's."""
         self.optimizer.zero_grad(set_to_none=True)
         if camids is None:
             camids = torch.zeros_like(labels)
         n = self.grad_accum
+        lo = self._rank * images.shape[0]
         if n == 1:
             m = self._losses(images, labels, distortions, mask, camids, centers, proxies,
-                             proxy_labels, epoch)
+                             proxy_labels, epoch, rows=slice(lo, lo + images.shape[0]))
             m[0].backward()
+            self._sum_grads()
             return m.detach()
-        slots = torch.as_tensor(microbatch_slots(images.shape[0], n, self.paired_batches),
-                                dtype=torch.long, device=images.device)
-        m_sum = torch.zeros(5, dtype=torch.float32, device=images.device)
-        w_sum = torch.zeros((), dtype=torch.float32, device=images.device)
-        for sl in slots:
+        dev = images.device
+        local = torch.as_tensor(microbatch_slots(images.shape[0], n, self.paired_batches),
+                                dtype=torch.long, device=dev)
+        slots = torch.as_tensor(microbatch_slots(labels.shape[0], n, self.paired_batches),
+                                dtype=torch.long, device=dev)
+        m_sum = torch.zeros(5, dtype=torch.float32, device=dev)
+        w_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        for ls, sl in zip(local, slots):
             w_c = mask[sl].float().sum()  # valid slots
-            m = self._losses(images[sl], labels[sl], distortions[sl], mask[sl], camids[sl],
-                             centers, proxies, proxy_labels, epoch)
+            m = self._losses(images[ls], labels[sl], distortions[sl], mask[sl], camids[sl],
+                             centers, proxies, proxy_labels, epoch,
+                             rows=slice(lo // n, (lo + images.shape[0]) // n))
             (w_c * m[0]).backward()
             m_sum += w_c * m.detach()
             w_sum += w_c
+        self._sum_grads()
         denom = w_sum.clamp_min(1.0)
         with torch.no_grad():
             for p in self._params:
                 if p.grad is not None:
                     p.grad.div_(denom)
         return m_sum / denom
+
+    def _sum_grads(self) -> None:
+        """Sum the gradients over the gang (one flat ``all_reduce``)."""
+        if not active():
+            return
+        grads = [p.grad for p in self._params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        all_reduce_(flat)
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
 
     @torch.no_grad()
     def apply_update(self) -> torch.Tensor:
@@ -369,7 +433,8 @@ class Trainer:
     def _stage(self, batch):
         """Decode one batch into (pinned, on a GPU) host tensors; runs on the
         prefetch thread."""
-        images = torch.from_numpy(self._decode_batch(batch.paths))
+        lo = self._rank * self._local_batch
+        images = torch.from_numpy(self._decode_batch(batch.paths[lo:lo + self._local_batch]))
         if self.device.type == "cuda":
             images = images.pin_memory()
         return (images, torch.from_numpy(batch.labels).long(),

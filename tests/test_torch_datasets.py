@@ -717,3 +717,47 @@ def test_train_msmt17_pairs_pid_prefixed_copies_and_prints_balanced_accuracy(
     assert best_iter == 1 and len(calls) == 1 and 0.0 <= calls[0] <= 1.0
     assert f"Balanced Accuracy on Validation Set: {calls[0]:.3%}" in out
     assert (tmp_path / "ck" / "model_online_resnet50_v0.pt").exists()
+
+
+# ---------------------------------------------------------------- multi-split targets
+_MULTI_SPLIT = {
+    "evaluate-ensemble": (port_ensemble, ["--dataset", "PRCC"]),
+    "evaluate-fusion": (port_fusion, ["--dataset", "PRCC"]),
+    "search": (port_search, ["--dataset", "PRCC"]),
+    "train": (None, ["--dataset", "PRCC", "--epochs", "1", "--skip_initial_eval",
+                     "--eval_freq", "1"]),
+}
+
+
+@pytest.mark.parametrize("command", sorted(_MULTI_SPLIT))
+def test_multi_split_target_is_refused_by_name(trees, tmp_path, command):
+    """PRCC's query sets and gallery splits are lists, which only evaluate
+    ranks (split by split): the other commands refuse the target by name
+    before any extraction, train before its first epoch when a validation
+    would rank it (here the epoch-1 validation of a run that skips the
+    initial one)."""
+    from daliid_tpu_torch.cli import train
+
+    cli, argv = _MULTI_SPLIT[command]
+    cli = cli or train
+    argv = argv + ["--data_root", trees["data"], "--device", "cpu"]
+    if cli is train:
+        argv += ["--path_to_save_models", str(tmp_path / "ck"),
+                 "--path_to_save_metrics", str(tmp_path / "met")]
+    with pytest.raises(SystemExit, match="PRCC is a multi-split protocol"):
+        cli.main(cli.build_argparser().parse_args(argv))
+    assert not (tmp_path / "ck").exists()  # refused before training
+
+
+def test_jax_evaluate_ensemble_fails_on_a_multi_split_target(trees, monkeypatch):
+    """Why the port refuses: the JAX evaluate-ensemble hands PRCC's list of
+    query sets to its extractor, which reads each table as a path."""
+    monkeypatch.setitem(jax_factory.MODEL_REGISTRY, "resnet50",
+                        lambda dtype=jnp.float32, feature="both", **kw: (
+                            FlaxResNet(stage_sizes=STAGES, dtype=dtype, feature=feature), 2048))
+    monkeypatch.setattr(jax_native_loader, "native_loader_available", lambda: False)
+    args = jax_ensemble.build_argparser().parse_args([
+        "--dataset", "PRCC", "--data_root", trees["data"], "--img_height", str(IMG[0]),
+        "--img_width", str(IMG[1]), "--batch_size", "16", "--compute_dtype", "float32"])
+    with pytest.raises(FileNotFoundError, match="ReidTable"):
+        jax_ensemble.main(args)

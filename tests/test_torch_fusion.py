@@ -219,7 +219,9 @@ def test_commands_and_refusals():
     assert COMMANDS["evaluate-ensemble"][0] == "cli.evaluate_ensemble"
     for cli, base in ((port_fusion_cli, []), (port_ensemble, [])):
         parse = cli.build_argparser().parse_args
-        with pytest.raises(SystemExit, match="--multihost is not yet ported"):
+        # the multi-process flags are ported (tests/test_torch_distributed.py):
+        # --multihost without the gang's address is refused before any work
+        with pytest.raises(SystemExit, match="--multihost needs --coordinator_address"):
             cli.main(parse(["--dataset", "Synthetic", "--device", "cpu", *base, "--multihost"]))
         # the BRIAR manifests are read (tests/test_torch_datasets.py): a partial
         # trio, or the BRIAR dataset without one, is refused as in JAX

@@ -448,9 +448,18 @@ def test_serve_int8_extractor_answers_like_jax(world, tmp_path, one_torch_thread
 
 def test_evaluate_cli_rejects_unported_flags(world):
     parse = port_evaluate.build_argparser().parse_args
-    for extra in (["--multihost"], ["--sharded_eval"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            port_evaluate.main(parse(["--targets", "Synthetic", "--device", "cpu", *extra]))
+    # the multi-process flags and --sharded_eval are ported
+    # (tests/test_torch_distributed.py): --multihost without the gang's
+    # address is refused, and --sharded_eval ranks like the replicated path
+    with pytest.raises(SystemExit, match="--multihost needs --coordinator_address"):
+        port_evaluate.main(parse(["--targets", "Synthetic", "--device", "cpu", "--multihost"]))
+    base = ["--targets", "Synthetic", "--device", "cpu", "--data_root", world["root"],
+            "--model_path", world["weights"], "--img_height", str(IMG[0]), "--img_width",
+            str(IMG[1]), "--compute_dtype", "float32", "--batch_size", "16"]
+    sharded = port_evaluate.main(parse(base + ["--sharded_eval"]))["Synthetic"]
+    replicated = port_evaluate.main(parse(base + ["--no-sharded_eval"]))["Synthetic"]
+    np.testing.assert_array_equal(sharded[0], replicated[0])
+    assert abs(sharded[1] - replicated[1]) < 1e-12
     # the turbulence and manifest flags are ported (tests/test_torch_datasets.py):
     # a manifest flag without the rest of its trio is refused as in JAX
     with pytest.raises(SystemExit, match="must be given together"):

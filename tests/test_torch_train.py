@@ -595,10 +595,15 @@ def test_train_cli_rejects_unported_flags(tmp_path):
     from daliid_tpu_torch.cli import train
 
     # the head and SIE flags are ported (their refusals: test_torch_train_vit.py)
-    for flags in (["--remat", "full"], ["--fault_inject_epoch", "1"], ["--multihost"]):
-        args = train.build_argparser().parse_args(["--dataset", "Synthetic", *flags])
-        with pytest.raises(SystemExit, match="not yet ported"):
-            train.main(args)
+    args = train.build_argparser().parse_args(["--dataset", "Synthetic", "--remat", "full"])
+    with pytest.raises(SystemExit, match="not yet ported"):
+        train.main(args)
+    # the fault-injection and multi-process flags are ported
+    # (tests/test_torch_distributed.py): --multihost without the gang's address
+    # is refused before any work
+    args = train.build_argparser().parse_args(["--dataset", "Synthetic", "--multihost"])
+    with pytest.raises(SystemExit, match="--multihost needs --coordinator_address"):
+        train.main(args)
     args = train.build_argparser().parse_args(
         ["--dataset", "Synthetic", "--data_root", str(tmp_path), "--device", "cpu",
          "--model_name", "vit_base"])
