@@ -155,7 +155,28 @@ Phases, in order; any failed check exits non-zero and prints no result:
     512: K2 23 times, CMC equal to the replicated ``evaluate_rank`` on the
     whole distmat and mAP within 1e-12; time and peak memory of both; K2 at
     the chunk shape (512, 82,161) equal to its plain version.
-21. int8 extraction, the float phases above having launched no conv_int8:
+21. the remainder (``phase_remainder``): 21a ``cli.train.main --model_name
+    transreid_jpm --remat full --num_classes -1`` and ``--model_name vit
+    --remat tuned``, one epoch of 2 steps at P16 K12 paired with its
+    validation (SDPA; K1 twice and K2 each), and ``--remat full`` with
+    ResNet-50 refused; 21b ``export`` of phase 8's ResNet-50 and phase 11's
+    JPM checkpoints, .pt -> .npz -> .pth bit-equal to the .pt, ``evaluate``
+    on the .npz with the .pt's CMC and mAP (K2 once each), and
+    ``multipart_resnet50`` to a .pth refused by name; 21c ``mine_subset`` of
+    the train set's first row with ResNet-50 and JPM on K4 (the row itself
+    first, K4 16 times a JPM forward); 21d every loss of the library that
+    no train step takes and ``margin_softmax_loss`` for the four heads at a
+    PK batch of 384 x 2048 on the card against the same call on the CPU
+    (values within 1e-5 relative, gradients within rtol 1e-4 plus 1e-6 of
+    the largest entry). The remat step itself is timed with the JPM step
+    (23): under ``none`` (twice), ``full`` and ``tuned`` on the same
+    weights, batch and drop-path generator state, every gradient and the
+    generator's state after it bit-equal to ``none``'s (cuDNN's
+    deterministic algorithms on), K4 16 launches a forward and backward and
+    32 under ``full``; then each mode's step ms, img/s and peak memory, and
+    (21e) a ``profile_to`` trace of one ``tuned`` step whose file names the
+    ``phase`` span around it.
+22. int8 extraction, the float phases above having launched no conv_int8:
     ``cli.evaluate.main --quantize int8`` with ResNet-50 (K2 once,
     conv_int8 launched, the CMC equal to the oracle), again with
     ``--calib_batches 2 --batch_size 128``; 16 query images in f32 on the
@@ -171,7 +192,7 @@ Phases, in order; any failed check exits non-zero and prints no result:
     embedding, 48 ``torch._int_mm`` Dense layers a forward); ``cli.train.main
     --mining_quantize int8``, one epoch of 2 steps (K1 twice, conv_int8 in
     mining and not in the two validations, finite losses).
-22. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
+23. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
     D=2048, k=10 over 2^20 gallery rows (the f32 bound is the tensor
     cores': bytes, or 3 TF32 products a multiply-add), and at the serve
     path's shape; K2 at the Market-1501 protocol shape (Q=3368, G=15913) at
@@ -190,7 +211,8 @@ Phases, in order; any failed check exits non-zero and prints no result:
     and a ``torch.profiler`` view of three steps (the device's busy time,
     its share of the wall time, the largest kernels); ResNet-50 extraction
     img/s at batch 64 and 512 in bf16; the JPM train step and extraction at
-    512 with K4 and with SDPA; ``magnitude_weighted_distmat`` and the 7
+    512 with K4 and with SDPA, the step under each remat mode (21a);
+    ``magnitude_weighted_distmat`` and the 7
     rankings of evaluate-fusion at Market-1501's protocol shape; the four
     zoo families' extraction img/s and peak memory at batch 512; one
     ``densenet121`` train step (ms, img/s, peak memory); ``re_ranking`` at
@@ -210,8 +232,9 @@ Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 before each of the serve, search, evaluate, train, transformer evaluate,
 transformer train, fusion, ensemble, multi-head, k > 64 search, zoo
 evaluate (each family), densenet train, re-ranked evaluate, re-ranked
-search, each step of the datasets phase, each int8 phase and each command
-of phase 20's processes (which print theirs) and read just after.
+search, each step of the datasets phase, each int8 phase, each command
+of phase 20's processes (which print theirs) and each step of phase 21
+and read just after.
 
 Run from the repository root: ``python3 chip_smoke.py``. The kernels,
 the synthetic sets, the saved index and the checkpoints go under ``build/``.
@@ -2434,11 +2457,83 @@ def _time_k4(torch, dev):
     return entries
 
 
+def _time_remat(torch, dev, trainer, images_u8, images, rest, camids) -> dict:
+    """21a and 21e: the JPM step with K4 under each remat mode on the same
+    weights and batch. First the gradient of one forward and backward from
+    one drop-path generator state, under ``none`` twice, ``full`` and
+    ``tuned`` (cuDNN's deterministic algorithms, so that the patch
+    embedding's weight gradient sums in one order): every gradient and the
+    generator's state after it must be bit-equal to ``none``'s, and K4
+    launch 16 times a forward plus 16 in ``full``'s recompute. Then each
+    mode's step time, img/s and peak memory, and a ``profile_to`` trace of
+    one ``tuned`` step around a ``phase`` span, which the trace must name."""
+    from daliid_tpu_torch.ops.flash_attention import flash_attention
+    from daliid_tpu_torch.utils import phase, profile_to
+
+    model = trainer.online
+    set_fused_attention(model, True)
+    params = [p for p in model.parameters() if p.requires_grad]
+    start = trainer._drop_gen.get_state()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for run in ("none", "none_again", "full", "tuned"):
+            mode = run.split("_")[0]
+            set_remat(model, mode)
+            trainer._drop_gen.set_state(start)
+            before = flash_attention.launches
+            trainer.forward_backward(images, *rest, camids)
+            torch.cuda.synchronize(dev)
+            runs[run] = ([p.grad.clone() for p in params], trainer._drop_gen.get_state(),
+                         flash_attention.launches - before)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    base_grads, base_state, _ = runs["none"]
+    report = {}
+    for run, (grads, state, k4) in runs.items():
+        recompute = K4_PER_FORWARD["transreid_jpm"] if run == "full" else 0
+        check(k4 == K4_PER_FORWARD["transreid_jpm"] + recompute,
+              f"remat {run}: K4 launched {k4} times in a forward and backward")
+        rel = max(float((g - b).norm() / b.norm().clamp_min(1e-30))
+                  for g, b in zip(grads, base_grads))
+        equal = all(torch.equal(g, b) for g, b in zip(grads, base_grads))
+        check(equal and torch.equal(state, base_state),
+              f"remat {run}: the gradient (largest relative L2 {rel:.3g}) or the drop-path "
+              f"generator's state differs from none's")
+        report[run] = {"k4_launches": k4, "grads_bit_equal_to_none": equal}
+    del runs
+    for mode in ("none", "full", "tuned"):
+        set_remat(model, mode)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = cuda_ms(torch, lambda: trainer.train_step(images_u8, *rest, camids),
+                          reps=5, warmup=2)
+        report[mode].update({"step_ms": step_ms, "img_per_s": images.shape[0] / step_ms * 1e3,
+                             "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    trace_dir = WORK / "profile_remat"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with profile_to(str(trace_dir)):
+        with phase("remat_tuned_train_step", block_on=images) as elapsed:
+            m = trainer.train_step(images_u8, *rest, camids)
+    trace = trace_dir / "trace.json"
+    check(trace.exists() and "remat_tuned_train_step" in trace.read_text(),
+          f"profile_to wrote no trace naming the phase span under {trace_dir}")
+    report["profiled_tuned_step"] = {"phase_s": elapsed(), "trace_mb": trace.stat().st_size / 1e6,
+                                     "loss": float(m[0])}
+    set_remat(model, "none")
+    log(f"21a JPM train step with K4 under remat (bf16, {images.shape[0]} images, CUDA events; "
+        f"gradients bit-equal to none's): {json.dumps(report)}")
+    return report
+
+
 def _time_jpm(torch, dev, root):
     """One TransReID-JPM train step at 384 images (bf16), split with CUDA
     events into K1, forward+backward and Adam+EMA, with peak device memory,
-    once with K4 and once with SDPA on the same weights; then JPM extraction
-    img/s at batch 512 both ways."""
+    once with K4 and once with SDPA on the same weights; the step with K4
+    under each remat mode (``_time_remat``); then JPM extraction img/s at
+    batch 512 both ways."""
     from daliid_tpu_torch.augment.preprocess import normalize_images
     from daliid_tpu_torch.data import load_dataset
     from daliid_tpu_torch.models import build_model_pair
@@ -2474,6 +2569,7 @@ def _time_jpm(torch, dev, root):
                       "forward_backward_ms": fb_ms,
                       "adam_ema_ms": cuda_ms(torch, trainer.apply_update, reps=5),
                       "peak_memory_gb": peak / 1e9}
+    out["remat"] = _time_remat(torch, dev, trainer, images_u8, images, rest, camids)
     model = trainer.extractor.bundle.module
     x = torch.randint(0, 256, (EXTRACT_BATCH, *IMG, 3), dtype=torch.uint8, device=dev)
 
@@ -3695,6 +3791,290 @@ def phase_bounded_ranking(torch, dev, counts) -> tuple:
     return launched, report
 
 
+# ---------------------------------------------------------------- phase 21
+REMAT_CLI = (("transreid_jpm", "full"), ("vit", "tuned"))
+# the losses of phase 21d: values within this relative tolerance of the
+# CPU's, gradients within rtol 1e-4 plus 1e-6 of their largest entry (the
+# limits of tests/test_torch_losses.py); the card's f32 products sum in
+# another order than the CPU's
+LOSS_RTOL = 1e-5
+
+
+def set_remat(module, mode: str) -> None:
+    """Checkpoint every transformer block of ``module`` per ``mode``."""
+    from daliid_tpu_torch.models.vit import Block, check_remat
+
+    for m in module.modules():
+        if isinstance(m, Block):
+            m.remat = check_remat(mode)
+
+
+def _remat_cli(torch, root, counts) -> dict:
+    """21a: ``cli.train.main`` with ``--remat full`` (JPM) and ``--remat
+    tuned`` (ViT-B), one epoch of 2 steps and its validation each (the CLIs
+    attend through SDPA); ``--remat full`` with ResNet-50 refused."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import train
+
+    steps = TRAIN_IDS // P
+    total = {}
+    for name, mode in REMAT_CLI:
+        ckpt, metrics = WORK / f"remat_{name}_ckpt", WORK / f"remat_{name}_metrics"
+        extra = ["--num_classes", "-1"] if name == "transreid_jpm" else []
+        args = train.build_argparser().parse_args(
+            ["--dataset", "Synthetic", "--data_root", str(root), "--model_name", name,
+             "--remat", mode, *extra, "--compute_dtype", COMPUTE_DTYPE, "--kind_of_transform",
+             "1", "--P", str(P), "--K", str(K), "--epochs", "1", "--eval_freq", "1",
+             "--skip_initial_eval", "--path_to_save_models", str(ckpt),
+             "--path_to_save_metrics", str(metrics), *_img_flags()])
+        counts.reset()
+        t0 = time.time()
+        train.main(args)
+        seconds = time.time() - t0
+        launched = counts.read()
+        check(launched["fused_augment"] == steps and launched["rank_counts"] > 0,
+              f"train --model_name {name} --remat {mode} launched {launched}")
+        progress = json.loads((metrics / f"progress_{name}_v0.json").read_text())
+        check(len(progress) == 1 and all(np.isfinite(progress[0][k]) for k in ("loss", "rank1")),
+              f"train --remat {mode} ({name}) progress {progress}")
+        log(f"21a train CLI --model_name {name} --remat {mode} (bf16, SDPA): 1 epoch of {steps} "
+            f"steps and its validation in {seconds:.1f} s, loss {progress[0]['loss']:.5f}; "
+            f"launches {launched}")
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+    args = train.build_argparser().parse_args(
+        ["--dataset", "Synthetic", "--data_root", str(root), "--remat", "full", *_img_flags()])
+    try:
+        train.main(args)
+        fail("train --model_name resnet50 --remat full was not refused")
+    except SystemExit as e:
+        check("only applies to the transformer family" in str(e),
+              f"train --model_name resnet50 --remat full: {e}")
+        log(f"21a train --model_name resnet50 --remat full refused: {e}")
+    return total
+
+
+def _export_args(name: str, src: str, dst: str, *extra):
+    from daliid_tpu_torch.cli import export
+
+    return export.build_argparser().parse_args(
+        ["--model_name", name, "--input", src, "--output", dst, *extra, *_img_flags()])
+
+
+def _export_round_trip(torch, name: str, pt: Path, *extra) -> dict:
+    """21b: ``pt`` → ``export`` → .npz → ``export`` → .pth, bit-equal to
+    ``pt`` over its keys; → the two directions' seconds and the paths."""
+    from daliid_tpu_torch.cli import export
+    from daliid_tpu_torch.models.torch_port import load_torch_checkpoint
+
+    npz, pth = WORK / f"export_{name}.npz", WORK / f"export_{name}.pth"
+    t0 = time.time()
+    export.main(_export_args(name, str(pt), str(npz), *extra))
+    t1 = time.time()
+    export.main(_export_args(name, str(npz), str(pth), *extra))
+    t2 = time.time()
+    src, out = load_torch_checkpoint(str(pt)), torch.load(pth, weights_only=True)
+    check(set(out) == set(src), f"export {name}: keys differ: {sorted(set(out) ^ set(src))[:6]}")
+    bad = [k for k in src if not torch.equal(out[k], src[k].float())]
+    check(not bad, f"export {name}: tensors differ after the round trip: {bad[:6]}")
+    return {"to_npz_s": t1 - t0, "to_torch_s": t2 - t1, "keys": len(src),
+            "mb": sum(v.numel() * 4 for v in src.values()) / 1e6, "npz": str(npz)}
+
+
+def _export_phase(torch, counts) -> tuple:
+    """21b: the export round trips of the ResNet-50 and JPM checkpoints that
+    phases 8 and 11 wrote; ``evaluate`` on the ResNet-50 .npz gives the .pt's
+    CMC and mAP; ``multipart_resnet50`` to a torch pickle is refused."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli import evaluate
+
+    resnet_pt = WORK / "train_ckpt" / "model_online_resnet50_v0.pt"
+    jpm_pt = WORK / "jpm_ckpt" / "model_online_transreid_jpm_v0.pt"
+    report = {"resnet50": _export_round_trip(torch, "resnet50", resnet_pt),
+              "transreid_jpm": _export_round_trip(torch, "transreid_jpm", jpm_pt,
+                                                  "--num_classes", str(TRAIN_IDS))}
+    results, total = {}, {}
+    for path in (str(resnet_pt), report["resnet50"]["npz"]):
+        args = evaluate.build_argparser().parse_args(
+            ["--targets", "Synthetic", "--model_name", "resnet50", "--model_path", path,
+             *_eval_flags()])
+        counts.reset()
+        results[path] = evaluate.main(args)["Synthetic"]
+        launched = counts.read()
+        check(launched["rank_counts"] == 1, f"evaluate --model_path {path} launched {launched}")
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+    (cmc_pt, map_pt), (cmc_npz, map_npz) = results.values()
+    check(np.array_equal(cmc_pt, cmc_npz) and map_pt == map_npz,
+          f"evaluate on the exported .npz: R1 {cmc_npz[0]} mAP {map_npz} against the .pt's "
+          f"R1 {cmc_pt[0]} mAP {map_pt}")
+    from daliid_tpu_torch.cli import export
+
+    try:
+        export.main(_export_args("multipart_resnet50", report["resnet50"]["npz"],
+                                 str(WORK / "export_multipart.pth")))
+        fail("export of multipart_resnet50 to a torch pickle was not refused")
+    except SystemExit as e:
+        check("upper_bn" in str(e) and ".npz" in str(e), f"export multipart_resnet50: {e}")
+    log(f"21b export round trips (.pt -> .npz -> .pth, bit-equal): {json.dumps(report)}; "
+        f"evaluate on the .npz: R1 {cmc_npz[0]:.4f} mAP {map_npz:.6f}, equal to the .pt's; "
+        f"multipart_resnet50 -> .pth refused")
+    return total, report
+
+
+def _subset_phase(torch, dev, root, counts) -> tuple:
+    """21c: ``mine_subset`` of the train set's first row with two extractors,
+    ResNet-50 and JPM on K4 (bf16, the checkpoints of phases 8 and 11): the
+    row itself first, K4 launched as often as the JPM extraction's forwards
+    need."""
+    import numpy as np
+
+    from daliid_tpu_torch.cli.evaluate import load_bundle
+    from daliid_tpu_torch.data import load_dataset
+    from daliid_tpu_torch.eval.features import FeatureExtractor
+    from daliid_tpu_torch.eval.subset import mine_subset
+
+    table = load_dataset("Synthetic", root=str(root))["train"]
+    extractors = [FeatureExtractor(
+        load_bundle(name, str(path), IMG, torch.bfloat16, dev, **kw), img_size=IMG,
+        batch_size=EXTRACT_BATCH, device=dev) for name, path, kw in (
+            ("resnet50", WORK / "train_ckpt" / "model_online_resnet50_v0.pt", {}),
+            ("transreid_jpm", WORK / "jpm_ckpt" / "model_online_transreid_jpm_v0.pt",
+             {"use_fused_attention": True}))]
+    top_k = len(table) // 4
+    counts.reset()
+    t0 = time.time()
+    sel, rest = mine_subset(table[np.arange(1)], table, extractors, top_k=top_k)
+    seconds = time.time() - t0
+    launched = counts.read()
+    forwards = 1 + _forwards(table)
+    check(launched["flash_attention"] == K4_PER_FORWARD["transreid_jpm"] * forwards,
+          f"mine_subset launched K4 {launched['flash_attention']} times for {forwards} JPM "
+          f"forwards")
+    check(len(sel) == top_k and len(rest) == len(table) - top_k
+          and sorted(np.concatenate([sel, rest]).tolist()) == list(range(len(table))),
+          f"mine_subset split {len(sel)} + {len(rest)} rows of {len(table)}")
+    check(sel[0] == 0, f"mine_subset ranked row {sel[0]} before the selected row 0")
+    same_id = float(np.mean(table.pids[sel[1:]] == table.pids[0]))
+    log(f"21c mine_subset (ResNet-50 + JPM on K4, bf16) of row 0 over {len(table)} train rows: "
+        f"top {top_k} in {seconds:.2f} s, the row itself first, {100 * same_id:.1f}% of the rest "
+        f"of the top its identity's; launches {launched}")
+    del extractors
+    return launched, {"seconds": seconds, "top_k": top_k, "same_identity_share": same_id}
+
+
+def _loss_cases(torch, L, M, proxies_mod, dev):
+    """21d: the inputs, a PK batch of 384 x 2048 (16 identities x 24, paired
+    clean and distorted slots, the last pair masked), made on the host from
+    seed 21 and copied to ``dev``; → {name: loss of the embeddings}."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    n, d, ids = 2 * P * K, 2048, P
+    labels = np.repeat(np.arange(ids), n // ids).astype(np.int64)
+    base = rng.normal(size=(ids, d))
+    fvs = base[labels] + 1.5 * rng.normal(size=(n, d))
+    fvs = (fvs / np.linalg.norm(fvs, axis=1, keepdims=True)).astype(np.float32)
+    dist = np.stack([np.zeros(n // 2), rng.integers(1, 6, n // 2)], 1).reshape(-1)
+    mask = np.ones(n, bool)
+    mask[-2:] = False
+    cams = rng.integers(0, 6, n)
+    clothes = rng.integers(0, 3, n)
+    controlled = rng.random(n) < 0.3
+    unit = lambda a: (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)
+    centers = unit(base)
+    proxies = unit(base[np.repeat(np.arange(ids), 5)] + rng.normal(size=(5 * ids, d)))
+    plabels = np.repeat(np.arange(ids), 5)
+    plabels[::7] = -1
+    cc, cids, ccams = proxies_mod.mine_camera_centers(fvs, labels, cams)
+    heads = rng.normal(size=(d, ids)).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    lab, dst, msk, cam, clo = t(labels), t(dist.astype(np.int64)), t(mask), t(cams), t(clothes)
+    e, ne = 3.0, 10.0
+    cases = {
+        "center_loss": lambda f: L.center_loss(f, lab, t(centers), sample_mask=msk),
+        "l2_center_loss": lambda f: L.l2_center_loss(f, lab, t(centers), sample_mask=msk),
+        "proxy_loss": lambda f: L.proxy_loss(f, lab, t(proxies), t(plabels), p_max=5),
+        "weighted_softmax_all_triplet_loss": lambda f: L.weighted_softmax_all_triplet_loss(
+            f, lab, dst, e, ne, sample_mask=msk),
+        "weighted_all_positive_cosine_loss": lambda f: L.weighted_all_positive_cosine_loss(
+            f, lab, dst, e, ne, sample_mask=msk),
+        "softmax_all_triplet_loss": lambda f: L.softmax_all_triplet_loss(
+            f, lab, dst, e, ne, sample_mask=msk),
+        "multi_level_distortion_loss": lambda f: L.multi_level_distortion_loss(f[:n // 6], f),
+        "instance_loss": lambda f: L.instance_loss(f),
+        "hard_center_triplet_loss": lambda f: L.hard_center_triplet_loss(
+            f, lab, t(centers), sample_mask=msk),
+        "clothes_triplet_loss": lambda f: L.clothes_triplet_loss(f, lab, clo, sample_mask=msk),
+        "bipartite_loss": lambda f: torch.stack(L.bipartite_loss(
+            f, lab, cam, clo, dst, e, ne, sample_mask=msk, controlled=t(controlled))),
+        "weighted_pose_loss": lambda f: L.weighted_pose_loss(
+            f, lab, cam, clo, dst, e, ne, sample_mask=msk),
+        "controlled_camera_hard_loss": lambda f: L.controlled_camera_hard_loss(
+            f, lab, dst, e, ne, sample_mask=msk),
+        "camera_hard_loss": lambda f: L.camera_hard_loss(
+            f, lab, cam, t(cc), t(cids), t(ccams), sample_mask=msk),
+        "median_softmax_triplet_loss": lambda f: L.median_softmax_triplet_loss(
+            f, lab, sample_mask=msk),
+    }
+    for kind in ("arcface", "cosface", "amsoftmax", "circle"):
+        cases[f"margin_softmax_loss[{kind}]"] = (
+            lambda f, kind=kind: M.margin_softmax_loss(kind, f, t(heads), lab, sample_mask=msk))
+    return fvs, cases
+
+
+def _losses_phase(torch, dev) -> dict:
+    """21d: each loss of the library that no train step takes, and
+    ``margin_softmax_loss`` for the four heads, on the card against the same
+    call on the CPU: values within ``LOSS_RTOL``, gradients within rtol 1e-4
+    plus 1e-6 of their largest entry."""
+    import numpy as np
+
+    from daliid_tpu_torch import losses as L
+    from daliid_tpu_torch import margins as M
+    from daliid_tpu_torch.train import proxies
+
+    worst, results = {}, {}
+    for where in (dev, torch.device("cpu")):
+        fvs, cases = _loss_cases(torch, L, M, proxies, where)
+        for name, fn in cases.items():
+            f = torch.as_tensor(fvs, device=where).requires_grad_(True)
+            value = fn(f)
+            value.sum().backward()
+            results.setdefault(name, []).append((value.detach().cpu().numpy(),
+                                                 f.grad.cpu().numpy()))
+    for name, ((v_gpu, g_gpu), (v_cpu, g_cpu)) in results.items():
+        check(np.isfinite(v_gpu).all() and np.isfinite(g_gpu).all(), f"{name}: not finite")
+        v_err = float(np.max(np.abs(v_gpu - v_cpu) / np.maximum(np.abs(v_cpu), 1e-30)))
+        scale = float(np.abs(g_cpu).max())
+        g_err = float(np.max(np.abs(g_gpu - g_cpu) / (1e-4 * np.abs(g_cpu) + 1e-6 * scale)))
+        check(v_err <= LOSS_RTOL, f"{name}: value {v_gpu} on the card, {v_cpu} on the CPU")
+        check(g_err <= 1.0, f"{name}: gradient off by {g_err:.3g} of its limit")
+        worst[name] = {"value": float(np.sum(v_gpu)), "value_rel_err": v_err,
+                       "grad_err_of_limit": g_err}
+    log(f"21d losses at a PK batch of {2 * P * K} x 2048 on the card against the CPU (value "
+        f"rtol {LOSS_RTOL}; gradient rtol 1e-4 + 1e-6 of the largest): {json.dumps(worst)}")
+    return worst
+
+
+def phase_remainder(torch, dev, root, counts) -> tuple:
+    """Phase 21: the train CLI under ``--remat`` (21a), ``export`` (21b),
+    ``mine_subset`` (21c) and the losses on the card (21d); the remat step's
+    times, gradients and trace (21a, 21e) are in ``_time_jpm``."""
+    launched = _remat_cli(torch, root, counts)
+    exported, export_report = _export_phase(torch, counts)
+    mined, subset_report = _subset_phase(torch, dev, root, counts)
+    for got in (exported, mined):
+        for k, n in got.items():
+            launched[k] = launched.get(k, 0) + n
+    report = {"export": export_report, "subset": subset_report,
+              "losses": _losses_phase(torch, dev)}
+    torch.cuda.empty_cache()
+    return launched, report
+
+
 # ---------------------------------------------------------------- counts
 class Counts:
     """The launch counters of every kernel wrapper on the main path."""
@@ -3852,6 +4232,12 @@ def main() -> int:
         for name, n in launched.items():
             launches[name] += n
     walls["multi-process (phase 20)"] = time.time() - t_multi
+    t_rest = time.time()
+    rest_launched, remainder = phase_remainder(torch, dev, train_root, counts)
+    check(rest_launched["conv_int8"] == 0, f"phase 21 launched conv_int8: {rest_launched}")
+    for name, n in rest_launched.items():
+        launches[name] += n
+    walls["remat CLIs, export, mine_subset, losses (phase 21)"] = time.time() - t_rest
     for phase in int8_phases:
         launched = phase()
         check(launched["conv_int8"] > 0, f"an int8 phase launched no conv_int8: {launched}")
@@ -3935,6 +4321,14 @@ def main() -> int:
             f"Adam+EMA {r['adam_ema_ms']:.3f} ms), peak {r['peak_memory_gb']:.2f} GB; "
             f"extraction at 512: {r['extract_img_per_s_at_512']:.1f} img/s")
     log(f"K4 in one JPM forward of {jpm['batch']}: 12 x N=211 + 4 x N=53 = {k4_forward:.3f} ms")
+    for mode in ("none", "full", "tuned"):
+        r = jpm["remat"][mode]
+        log(f"remat {mode}: JPM train step with K4 {r['step_ms']:.3f} ms, {r['img_per_s']:.1f} "
+            f"img/s, peak {r['peak_memory_gb']:.2f} GB, K4 {r['k4_launches']} launches a step, "
+            f"gradient bit-equal to none's: {r['grads_bit_equal_to_none']}")
+    for name, r in remainder["export"].items():
+        log(f"export {name} ({r['keys']} tensors, {r['mb']:.1f} MB): .pt -> .npz "
+            f"{r['to_npz_s']:.2f} s, .npz -> .pth {r['to_torch_s']:.2f} s, bit-equal")
     k4 = results["flash_attention"]
     bwd = (k4["backward_ms"], k4["at_n53"]["backward_ms"])
     log(f"attention_backward alone (bf16, plain f32 torch): N=211 {bwd[0]:.4f} ms, N=53 "

@@ -1,6 +1,6 @@
 """Umbrella entry point: ``python -m daliid_tpu_torch <command> [args...]``.
 
-Port of ``daliid_tpu/__main__.py`` for the commands ported so far. Each
+Port of ``daliid_tpu/__main__.py``, with all of its commands. Each
 subcommand runs ``daliid_tpu_torch.cli.<module>`` as ``__main__`` with the
 same flags as ``python -m daliid_tpu_torch.cli.<module>``.
 """
@@ -17,6 +17,7 @@ COMMANDS = {
                           "two-model ensemble evaluation (evaluate_ensembled_models.py)"),
     "evaluate-fusion": ("cli.evaluate_fusion",
                         "clean+distorted magnitude fusion (evaluateCleanATModels.py)"),
+    "export": ("cli.export", "checkpoint conversion: reference torch <-> JAX npz"),
     "search": ("cli.search", "gallery search service"),
     "stats": ("cli.stats", "dataset statistics tables"),
     "supervise": ("cli.supervise", "training supervisor: auto crash-resume, gang scheduling"),
@@ -41,7 +42,7 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit(0 if argv else 2)
     cmd = argv[0]
     if cmd not in COMMANDS:
-        print(f"unknown or not yet ported command: {cmd!r}\n\n{_usage()}", file=sys.stderr)
+        print(f"unknown command: {cmd!r}\n\n{_usage()}", file=sys.stderr)
         raise SystemExit(2)
     module = f"daliid_tpu_torch.{COMMANDS[cmd][0]}"
     sys.argv = [f"python -m {module}"] + argv[1:]

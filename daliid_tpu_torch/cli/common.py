@@ -1,15 +1,7 @@
-"""Shared CLI plumbing of the port: flags of features not yet ported, the
-multi-split refusal and the SIE camera-id check."""
+"""Shared CLI plumbing of the port: the multi-split refusal and the SIE
+camera-id check."""
 
 from __future__ import annotations
-
-
-def reject_unported(args, defaults: dict) -> None:
-    """Exit with a clear error for any flag in ``defaults`` that the caller
-    set away from its default: the feature behind it is not ported yet."""
-    for name, default in defaults.items():
-        if getattr(args, name, default) != default:
-            raise SystemExit(f"--{name} is not yet ported to daliid_tpu_torch")
 
 
 def refuse_multisplit(target: str, splits: dict, command: str) -> None:

@@ -18,9 +18,11 @@ balanced accuracy of the online model on MSMT17's ``val`` split (JAX
 ``:370-372``). The sampler names the turbulence copies by the first
 dataset of ``--dataset`` (JAX ``:285``), for every merged table. A
 multi-split first dataset (PRCC, VC-Clothes, ImageNet) is refused before
-the first epoch when a validation would rank it. ``--remat`` (not ported
-yet) exits with an error that names it, and so does a multi-head model,
-whose tuple of embeddings the losses do not take.
+the first epoch when a validation would rank it, and so is a multi-head
+model, whose tuple of embeddings the losses do not take. ``--remat``
+(``models/vit.py::REMAT_MODES``) checkpoints the transformer blocks of the
+``REMAT_MODELS`` and exits with the JAX CLI's error for any other model
+(``:258-263``).
 
 ``--multihost`` (``--coordinator_address``, ``--num_processes``,
 ``--process_id``; JAX ``:441-446``) joins a gang (:mod:`daliid_tpu_torch.parallel`;
@@ -48,7 +50,7 @@ import time
 
 import torch
 
-from daliid_tpu_torch.cli.common import check_camera_ids, refuse_multisplit, reject_unported
+from daliid_tpu_torch.cli.common import check_camera_ids, refuse_multisplit
 from daliid_tpu_torch.config import TrainConfig
 from daliid_tpu_torch.data.registry import data_root, load_dataset, merge_train_tables
 from daliid_tpu_torch.device import add_device_flag, parse_dtype, resolve_device
@@ -56,11 +58,13 @@ from daliid_tpu_torch.eval.validate import get_validator, msmt17_balanced_accura
 from daliid_tpu_torch.models.factory import (
     MARGIN_HEAD_MODELS,
     MULTIHEAD_MODELS,
+    REMAT_MODELS,
     SIE_MODELS,
     build_model_pair,
     check_model_name,
 )
 from daliid_tpu_torch.models.torch_port import load_state
+from daliid_tpu_torch.models.vit import REMAT_MODES
 from daliid_tpu_torch.parallel.distributed import (
     add_multihost_flags,
     maybe_initialize_from_args,
@@ -70,8 +74,6 @@ from daliid_tpu_torch.parallel.mesh import rank
 from daliid_tpu_torch.train.checkpoint import CheckpointManager, save_weights
 from daliid_tpu_torch.train.sampler import PKBatchSampler
 from daliid_tpu_torch.train.trainer import Trainer
-
-_UNPORTED = {"remat": "none"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -141,7 +143,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "entry per training camera (cfg.MODEL.SIE_CAMERA)")
     p.add_argument("--sie_coef", type=float, default=1.5,
                    help="SIE embedding scale (sie_xishu; cfg.MODEL.SIE_COE)")
-    p.add_argument("--remat", type=str, default="none", help="not yet ported")
+    p.add_argument("--remat", type=str, default="none", choices=REMAT_MODES,
+                   help="transformer-family activation checkpointing (models/vit.py "
+                        "REMAT_MODES): 'tuned' keeps qkv, the attention output and "
+                        "norm2's output of each block, 'full' only block inputs; the same "
+                        "values and gradients as 'none'")
     add_multihost_flags(p)
     add_device_flag(p)
     return p
@@ -161,7 +167,7 @@ def config_from_args(args) -> TrainConfig:
         mining_quantize=args.mining_quantize, mining_calib_batches=args.mining_calib_batches,
         num_classes=args.num_classes, id_loss_type=args.id_loss_type,
         margin_s=args.cosine_scale, margin_m=args.cosine_margin, sie_cameras=args.sie_cameras,
-        sie_coef=args.sie_coef,
+        sie_coef=args.sie_coef, remat=args.remat,
     )
 
 
@@ -210,9 +216,12 @@ def _inject_fault(epoch: int, target_rank: int) -> None:
 def main(args):
     """→ (best rank-1, its epoch)."""
     maybe_initialize_from_args(args)
-    reject_unported(args, _UNPORTED)
     cfg = config_from_args(args)
     check_model_name(cfg.model_name)
+    if cfg.remat != "none" and cfg.model_name not in REMAT_MODELS:
+        raise SystemExit(f"--remat only applies to the transformer family "
+                         f"{sorted(REMAT_MODELS)}; the CNN train step fits the card's memory at "
+                         f"the protocol batch: drop the flag for {cfg.model_name!r}")
     if cfg.model_name in MULTIHEAD_MODELS:
         raise SystemExit(f"{cfg.model_name} returns a tuple of head embeddings and the "
                          "trainer's losses take one embedding (as the JAX trainer's do): "
@@ -235,7 +244,7 @@ def main(args):
 
     online, momentum = build_model_pair(
         cfg.model_name, torch.Generator().manual_seed(cfg.seed), img_size=cfg.img_size,
-        dtype=dtype, device=device, **_head_kwargs(cfg, train_table))
+        dtype=dtype, device=device, remat=cfg.remat, **_head_kwargs(cfg, train_table))
     if cfg.model_path:
         weights = load_state(cfg.model_name, cfg.model_path, online.module)
         online.module.load_state_dict(weights, strict=True)

@@ -3,8 +3,7 @@ eval) and evaluation.
 
 Copy of ``daliid_tpu/config.py::TrainConfig`` (the reference's
 ``mainKIT.py:316-344`` flags) and ``EvalConfig`` (``:100-117``), each plus
-``device``. The field of a feature that is not ported yet (remat) is left
-out; ``cli/train.py`` rejects its flag.
+``device``.
 """
 
 from __future__ import annotations
@@ -27,6 +26,8 @@ class TrainConfig:
     margin_m: Optional[float] = None      # cfg.SOLVER.COSINE_MARGIN
     sie_cameras: int = 0                  # SIE table size; -1 = one per training camera
     sie_coef: float = 1.5                 # SIE scale (sie_xishu)
+    remat: str = "none"                   # transformer activation checkpointing
+                                          # (models/vit.py::REMAT_MODES)
 
     # data
     dataset: str = "Market"

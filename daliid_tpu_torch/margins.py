@@ -1,6 +1,7 @@
 """Margin-based classifier heads: ArcFace, CosFace, AM-Softmax and Circle.
 
-Port of ``daliid_tpu/margins.py`` (``:21-81``): logits over L2-normalized
+Port of ``daliid_tpu/margins.py`` (``:21-81``), with
+:func:`margin_softmax_loss`: logits over L2-normalized
 embeddings and a class-weight matrix normalized per class, with the margin
 applied to the target class. ``weights`` is (D, C), the layout of a flax
 ``Dense`` kernel; a ``torch.nn.Linear`` classifier passes ``weight.T``. The
@@ -65,3 +66,14 @@ def margin_logits(kind: str, embeddings, weights, labels, **kw):
     if kind not in _HEADS:
         raise KeyError(f"unknown margin head {kind!r}; available: {sorted(_HEADS)}")
     return _HEADS[kind](embeddings, weights, labels, **kw)
+
+
+def margin_softmax_loss(kind: str, embeddings, weights, labels, sample_mask=None, **kw):
+    """Mean cross entropy over the margin logits, over the ``sample_mask``
+    rows when given (JAX ``:75-81``)."""
+    logits = margin_logits(kind, embeddings, weights, labels, **kw)
+    nll = F.cross_entropy(logits, labels.long(), reduction="none")
+    if sample_mask is None:
+        return nll.mean()
+    mask = sample_mask.to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp_min(1)

@@ -8,7 +8,7 @@ zoo ``osnet``, ``densenet121`` (with ``num_classes``), ``efficientnetB0``
 and ``inceptionV3`` (``:107-130``), the ViT family ``vit``,
 ``vit_small``, ``deit_small``, ``tiny_vit_smoke``, ``transreid_jpm`` and
 ``transreid`` (``:131-197``): all 18 names of the JAX registry. Also the
-flag sets of ``:50-61`` (``REMAT_MODELS`` waits for ``remat``),
+flag sets of ``:50-61``,
 :func:`get_model` (``:200-220``), :func:`build_ensembles` (``:241-253``)
 and :func:`build_model_pair` (``:256-266``). As in the JAX package every
 factory takes ``**kw`` and ignores what it does not use; the CLIs check
@@ -16,7 +16,8 @@ the flags against the sets below.
 
 ``use_fused_attention=True`` is the JAX factories' ``use_pallas_attention``:
 the ViT family's attention goes through the hand-written kernel K4 instead
-of ``scaled_dot_product_attention``. ``remat`` is not ported.
+of ``scaled_dot_product_attention``. ``remat`` (``models/vit.py::REMAT_MODES``)
+checkpoints the transformer blocks of the ``REMAT_MODELS``.
 
 Weights are initialized from an explicit ``torch.Generator``, in the
 families of flax's defaults: every convolution and linear kernel ~ N(0,
@@ -76,6 +77,8 @@ SIE_MODELS = frozenset({"transreid", "transreid_jpm"})
 GELU_APPROX_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "transreid_jpm"})
 # the ViTReID family (one state_dict scheme: base.* + bottleneck)
 VIT_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "tiny_vit_smoke"})
+# the models whose factories pass ``remat=`` to the transformer blocks
+REMAT_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "transreid_jpm"})
 # the models whose forward returns a tuple of head embeddings
 MULTIHEAD_MODELS = frozenset({"dualresnet50", "multipart_resnet50", "multiview_resnet50"})
 
@@ -160,26 +163,26 @@ def _inception_v3(dtype=torch.float32, feature="both", **kw):
 
 @register_model("vit")
 def _vit(dtype=torch.float32, img_size=(256, 128), gelu_approx=False,
-         use_fused_attention=False, **kw):
+         use_fused_attention=False, remat="none", **kw):
     return vit_base_reid(dtype=dtype, img_size=tuple(img_size), gelu_approx=gelu_approx,
-                         use_fused_attention=use_fused_attention), 768
+                         use_fused_attention=use_fused_attention, remat=remat), 768
 
 
 @register_model("vit_small")
 def _vit_small(dtype=torch.float32, img_size=(256, 128), gelu_approx=False,
-               use_fused_attention=False, **kw):
+               use_fused_attention=False, remat="none", **kw):
     """The reference's vit_small (vit_pytorch.py:461-468): 768/8/8, mlp 3,
     no qkv bias, qk_scale 768^-0.5."""
     return vit_small_reid(dtype=dtype, img_size=tuple(img_size), gelu_approx=gelu_approx,
-                          use_fused_attention=use_fused_attention), 768
+                          use_fused_attention=use_fused_attention, remat=remat), 768
 
 
 @register_model("deit_small")
 def _deit_small(dtype=torch.float32, img_size=(256, 128), gelu_approx=False,
-                use_fused_attention=False, **kw):
+                use_fused_attention=False, remat="none", **kw):
     """DeiT-small (vit_pytorch.py:470-476)."""
     return deit_small_reid(dtype=dtype, img_size=tuple(img_size), gelu_approx=gelu_approx,
-                           use_fused_attention=use_fused_attention), 384
+                           use_fused_attention=use_fused_attention, remat=remat), 384
 
 
 @register_model("tiny_vit_smoke")
@@ -192,21 +195,23 @@ def _tiny_vit_smoke(dtype=torch.float32, img_size=(32, 16), **kw):
 @register_model("transreid_jpm")
 def _transreid_jpm(dtype=torch.float32, img_size=(256, 128), sie_cameras=0, sie_views=0,
                    sie_coef=1.5, num_classes=0, id_loss_type="softmax", margin_s=None,
-                   margin_m=None, gelu_approx=False, use_fused_attention=False, **kw):
+                   margin_m=None, gelu_approx=False, use_fused_attention=False, remat="none",
+                   **kw):
     """TransReID with the jigsaw patch module (make_models.py:221-389)."""
     return TransReIDJPM(
         img_size=tuple(img_size), sie_cameras=sie_cameras, sie_views=sie_views,
         sie_coef=sie_coef, num_classes=num_classes, id_loss_type=id_loss_type,
         margin_s=margin_s, margin_m=margin_m, gelu_approx=gelu_approx,
-        use_fused_attention=use_fused_attention, dtype=dtype), 5 * 768
+        use_fused_attention=use_fused_attention, remat=remat, dtype=dtype), 5 * 768
 
 
 @register_model("transreid")
 def _transreid(dtype=torch.float32, img_size=(256, 128), sie_cameras=0, sie_views=0,
-               sie_coef=1.5, gelu_approx=False, use_fused_attention=False, **kw):
+               sie_coef=1.5, gelu_approx=False, use_fused_attention=False, remat="none", **kw):
     return transreid_base(img_size=tuple(img_size), sie_cameras=sie_cameras,
                           sie_views=sie_views, sie_coef=sie_coef, gelu_approx=gelu_approx,
-                          use_fused_attention=use_fused_attention, dtype=dtype), 768
+                          use_fused_attention=use_fused_attention, remat=remat,
+                          dtype=dtype), 768
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
-"""Weight carry into the port: JAX variables, JAX ``.npz`` files and the
-reference's torch checkpoints → the port's ``state_dict``.
+"""Weight carry between the port and the JAX package and the reference:
+JAX variables, JAX ``.npz`` files and the reference's torch checkpoints ↔
+the port's ``state_dict``.
 
 The port's ``state_dict`` keys are the reference's torch keys, the schemes
 that ``daliid_tpu/models/torch_port.py`` emits: ``resnet50_reid_to_torch_keys``
@@ -28,6 +29,11 @@ entry point dispatches on the model name, as ``variables_from_torch`` does
   ``train/checkpoint.py::save_variables`` writes, whose keys are
   ``jax.tree_util.keystr`` paths such as
   ``['params']['layer1_0']['conv1']['kernel']``, parsed here as strings;
+- :func:`variables_to_jax` is the inverse of :func:`variables_from_jax`,
+  through the same key tables (:func:`_entries_of` reads a model's
+  structure from either side), and :func:`state_to_torch` writes the
+  reference scheme of the JAX package's ``variables_to_torch``: together
+  they are ``cli/export.py``'s two directions;
 - :func:`state_from_torch` reads a reference ``state_dict`` (the ResNets'
   already has the port's layout once DataParallel's ``module.`` prefix is
   dropped, and the IBN-Net ``fc.`` head, ``:662-667``; the multi-head
@@ -95,29 +101,31 @@ def read_jax_npz(path: str) -> Dict[str, object]:
 # (LayerNorm), bn, raw (the array under its own key) and dense_conv1x1 (a
 # flax Dense that is a 1x1 convolution with bias in torch)
 
-def _resnet_entries(params):
+def _resnet_entries(has):
     """The ResNet family: the trunk, IBN blocks (``bn1.IN`` / ``bn1.BN``, the
     IBN-Net-a scheme of ``daliid_tpu/models/torch_port.py:625-657``), and
     every head under its flax name (BN necks; the multi-view gates, which
     are convolutions with biases)."""
     e = [("conv1", ("conv1",), "conv"), ("bn1", ("bn1",), "bn")]
-    for name, p in params.items():
-        if not name.startswith("layer"):
-            if name not in ("conv1", "bn1"):
-                e.append((name, (name,), "conv" if "kernel" in p else "bn"))
-            continue
-        stage, b = name[len("layer"):].split("_")
-        t = f"layer{stage}.{b}"
-        e += [(f"{t}.{c}", (name, c), "conv") for c in ("conv1", "conv2", "conv3")]
-        e += [(f"{t}.{n}", (name, n), "bn") for n in ("bn2", "bn3")]
-        if "bn1_ibn" in p:
-            e += [(f"{t}.bn1.IN", (name, "bn1_ibn", "instance"), "ln"),
-                  (f"{t}.bn1.BN", (name, "bn1_ibn", "batch"), "bn")]
-        else:
-            e.append((f"{t}.bn1", (name, "bn1"), "bn"))
-        if "downsample_conv" in p:
-            e += [(f"{t}.downsample.0", (name, "downsample_conv"), "conv"),
-                  (f"{t}.downsample.1", (name, "downsample_bn"), "bn")]
+    for stage in range(1, 5):
+        b = 0
+        while has(f"layer{stage}.{b}", (f"layer{stage}_{b}",)):
+            t, name = f"layer{stage}.{b}", f"layer{stage}_{b}"
+            e += [(f"{t}.{c}", (name, c), "conv") for c in ("conv1", "conv2", "conv3")]
+            e += [(f"{t}.{n}", (name, n), "bn") for n in ("bn2", "bn3")]
+            if has(f"{t}.bn1.IN", (name, "bn1_ibn")):
+                e += [(f"{t}.bn1.IN", (name, "bn1_ibn", "instance"), "ln"),
+                      (f"{t}.bn1.BN", (name, "bn1_ibn", "batch"), "bn")]
+            else:
+                e.append((f"{t}.bn1", (name, "bn1"), "bn"))
+            if has(f"{t}.downsample", (name, "downsample_conv")):
+                e += [(f"{t}.downsample.0", (name, "downsample_conv"), "conv"),
+                      (f"{t}.downsample.1", (name, "downsample_bn"), "bn")]
+            b += 1
+    for head in ("last_bn",) + sum(_HEADS_WITHOUT_TORCH_KEYS.values(), ()):
+        if has(head, (head,)):
+            e.append((head, (head,), "bn" if has(f"{head}.running_mean", (head, "scale"))
+                      else "conv"))
     return e
 
 
@@ -131,30 +139,31 @@ def _vit_block_entries(tk: str, path: tuple):
             (f"{tk}.mlp.fc2", path + ("mlp", "fc2"), "dense")]
 
 
-def _vit_trunk_entries(trunk, path: tuple):
-    """The trunk at flax ``path`` (its node ``trunk``) → ``base.*``."""
+def _vit_trunk_entries(has, path: tuple):
+    """The trunk at flax ``path`` → ``base.*``."""
     e = [("base.cls_token", path + ("cls_token",), "raw"),
          ("base.pos_embed", path + ("pos_embed",), "raw"),
          ("base.patch_embed.proj", path + ("patch_embed",), "conv")]
-    if "sie_embed" in trunk:
+    if has("base.sie_embed", path + ("sie_embed",)):
         e.append(("base.sie_embed", path + ("sie_embed",), "raw"))
-    depth = sum(1 for k in trunk if re.fullmatch(r"block\d+", k))
-    for i in range(depth):
+    i = 0
+    while has(f"base.blocks.{i}", path + (f"block{i}",)):
         e += _vit_block_entries(f"base.blocks.{i}", path + (f"block{i}",))
-    if "norm" in trunk:
+        i += 1
+    if has("base.norm", path + ("norm",)):
         e.append(("base.norm", path + ("norm",), "ln"))
     return e
 
 
-def _jpm_entries(params):
-    e = _vit_trunk_entries(params["base"], ("base",))
+def _jpm_entries(has):
+    e = _vit_trunk_entries(has, ("base",))
     for branch in ("b1", "b2"):
         e += _vit_block_entries(f"{branch}.0", (f"{branch}_block",))
         e.append((f"{branch}.1", (f"{branch}_norm",), "ln"))
     for i in range(5):
         suffix = "" if i == 0 else f"_{i}"
         e.append((f"bottleneck{suffix}", (f"bottleneck{suffix}",), "bn"))
-        if f"classifier{suffix}" in params:
+        if has(f"classifier{suffix}", (f"classifier{suffix}",)):
             e.append((f"classifier{suffix}", (f"classifier{suffix}",), "dense"))
     return e
 
@@ -163,7 +172,7 @@ def _conv_bn_entries(tk: str, path: tuple):
     return [(tk + ".conv", path + ("conv",), "conv"), (tk + ".bn", path + ("bn",), "bn")]
 
 
-def _osnet_entries(params):
+def _osnet_entries(has):
     """torchreid's ``osnet_x1_0`` naming under the ``OSNETReID`` wrapper:
     lite convolutions ``conv1`` (pointwise) / ``conv2`` (depthwise) / ``bn``,
     streams ``conv2a`` to ``conv2d``, the shared ``gate``, ``conv3`` the
@@ -185,7 +194,7 @@ def _osnet_entries(params):
                   (tk + ".gate.fc2", path + ("gate", "fc2"), "dense_conv1x1"),
                   (tk + ".conv3.conv", path + ("expand",), "conv"),
                   (tk + ".conv3.bn", path + ("expand_bn",), "bn")]
-            if "shortcut" in params[path[0]]:
+            if has(tk + ".downsample", path + ("shortcut",)):
                 e += [(tk + ".downsample.conv", path + ("shortcut",), "conv"),
                       (tk + ".downsample.bn", path + ("shortcut_bn",), "bn")]
         if stage < 4:
@@ -193,22 +202,24 @@ def _osnet_entries(params):
     return e + _conv_bn_entries("conv5", ("conv5",)) + [("last_bn", ("last_bn",), "bn")]
 
 
-def _densenet_entries(params):
+def _densenet_entries(has):
     """torchvision ``densenet121.features`` naming under the wrapper's
-    ``model_base``; the block sizes are read from the params."""
+    ``model_base``; the block sizes are probed."""
     e = [("model_base.conv0", ("conv0",), "conv"), ("model_base.norm0", ("norm0",), "bn")]
-    layers = [tuple(map(int, m.groups())) for m in
-              (re.fullmatch(r"block(\d+)_layer(\d+)", k) for k in params) if m]
-    for bi in range(1, max(b for b, _ in layers) + 1):
-        for li in range(sum(1 for b, _ in layers if b == bi)):
+    bi = 1
+    while has(f"model_base.denseblock{bi}", (f"block{bi}_layer0",)):
+        li = 0
+        while has(f"model_base.denseblock{bi}.denselayer{li + 1}", (f"block{bi}_layer{li}",)):
             tk, path = f"model_base.denseblock{bi}.denselayer{li + 1}", (f"block{bi}_layer{li}",)
             e += [(tk + ".norm1", path + ("norm1",), "bn"), (tk + ".conv1", path + ("conv1",), "conv"),
                   (tk + ".norm2", path + ("norm2",), "bn"), (tk + ".conv2", path + ("conv2",), "conv")]
-        if f"transition{bi}" in params:
+            li += 1
+        if has(f"model_base.transition{bi}", (f"transition{bi}",)):
             e += [(f"model_base.transition{bi}.norm", (f"transition{bi}", "norm"), "bn"),
                   (f"model_base.transition{bi}.conv", (f"transition{bi}", "conv"), "conv")]
+        bi += 1
     e += [("model_base.norm5", ("norm_final",), "bn"), ("last_bn", ("last_bn",), "bn")]
-    if "classifier" in params:
+    if has("classification", ("classifier",)):
         e.append(("classification", ("classifier",), "dense"))
     return e
 
@@ -272,20 +283,46 @@ def _efficientnet_entries():
                 ("last_bn", ("last_bn",), "bn")]
 
 
-def _entries(model_name: str, params):
+def _entries_of(model_name: str, has):
+    """The key table of ``model_name``. ``has(torch_key, flax_path)`` answers
+    whether the weights at hand have the module under ``torch_key`` (the
+    port's ``state_dict``) or ``flax_path`` (the JAX params): every
+    structural choice (depth, SIE, IBN, shortcuts, heads, classifiers)
+    names both at one call, so the two directions read one table."""
     if model_name in VIT_MODELS:
-        return _vit_trunk_entries(params, ()) + [("bottleneck", ("last_bn",), "bn")]
+        return _vit_trunk_entries(has, ()) + [("bottleneck", ("last_bn",), "bn")]
     if model_name == "transreid_jpm":
-        return _jpm_entries(params)
+        return _jpm_entries(has)
     if model_name == "osnet":
-        return _osnet_entries(params)
+        return _osnet_entries(has)
     if model_name == "densenet121":
-        return _densenet_entries(params)
+        return _densenet_entries(has)
     if model_name == "inceptionV3":
         return _inception_entries()
     if model_name == "efficientnetB0":
         return _efficientnet_entries()
-    return _resnet_entries(params)
+    return _resnet_entries(has)
+
+
+def _entries(model_name: str, params):
+    """The key table of ``model_name``, its structure read from a JAX params
+    tree."""
+    def has(_torch_key, path):
+        node = params
+        for name in path:
+            if not isinstance(node, Mapping) or name not in node:
+                return False
+            node = node[name]
+        return True
+
+    return _entries_of(model_name, has)
+
+
+def _port_entries(model_name: str, keys):
+    """The key table of ``model_name``, its structure read from the port's
+    ``state_dict`` keys."""
+    prefixes = {k.rsplit(".", i)[0] for k in keys for i in range(k.count(".") + 1)}
+    return _entries_of(model_name, lambda torch_key, _path: torch_key in prefixes)
 
 
 def _node(tree, path):
@@ -323,6 +360,56 @@ def _convert(params, stats, entries) -> Dict[str, torch.Tensor]:
             out[tk + ".running_mean"] = _f32(s["mean"])
             out[tk + ".running_var"] = _f32(s["var"])
     return out
+
+
+def _set(tree, path, leaf) -> None:
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = leaf
+
+
+def variables_to_jax(model_name: str, state_dict: Mapping[str, torch.Tensor]):
+    """The inverse of :func:`variables_from_jax`: the port's ``state_dict`` of
+    ``model_name`` → the JAX package's ``{'params', 'batch_stats'}`` tree of
+    float32 numpy arrays, through the same key table (its structure read
+    from the ``state_dict`` keys): convolution kernels OIHW → HWIO
+    (depthwise ``(C, 1, H, W)`` → flax's ``(H, W, 1, C)``), Linear weights
+    → Dense ``(in, out)`` kernels, the 1x1 gate convolutions → Dense, BN and
+    LayerNorm ``weight`` → ``scale``, ``running_mean/var`` → ``mean/var``;
+    ``num_batches_tracked`` is dropped. A key the table does not map
+    raises."""
+    sd = {k: v for k, v in state_dict.items() if not k.endswith("num_batches_tracked")}
+    used = set()
+
+    def take(key):
+        used.add(key)
+        return np.array(sd[key].detach().cpu().float().numpy(), np.float32)
+
+    params: Dict[str, object] = {}
+    stats: Dict[str, object] = {}
+    for tk, path, kind in _port_entries(model_name, sd):
+        if kind == "raw":
+            _set(params, path, take(tk))
+            continue
+        w = take(tk + ".weight")
+        if kind == "conv":
+            _set(params, path + ("kernel",), np.ascontiguousarray(w.transpose(2, 3, 1, 0)))
+        elif kind == "dense":
+            _set(params, path + ("kernel",), np.ascontiguousarray(w.T))
+        elif kind == "dense_conv1x1":
+            _set(params, path + ("kernel",), np.ascontiguousarray(w[:, :, 0, 0].T))
+        else:  # ln, bn
+            _set(params, path + ("scale",), w)
+        if tk + ".bias" in sd:
+            _set(params, path + ("bias",), take(tk + ".bias"))
+        if kind == "bn" and tk + ".running_mean" in sd:
+            _set(stats, path + ("mean",), take(tk + ".running_mean"))
+            _set(stats, path + ("var",), take(tk + ".running_var"))
+    unmapped = sorted(set(sd) - used)
+    if unmapped:
+        raise ValueError(f"{len(unmapped)} keys of the {model_name} state_dict are not in its "
+                         f"key table: {unmapped[:10]}")
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
 
 
 def params_from_jax(model_name: str, params) -> Dict[str, torch.Tensor]:
@@ -517,6 +604,77 @@ def state_from_torch(model_name: str, state_dict: Mapping[str, object],
             f"{', '.join(missing)}: the reference ResNet-50 key scheme has no entries for "
             f"them; load the JAX package's save_variables .npz of the model instead")
     return sd
+
+
+def _denormalize_to_torchvision_vit_keys(sd: Mapping[str, object]) -> Dict[str, object]:
+    """The inverse of :func:`_normalize_torchvision_vit_keys` on a bare
+    TransReID trunk (no ``base.``): → torchvision ``vit_b_16`` naming, the
+    ``ViTReID`` wrapper scheme (``Encoders.py:767-828``)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("blocks."):
+            _, idx, rest = k.split(".", 2)
+            rest = (rest.replace("norm1", "ln_1").replace("norm2", "ln_2")
+                    .replace("attn.proj", "self_attention.out_proj")
+                    .replace("attn.qkv.weight", "self_attention.in_proj_weight")
+                    .replace("attn.qkv.bias", "self_attention.in_proj_bias")
+                    .replace("mlp.fc1", "mlp.0").replace("mlp.fc2", "mlp.3"))
+            nk = f"encoder.layers.encoder_layer_{idx}.{rest}"
+        else:
+            nk = (k.replace("cls_token", "class_token")
+                  .replace("pos_embed", "encoder.pos_embedding")
+                  .replace("patch_embed.proj", "conv_proj")
+                  .replace("norm.weight", "encoder.ln.weight")
+                  .replace("norm.bias", "encoder.ln.bias"))
+        out[nk] = v
+    return out
+
+
+def multihead_torch_refusal(model_name: str) -> str:
+    """Why a multi-head ResNet has no reference torch checkpoint."""
+    return (f"{model_name} cannot be exported to a torch pickle: the reference ResNet-50 key "
+            f"scheme has no entries for its heads "
+            f"{', '.join(_HEADS_WITHOUT_TORCH_KEYS[model_name])}, which the file would lose; "
+            f"keep the model as an .npz (which the port and the JAX package both read)")
+
+
+def state_to_torch(model_name: str, state_dict: Mapping[str, torch.Tensor],
+                   module=None) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of ``model_name`` → the reference scheme that
+    the JAX package's ``variables_to_torch`` writes
+    (``daliid_tpu/models/torch_port.py:848-899``), as float32 CPU tensors
+    without ``num_batches_tracked``. The port's keys are that scheme but
+    for ``vit``, whose reference wrapper is torchvision's ``vit_b_16``
+    (``class_token``, ``encoder.layers.encoder_layer_{i}.*``, the neck
+    ``last_bn`` and torchvision's unused ImageNet head ``heads.head`` as
+    zeros of (1000, D) and (1000,), so that a strict load succeeds), and a
+    margin-head ``transreid_jpm`` (``module.id_loss_type``), whose
+    reference model has no ``classifier_1..4``.
+
+    A multi-head ResNet is refused with an error that names its heads: the
+    reference ResNet-50 scheme has no entries for them (the JAX package's
+    export drops them from a multi-part or multi-view file and fails on
+    the dual one). ``tiny_vit_smoke`` has no reference scheme."""
+    if model_name in _HEADS_WITHOUT_TORCH_KEYS:
+        raise ValueError(multihead_torch_refusal(model_name))
+    if model_name == "tiny_vit_smoke":
+        raise KeyError(f"no reference torch scheme for model {model_name!r}")
+    out = {k: v.detach().cpu().float() for k, v in strip_module_prefix(dict(state_dict)).items()
+           if not k.endswith("num_batches_tracked")}
+    if model_name == "vit":
+        neck = {"last_bn." + k.split(".", 1)[1]: v for k, v in out.items()
+                if k.startswith("bottleneck.")}
+        out = _denormalize_to_torchvision_vit_keys(
+            {k[len("base."):]: v for k, v in out.items() if k.startswith("base.")})
+        out.update(neck)
+        dim = out["class_token"].shape[-1]
+        out["heads.head.weight"] = torch.zeros(1000, dim)
+        out["heads.head.bias"] = torch.zeros(1000)
+    elif (model_name == "transreid_jpm"
+          and getattr(module, "id_loss_type", "softmax") != "softmax"):
+        out = {k: v for k, v in out.items()
+               if not k.startswith(tuple(f"classifier_{i}." for i in range(1, 5)))}
+    return out
 
 
 def load_state(model_name: str, path: str, module=None) -> Dict[str, torch.Tensor]:

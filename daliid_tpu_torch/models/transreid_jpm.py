@@ -12,7 +12,10 @@ Port of ``daliid_tpu/models/transreid_jpm.py``: :func:`shuffle_unit`
   chunks of ``(N - 1) // divide_length`` tokens (tokens left over are
   dropped), each behind the cls token, through one shared block ``b2``;
 - 5 f32 BN necks; with ``num_classes`` a bias-free classifier per branch
-  (init normal(0.001)).
+  (init normal(0.001));
+- ``remat`` (``models/vit.py::REMAT_MODES``) checkpoints the trunk's
+  blocks and the branch blocks b1 and b2 alike (JAX ``:73``, ``:104``);
+  b2 is checkpointed once for each of its chunks.
 
 Train mode with ``num_classes`` returns ``(scores, feats)``: the 5 branch
 logits (or, for a margin ``id_loss_type`` with labels, the margin logits of
@@ -61,9 +64,11 @@ class TransReIDJPM(nn.Module):
                  rearrange: bool = True, neck_feat: str = "before",
                  id_loss_type: str = "softmax", margin_s: float | None = None,
                  margin_m: float | None = None, gelu_approx: bool = False,
-                 use_fused_attention: bool = False, dtype: torch.dtype = torch.float32):
+                 use_fused_attention: bool = False, remat: str = "none",
+                 dtype: torch.dtype = torch.float32):
         """``use_fused_attention`` is the JAX package's ``use_pallas_attention``:
-        every block's attention through the hand-written kernel K4."""
+        every block's attention through the hand-written kernel K4; ``remat``
+        one of ``REMAT_MODES``."""
         super().__init__()
         self.dtype = dtype
         self.num_classes = num_classes
@@ -76,12 +81,12 @@ class TransReIDJPM(nn.Module):
             img_size, patch_size, patch_stride, embed_dim, depth, num_heads, mlp_ratio,
             drop_path_rate, gelu_approx=gelu_approx, sie_cameras=sie_cameras,
             sie_views=sie_views, sie_coef=sie_coef, local_feature=True,
-            use_fused_attention=use_fused_attention, dtype=dtype)
+            use_fused_attention=use_fused_attention, remat=remat, dtype=dtype)
 
         def branch():
             return nn.Sequential(
                 Block(embed_dim, num_heads, mlp_ratio, 0.0, gelu_approx=gelu_approx,
-                      use_fused_attention=use_fused_attention),
+                      use_fused_attention=use_fused_attention, remat=remat),
                 LayerNorm(embed_dim))
 
         self.b1 = branch()

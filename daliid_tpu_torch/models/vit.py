@@ -21,8 +21,33 @@ are cast to the compute dtype where they are used; LayerNorm (eps 1e-6)
 computes its statistics in f32 and returns the compute dtype; GELU is the
 exact erf form unless ``gelu_approx``. Stochastic depth draws its keep masks
 from the ``generator`` passed to the train forward (the JAX package's
-``droppath`` key cannot be replayed in torch). The activation checkpointing
-of the JAX package (``remat``) is not ported.
+``droppath`` key cannot be replayed in torch).
+
+``remat`` (:data:`REMAT_MODES`, JAX ``:30-76``) is activation checkpointing
+of every block with ``torch.utils.checkpoint`` (non-reentrant, so the
+backward graph is the one ``none`` builds and only saved tensors are
+recomputed; early stop ends each recompute at the last tensor it needs):
+
+- ``none``: autograd saves what each op needs;
+- ``full``: each block is one checkpointed region, so only block inputs
+  are kept; the backward runs the block's forward again, attention
+  included (with ``use_fused_attention`` K4 launches twice a block);
+- ``tuned``: checkpointed segments between the three tensors the JAX
+  policy saves by name (``save_only_these_names('vit_qkv',
+  'vit_attn_out', 'vit_norm2')``, JAX ``:126``, ``:150``, ``:178``):
+  norm1 → qkv, then attention outside any segment (K4's autograd
+  function keeps q, k and v, views of the saved qkv, and recomputes the
+  probabilities in its backward; SDPA keeps its own), then proj → the
+  residual → norm2, then the MLP; beside the block input, qkv, the
+  attention output and norm2's output are kept, and the backward
+  recomputes norm1, the projection, the residual with norm2, and fc1 with
+  GELU. K4 launches once a block.
+
+Drop-path's uniforms are drawn from the generator before any checkpointed
+region and passed in as tensors: ``preserve_rng_state`` replays only the
+default CPU and CUDA generators, so a draw inside a region would take new
+masks in the recompute and advance the generator twice. Every mode gives
+the same values, gradients and generator state as ``none``.
 
 ``state_dict`` keys are the reference's TransReID keys under
 ``build_transformer``: ``base.cls_token``, ``base.pos_embed``,
@@ -37,20 +62,36 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from daliid_tpu_torch.models.norm import TorchBatchNorm
 from daliid_tpu_torch.models.resnet import Conv
 from daliid_tpu_torch.ops.flash_attention import flash_attention
 
 
-def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+#: remat modes of the transformer trunk and JPM's branch blocks (``remat=``
+#: on :class:`Block`, :class:`ViTReID` and ``TransReIDJPM``, ``--remat`` on
+#: the train CLI); see the module docstring
+REMAT_MODES = ("none", "full", "tuned")
+
+
+def drop_path_uniforms(x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    """One uniform per sample of ``x``, shaped to broadcast over it, from
+    ``generator`` (on ``x``'s device)."""
+    return torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                      device=x.device)
+
+
+def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+              u: torch.Tensor | None = None) -> torch.Tensor:
     """Per-sample stochastic depth: keep each sample with probability
     ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``. The uniforms
-    come from ``generator`` (on ``x``'s device)."""
+    are ``u``, or drawn from ``generator``."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator, device=x.device)
+    if u is None:
+        u = drop_path_uniforms(x, generator)
     return x / keep * (u < keep).to(x.dtype)
 
 
@@ -100,11 +141,16 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
+        return self.proj(self.attend(self.qkv(x)))
+
+    def attend(self, qkv: torch.Tensor) -> torch.Tensor:
+        """The attention of the fused (B, N, 3C) projection → (B, N, C),
+        the input of ``proj``."""
+        b, n, c3 = qkv.shape
+        c = c3 // 3
         hd = c // self.num_heads
         # (B, N, 3C) → three (B, N, H, hd) views, no copy
-        q, k, v = (t.unflatten(-1, (self.num_heads, hd))
-                   for t in self.qkv(x).split(c, dim=-1))
+        q, k, v = (t.unflatten(-1, (self.num_heads, hd)) for t in qkv.split(c, dim=-1))
         if self.use_fused_attention:
             if self.qk_scale is not None:
                 # the kernel applies hd^-1/2; fold the custom scale into q
@@ -114,32 +160,61 @@ class Attention(nn.Module):
             out = F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=self.qk_scale,
             ).transpose(1, 2)
-        return self.proj(out.reshape(b, n, c))
+        return out.reshape(b, n, c)
+
+
+def check_remat(remat: str) -> str:
+    """``remat`` if it is one of :data:`REMAT_MODES`, else ``ValueError``."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+    return remat
+
+
+_CHECKPOINT = dict(use_reentrant=False, preserve_rng_state=False)
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block with stochastic depth."""
+    """Pre-norm transformer block with stochastic depth, checkpointed per
+    ``remat`` when gradients are recorded."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  drop_path_rate: float = 0.0, qkv_bias: bool = True,
                  qk_scale: float | None = None, gelu_approx: bool = False,
-                 use_fused_attention: bool = False):
+                 use_fused_attention: bool = False, remat: str = "none"):
         super().__init__()
         self.drop_path_rate = drop_path_rate
+        self.remat = check_remat(remat)
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale,
                               use_fused_attention=use_fused_attention)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approx=gelu_approx)
 
-    def _drop(self, y, generator):
-        if self.training and self.drop_path_rate > 0.0:
-            return drop_path(y, self.drop_path_rate, generator)
-        return y
+    def _drop(self, y, u):
+        return y if u is None else drop_path(y, self.drop_path_rate, None, u)
+
+    def _block(self, x, u1, u2):
+        x = x + self._drop(self.attn(self.norm1(x)), u1)
+        return x + self._drop(self.mlp(self.norm2(x)), u2)
+
+    def _qkv(self, x):
+        return self.attn.qkv(self.norm1(x))
+
+    def _proj_norm2(self, x, attn_out, u1):
+        x = x + self._drop(self.attn.proj(attn_out), u1)
+        return x, self.norm2(x)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        x = x + self._drop(self.attn(self.norm1(x)), generator)
-        return x + self._drop(self.mlp(self.norm2(x)), generator)
+        u1 = u2 = None
+        if self.training and self.drop_path_rate > 0.0:
+            u1, u2 = drop_path_uniforms(x, generator), drop_path_uniforms(x, generator)
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return self._block(x, u1, u2)
+        if self.remat == "full":
+            return checkpoint(self._block, x, u1, u2, **_CHECKPOINT)
+        qkv = checkpoint(self._qkv, x, **_CHECKPOINT)
+        x, n2 = checkpoint(self._proj_norm2, x, self.attn.attend(qkv), u1, **_CHECKPOINT)
+        return x + self._drop(checkpoint(self.mlp, n2, **_CHECKPOINT), u2)
 
 
 def resize_pos_embed(pos_embed: np.ndarray, new_hw: tuple, old_hw: tuple) -> np.ndarray:
@@ -184,7 +259,7 @@ class VisionTransformer(nn.Module):
                  qk_scale: float | None = None, gelu_approx: bool = False,
                  sie_cameras: int = 0, sie_views: int = 0, sie_coef: float = 1.5,
                  local_feature: bool = False, use_fused_attention: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 remat: str = "none", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.depth = depth
@@ -205,7 +280,7 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, dprs[i], qkv_bias=qkv_bias,
                   qk_scale=qk_scale, gelu_approx=gelu_approx,
-                  use_fused_attention=use_fused_attention)
+                  use_fused_attention=use_fused_attention, remat=remat)
             for i in range(run_depth))
         if not local_feature:
             self.norm = LayerNorm(embed_dim)
@@ -240,10 +315,12 @@ class ViTReID(nn.Module):
                  mlp_ratio: float = 4.0, drop_path_rate: float = 0.1, qkv_bias: bool = True,
                  qk_scale: float | None = None, gelu_approx: bool = False,
                  sie_cameras: int = 0, sie_views: int = 0, sie_coef: float = 1.5,
-                 use_fused_attention: bool = False, dtype: torch.dtype = torch.float32):
+                 use_fused_attention: bool = False, remat: str = "none",
+                 dtype: torch.dtype = torch.float32):
         """``use_fused_attention`` is the JAX package's ``use_pallas_attention``:
         attention through the hand-written kernel K4 instead of PyTorch's
-        ``scaled_dot_product_attention``."""
+        ``scaled_dot_product_attention``; ``remat`` one of
+        :data:`REMAT_MODES`."""
         super().__init__()
         self.dtype = dtype
         self.sie_cameras = sie_cameras
@@ -251,7 +328,8 @@ class ViTReID(nn.Module):
         self.base = VisionTransformer(
             img_size, patch_size, patch_stride, embed_dim, depth, num_heads, mlp_ratio,
             drop_path_rate, qkv_bias, qk_scale, gelu_approx, sie_cameras, sie_views, sie_coef,
-            local_feature=False, use_fused_attention=use_fused_attention, dtype=dtype)
+            local_feature=False, use_fused_attention=use_fused_attention, remat=remat,
+            dtype=dtype)
         self.bottleneck = TorchBatchNorm(embed_dim, dtype=torch.float32)
 
     def forward(self, x, camera_ids=None, view_ids=None, generator=None) -> torch.Tensor:

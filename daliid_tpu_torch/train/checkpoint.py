@@ -9,7 +9,10 @@ metrics it was saved with. :class:`CheckpointManager` keeps either the best
 ``cli/train.py:312``) or the newest ones (the crash-resume ``latest/``
 manager, ``:316-319``). :func:`save_weights` writes the weights-only
 ``model_{online,momentum}_<name>_<version>.pt`` files that
-``models/torch_port.load_state`` reads.
+``models/torch_port.load_state`` reads. :func:`save_variables` and
+:func:`load_variables` (JAX ``:189-210``) write and read the JAX package's
+weights-only ``.npz`` of flattened paths, which ``cli/export.py`` makes
+from the port's weights.
 
 Files are written to a temporary name and renamed into place, so a crash
 never leaves a half-written checkpoint under its final name.
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -131,3 +134,48 @@ def save_weights(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
     ``mainKIT.py:169-170``), on the CPU; rank 0 of a gang writes."""
     if rank() == 0:
         _atomic_save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+
+
+def _flat_paths(tree, prefix: tuple = ()):
+    """(path, leaf) pairs of a nested dict, keys in sorted order at every
+    level (the order of ``jax.tree_util.tree_flatten_with_path``)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            yield from _flat_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _keystr(path: tuple) -> str:
+    """``jax.tree_util.keystr`` of a path of string keys."""
+    return "".join(f"['{k}']" for k in path)
+
+
+def save_variables(path: str, variables) -> None:
+    """Weights-only export as the JAX package writes it (the analogue of
+    ``torch.save(state_dict)``, ``mainKIT.py:169-170``): an ``.npz`` whose
+    keys are the ``keystr`` paths of the nested dict ``variables``, e.g.
+    ``['params']['layer1_0']['conv1']['kernel']``."""
+    np.savez(path, **{_keystr(k): np.asarray(v) for k, v in _flat_paths(variables)})
+
+
+def load_variables(path: str, template) -> Any:
+    """Restore a weights-only ``.npz`` into the structure of the nested dict
+    ``template``: every leaf of the template must be in the file at its
+    shape (``KeyError`` / ``ValueError`` in the JAX package's words); keys
+    the template lacks are ignored."""
+    out: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for keys, v in _flat_paths(template):
+            key = _keystr(keys)
+            if key not in data:
+                raise KeyError(f"checkpoint missing {key}")
+            arr = data[key]
+            if arr.shape != np.shape(v):
+                raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {np.shape(v)}")
+            node = out
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = arr
+    return out

@@ -1,6 +1,7 @@
 """Per-class proxy mining: farthest-point selection + class centers.
 
-Copy of ``daliid_tpu/train/proxies.py`` (``:28-127``), numpy on the host.
+Copy of ``daliid_tpu/train/proxies.py`` (``:28-127``), numpy on the host,
+with :func:`mine_camera_centers` (``:52-67``) for ``losses.camera_hard_loss``.
 
 Re-implements the reference's epoch-level proxy mining
 (``Person-ReID/train_encodersKIT.py:103-156``):
@@ -49,6 +50,24 @@ def select_proxies_farthest_point(X: np.ndarray, num_proxies: int, rng: np.rando
     idx = np.asarray(chosen)
     max_dist = float(dist[np.ix_(idx, idx)].max())
     return idx, max_dist
+
+
+def mine_camera_centers(features: np.ndarray, class_indices: np.ndarray, camera_ids: np.ndarray):
+    """Per-(identity, camera) centers for the camera-proxy loss
+    (:func:`daliid_tpu_torch.losses.camera_hard_loss`; the reference builds
+    these outside ``BatchCameraHardLoss``, consumed at ``losses.py:794-866``).
+
+    Returns (centers (M, D) L2-normalized, center_ids (M,), center_cams (M,)).
+    """
+    keys = np.stack([class_indices, camera_ids], axis=1)
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    d = features.shape[1]
+    centers = np.zeros((len(uniq), d), np.float32)
+    np.add.at(centers, inv, features)
+    counts = np.bincount(inv, minlength=len(uniq)).astype(np.float32)
+    centers /= counts[:, None]
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True) + 1e-12
+    return centers, uniq[:, 0].astype(np.int32), uniq[:, 1].astype(np.int32)
 
 
 class ProxySet(NamedTuple):

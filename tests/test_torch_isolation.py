@@ -6,9 +6,12 @@
   module);
 - no source file of the port imports either;
 - an entry point started without ``--device`` on a host without CUDA exits
-  with an error instead of running on the CPU.
+  with an error instead of running on the CPU;
+- every public top-level name of a ``daliid_tpu`` module has a port of the
+  same name at the same path, or a row in the README's counterpart map.
 """
 
+import ast
 import os
 import re
 import subprocess
@@ -73,12 +76,15 @@ def test_sources_import_no_jax_and_nothing_of_daliid_tpu():
     ["-m", "daliid_tpu_torch", "train", "--dataset", "Synthetic"],
     ["-m", "daliid_tpu_torch", "evaluate-fusion", "--dataset", "Synthetic"],
     ["-m", "daliid_tpu_torch", "evaluate-ensemble", "--dataset", "Synthetic"],
+    ["-m", "daliid_tpu_torch", "export", "--model_name", "resnet50", "--input", "in.pt",
+     "--output", "out.npz"],
 ])
 def test_entry_point_without_device_refuses_a_host_without_cuda(tmp_path, argv):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is valid here")
+    takes_data = "serve" not in argv and "export" not in argv
     r = subprocess.run([sys.executable, *argv, "--data_root", str(tmp_path)]
-                       if "serve" not in argv else [sys.executable, *argv],
+                       if takes_data else [sys.executable, *argv],
                        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr, r.stderr
@@ -112,3 +118,36 @@ def test_kernels_build_in_the_checkout_or_a_user_cache(tmp_path, monkeypatch):
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
     installed = tmp_path / "site-packages" / "daliid_tpu_torch"
     assert _build.build_dir(installed) == tmp_path / "cache" / "daliid_tpu_torch"
+
+
+def _public_names(path: Path) -> set:
+    """Top-level public functions, classes and assignments of a module, and
+    the names a package's ``__init__`` imports."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, ast.ImportFrom) and path.name == "__init__.py":
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_jax_name_has_a_port_or_a_row_in_the_readme_map():
+    readme = (REPO / "README.md").read_text()
+    section = readme.split("### What has no port of the same name", 1)[1].split("\n## ", 1)[0]
+    mapped = set(re.findall(r"`([A-Za-z_][\w./]*)`", section))
+    jax_pkg = REPO / "daliid_tpu"
+    unmapped = []
+    for src in sorted(jax_pkg.rglob("*.py")):
+        port = PORT / src.relative_to(jax_pkg)
+        missing = _public_names(src) - (_public_names(port) if port.exists() else set())
+        unmapped += [f"{src.relative_to(REPO)}: {n}" for n in sorted(missing - mapped)]
+    for src in sorted(jax_pkg.rglob("*.cpp")):
+        if not (PORT / src.relative_to(jax_pkg)).exists() and \
+                str(src.relative_to(jax_pkg)) not in mapped:
+            unmapped.append(str(src.relative_to(REPO)))
+    assert not unmapped, unmapped

@@ -219,3 +219,119 @@ def test_softmax_triplet_losses_value_and_grad(weighted, masked):
     _close(got.item(), want)
     assert torch.isfinite(f.grad).all()
     _grad_close(f.grad.numpy(), jg)
+
+
+# ---------------------------------------------------------------- the rest of the library
+# Every loss of ``daliid_tpu/losses.py`` that no train step takes, and
+# ``margins.margin_softmax_loss``, on three batches of 12 x 16 (the module
+# docstring's tolerances): "pk", a paired PK batch; "masked", the same with
+# its last pair masked out as padding; "ties", duplicated rows (exact ties
+# between finite similarities, whose min / max / median gradient both
+# packages split or place alike), a lone identity, an identity whose other
+# samples are all masked and a clean row without negatives, so that masked
+# minima, maxima, medians and sorted negatives meet rows all at +-inf.
+from daliid_tpu import margins as JM  # noqa: E402
+from daliid_tpu.train import proxies as JP  # noqa: E402
+from daliid_tpu_torch import margins as M  # noqa: E402
+from daliid_tpu_torch.train import proxies as P  # noqa: E402
+
+EPOCH, EPOCHS = 3.0, 10.0
+
+
+def _rest_batch(kind):
+    rng, fvs, labels, dist, mask = _batch(11)
+    if kind == "pk":
+        mask[:] = True
+    elif kind == "ties":
+        fvs[1] = fvs[0]
+        fvs[5] = fvs[4]
+        labels[:] = [0, 0, 0, 0, 1, 1, 2, 2, 3, 4, 5, 5]
+        mask[:] = True
+        mask[10:] = False  # identity 5 has no valid sample
+        dist[:] = [0, 1, 0, 2, 0, 3, 0, 4, 0, 5, 0, 1]
+    cams = np.asarray([0, 1, 0, 1, 2, 2, 0, 1, 2, 0, 1, 2], np.int32)
+    clothes = np.asarray([0, 1, 0, 0, 1, 1, 0, 1, 1, 0, 0, 1], np.int32)
+    controlled = np.asarray([1, 0, 0, 1, 0, 1, 1, 0, 0, 0, 1, 1], bool)
+    centers = _unit(rng, 6, 16)
+    proxies = _unit(rng, 18, 16)
+    plabels = np.repeat(np.arange(6), 3).astype(np.int32)
+    plabels[[2, 7, 17]] = -1
+    cc, cids, ccams = JP.mine_camera_centers(fvs, labels, cams)
+    heads = rng.normal(size=(16, 6)).astype(np.float32)
+    return dict(fvs=fvs, labels=labels, dist=dist, mask=mask, cams=cams, clothes=clothes,
+                controlled=controlled, centers=centers, proxies=proxies, plabels=plabels,
+                cc=cc, cids=cids, ccams=ccams, heads=heads)
+
+
+def _rest_losses(lib, b, t):
+    """name → the loss of the embeddings through ``lib`` (the JAX or the
+    port module set), ``t`` turning a numpy array into its array type."""
+    Ls, Ms = lib
+    lab, dist, mask = t(b["labels"]), t(b["dist"]), t(b["mask"])
+    cam, clo = t(b["cams"]), t(b["clothes"])
+    cases = {
+        "center_loss": lambda f: Ls.center_loss(f, lab, t(b["centers"]), tau=TAU,
+                                                sample_mask=mask),
+        "l2_center_loss": lambda f: Ls.l2_center_loss(f, lab, t(b["centers"]), sample_mask=mask),
+        "proxy_loss": lambda f: Ls.proxy_loss(f, lab, t(b["proxies"]), t(b["plabels"]),
+                                              top_negs=5, tau=TAU),
+        "weighted_softmax_all_triplet_loss": lambda f: Ls.weighted_softmax_all_triplet_loss(
+            f, lab, dist, EPOCH, EPOCHS, sample_mask=mask),
+        "weighted_all_positive_cosine_loss": lambda f: Ls.weighted_all_positive_cosine_loss(
+            f, lab, dist, EPOCH, EPOCHS, sample_mask=mask),
+        "softmax_all_triplet_loss": lambda f: Ls.softmax_all_triplet_loss(
+            f, lab, dist, EPOCH, EPOCHS, tau=TAU, sample_mask=mask),
+        "multi_level_distortion_loss": lambda f: Ls.multi_level_distortion_loss(f[:2], f),
+        "instance_loss": lambda f: Ls.instance_loss(f),
+        "hard_center_triplet_loss": lambda f: Ls.hard_center_triplet_loss(
+            f, lab, t(b["centers"]), tau=TAU, sample_mask=mask),
+        "clothes_triplet_loss": lambda f: Ls.clothes_triplet_loss(f, lab, clo, tau=TAU,
+                                                                  sample_mask=mask),
+        "bipartite_loss[clothes]": lambda f: Ls.bipartite_loss(
+            f, lab, cam, clo, dist, EPOCH, EPOCHS, tau=TAU, sample_mask=mask,
+            controlled=t(b["controlled"]))[0],
+        "bipartite_loss[camera]": lambda f: Ls.bipartite_loss(
+            f, lab, cam, clo, dist, EPOCH, EPOCHS, tau=TAU, sample_mask=mask,
+            controlled=t(b["controlled"]))[1],
+        "weighted_pose_loss": lambda f: Ls.weighted_pose_loss(
+            f, lab, cam, clo, dist, EPOCH, EPOCHS, tau=TAU, sample_mask=mask),
+        "controlled_camera_hard_loss": lambda f: Ls.controlled_camera_hard_loss(
+            f, lab, dist, EPOCH, EPOCHS, tau=TAU, sample_mask=mask),
+        "camera_hard_loss": lambda f: Ls.camera_hard_loss(
+            f, lab, cam, t(b["cc"]), t(b["cids"]), t(b["ccams"]), tau=TAU, sample_mask=mask),
+        "median_softmax_triplet_loss": lambda f: Ls.median_softmax_triplet_loss(
+            f, lab, tau=TAU, sample_mask=mask),
+    }
+    for head in ("arcface", "cosface", "amsoftmax", "circle"):
+        cases[f"margin_softmax_loss[{head}]"] = (
+            lambda f, head=head: Ms.margin_softmax_loss(head, f, t(b["heads"]), lab,
+                                                        sample_mask=mask))
+    return cases
+
+
+REST = sorted(_rest_losses((L, M), _rest_batch("pk"), torch.from_numpy))
+
+
+@pytest.mark.parametrize("kind", ["pk", "masked", "ties"])
+@pytest.mark.parametrize("name", REST)
+def test_the_rest_of_the_library_value_and_grad(name, kind):
+    b = _rest_batch(kind)
+    want, jg = jax.value_and_grad(_rest_losses((JL, JM), b, jnp.asarray)[name])(
+        jnp.asarray(b["fvs"]))
+    f = torch.from_numpy(b["fvs"]).requires_grad_(True)
+    got = _rest_losses((L, M), b, torch.from_numpy)[name](f)
+    got.backward()
+    assert np.isfinite(float(want)) and torch.isfinite(f.grad).all()
+    _close(got.item(), want)
+    _grad_close(f.grad.numpy(), jg)
+
+
+def test_mine_camera_centers_and_balanced_accuracy_host_are_jax_bit_for_bit():
+    rng = np.random.default_rng(4)
+    fvs = rng.normal(size=(40, 16)).astype(np.float32)
+    ids, cams = rng.integers(0, 5, 40), rng.integers(0, 4, 40)
+    for got, want in zip(P.mine_camera_centers(fvs, ids, cams),
+                         JP.mine_camera_centers(fvs, ids, cams)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    pred, gt = rng.integers(0, 7, 50), rng.integers(1, 6, 50)  # labels only one side has
+    assert L.balanced_accuracy_host(pred, gt) == JL.balanced_accuracy_host(pred, gt)

@@ -594,9 +594,10 @@ def test_train_cli_on_the_cpu_trains_validates_and_checkpoints(tmp_path):
 def test_train_cli_rejects_unported_flags(tmp_path):
     from daliid_tpu_torch.cli import train
 
-    # the head and SIE flags are ported (their refusals: test_torch_train_vit.py)
+    # every flag is ported (the head and SIE refusals: test_torch_train_vit.py);
+    # --remat is refused for a CNN, as the JAX CLI refuses it
     args = train.build_argparser().parse_args(["--dataset", "Synthetic", "--remat", "full"])
-    with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises(SystemExit, match="only applies to the transformer family"):
         train.main(args)
     # the fault-injection and multi-process flags are ported
     # (tests/test_torch_distributed.py): --multihost without the gang's address

@@ -215,7 +215,7 @@ def test_train_cli_trains_transformers_on_the_cpu(tiny_jpm, synth, tmp_path, mod
     ("tiny_vit_smoke", ["--num_classes", "-1", "--id_loss_type", "circle"], "only supported by"),
     ("resnet50", ["--sie_cameras", "4"], "has no SIE embedding"),
     ("transreid_jpm", ["--sie_coef", "3.0"], "only takes effect"),
-    ("transreid_jpm", ["--remat", "tuned"], "not yet ported"),
+    ("resnet50", ["--remat", "tuned"], "only applies to the transformer family"),
 ])
 def test_train_cli_refuses_what_the_jax_cli_refuses(tiny_jpm, synth, tmp_path, model, extra,
                                                     match):
