@@ -1,0 +1,4 @@
+"""K1 (``ops/fused_augment.py``) in a CNN training window: the least time
+of its launches at the step batch over their device time, in %."""
+
+from benchmark.roofline.reading import k1_train as read  # noqa: F401
