@@ -9,6 +9,11 @@ Port of ``daliid_tpu/eval/features.py``: :class:`FeatureExtractor`
   runs the current one (``:265-283``);
 - each uint8 batch goes through pinned host memory with a ``non_blocking``
   copy, so host-to-device traffic stays uint8;
+- while a ``torch.profiler`` records, an extract keeps program spans
+  (:func:`~daliid_tpu_torch.utils.profiling.span`): ``extract.decode`` on
+  the producer thread (a child of the caller's open span), ``extract.wait``
+  for each batch taken from it and ``extract.copy`` for the final copy to
+  the host;
 - normalize and forward run under ``torch.inference_mode()``; embeddings
   come back f32, fetched once at the end of an extract;
 - the tail batch is padded to the fixed batch size and trimmed after
@@ -62,6 +67,7 @@ from daliid_tpu_torch.data.registry import ReidTable
 from daliid_tpu_torch.data.turbulence import turbulence_path
 from daliid_tpu_torch.ops import quantize as q8
 from daliid_tpu_torch.parallel.mesh import all_reduce_, gather_rows, rank, world
+from daliid_tpu_torch.utils.profiling import current_span, span
 
 
 class FeatureExtractor:
@@ -185,6 +191,7 @@ class FeatureExtractor:
         t0 = time.time()
         batch_q: queue.Queue = queue.Queue(maxsize=2)
         stop = threading.Event()
+        caller = current_span()
 
         def producer():
             try:
@@ -193,8 +200,11 @@ class FeatureExtractor:
                         return
                     valid = min(bs, n - b * bs)
                     mine = paths[b * bs + lo:b * bs + min(lo + lb, valid)]
-                    imgs = (self._decode_paths(mine) if mine
-                            else np.zeros((0, *self.img_size, 3), np.uint8))
+                    if mine:
+                        with span("extract.decode", n=len(mine), parent=caller):
+                            imgs = self._decode_paths(mine)
+                    else:
+                        imgs = np.zeros((0, *self.img_size, 3), np.uint8)
                     cams = camids[b * bs + lo:b * bs + lo + len(mine)]
                     if len(mine) < lb:  # pad the tail to the fixed batch shape
                         imgs = np.concatenate(
@@ -221,7 +231,8 @@ class FeatureExtractor:
 
         try:
             while True:
-                item = batch_q.get()
+                with span("extract.wait"):
+                    item = batch_q.get()
                 if item is None:
                     break
                 if isinstance(item, BaseException):
@@ -255,12 +266,13 @@ class FeatureExtractor:
                     pass
             raise
         thread.join()
-        if outputs and isinstance(outputs[0], tuple):
-            result = tuple(torch.cat(head).cpu().numpy() for head in zip(*outputs))
-        elif outputs:
-            result = torch.cat(outputs).cpu().numpy()
-        else:
-            result = np.zeros((0, self.bundle.feature_dim), np.float32)
+        with span("extract.copy", n=n):
+            if outputs and isinstance(outputs[0], tuple):
+                result = tuple(torch.cat(head).cpu().numpy() for head in zip(*outputs))
+            elif outputs:
+                result = torch.cat(outputs).cpu().numpy()
+            else:
+                result = np.zeros((0, self.bundle.feature_dim), np.float32)
         if verbose:
             dt = time.time() - t0
             print(f"Features extracted in {dt:.2f} seconds ({n / max(dt, 1e-9):.0f} img/s)")

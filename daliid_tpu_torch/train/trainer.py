@@ -40,7 +40,10 @@ through the chunks in order. Each epoch first re-embeds the train set with
 the online (or momentum) weights and mines centers and proxies. A prefetch
 thread decodes the next batch into pinned memory while the device runs the
 current step. Step metrics stay on the device and are fetched once per
-epoch.
+epoch. While a ``torch.profiler`` records, the epoch keeps program spans
+(:func:`~daliid_tpu_torch.utils.profiling.span`): ``mine.extract`` and
+``mine.host`` inside ``proxy_mining``; ``train.decode`` on the prefetch
+thread, ``train.prefetch_wait`` and ``train.step`` inside ``finetuning``.
 
 The RNG state (the augmentation and drop-path torch Generators and the
 numpy PCG64 streams of the miner and the sampler) round-trips through
@@ -87,7 +90,7 @@ from daliid_tpu_torch.models.factory import ModelBundle
 from daliid_tpu_torch.parallel.mesh import active, all_reduce_, gather_rows, rank, world
 from daliid_tpu_torch.train.proxies import mine_proxies_and_centers
 from daliid_tpu_torch.train.sampler import PKBatchSampler
-from daliid_tpu_torch.utils.profiling import PhaseTimer
+from daliid_tpu_torch.utils.profiling import PhaseTimer, adopt_span, current_span, span
 
 _U64 = (1 << 64) - 1
 
@@ -417,11 +420,13 @@ class Trainer:
         ``use_momentum`` (``mainKIT.py:333-334``)."""
         extractor = self._mining_extractor or self.extractor
         extractor.update_variables((self.momentum if use_momentum else self.online).state_dict())
-        feats = extractor.extract(self.sampler.table, verbose=verbose)
+        with span("mine.extract", n=len(self.sampler.table)):
+            feats = extractor.extract(self.sampler.table, verbose=verbose)
         class_idx = np.asarray(
             [self.sampler.label_to_class[l] for l in self.sampler.labels], np.int32)
-        pset = mine_proxies_and_centers(
-            feats, class_idx, self.sampler.num_classes, self.num_proxies, self._rng)
+        with span("mine.host", n=self.sampler.num_classes):
+            pset = mine_proxies_and_centers(
+                feats, class_idx, self.sampler.num_classes, self.num_proxies, self._rng)
         if verbose:
             print(f"Mean Max Proxies Positive Distances: {pset.mean_max_intra:.3f}, "
                   f"Min Negative Distance: {pset.min_inter:.3f}")
@@ -434,7 +439,10 @@ class Trainer:
         """Decode one batch into (pinned, on a GPU) host tensors; runs on the
         prefetch thread."""
         lo = self._rank * self._local_batch
-        images = torch.from_numpy(self._decode_batch(batch.paths[lo:lo + self._local_batch]))
+        paths = batch.paths[lo:lo + self._local_batch]
+        with span("train.decode", n=len(paths)):
+            decoded = self._decode_batch(paths)
+        images = torch.from_numpy(decoded)
         if self.device.type == "cuda":
             images = images.pin_memory()
         return (images, torch.from_numpy(batch.labels).long(),
@@ -443,14 +451,17 @@ class Trainer:
 
     def staged_batches(self, batches):
         """Yield each batch's tensors on the device while a prefetch thread
-        decodes the next batch."""
-        with cf.ThreadPoolExecutor(1) as prefetcher:
+        decodes the next batch; its spans are children of the span open here."""
+        with cf.ThreadPoolExecutor(1, initializer=adopt_span,
+                                   initargs=(current_span(),)) as prefetcher:
             upcoming = prefetcher.submit(self._stage, batches[0]) if batches else None
             for i in range(len(batches)):
                 current = upcoming
                 if i + 1 < len(batches):
                     upcoming = prefetcher.submit(self._stage, batches[i + 1])
-                yield [t.to(self.device, non_blocking=True) for t in current.result()]
+                with span("train.prefetch_wait"):
+                    staged = current.result()
+                yield [t.to(self.device, non_blocking=True) for t in staged]
 
     def train_epoch(self, epoch: int, verbose: bool = False) -> Dict[str, float]:
         """One pipeline iteration: mine proxies, run all PK batches."""
@@ -468,8 +479,10 @@ class Trainer:
         step_metrics = []
         with self.timer.span("finetuning"):
             for images_u8, labels, distortions, mask, camids in self.staged_batches(batches):
-                step_metrics.append(self.train_step(images_u8, labels, distortions, mask, centers,
-                                                    proxies, proxy_labels, epoch, camids))
+                with span("train.step", n=images_u8.shape[0]):
+                    step_metrics.append(self.train_step(images_u8, labels, distortions, mask,
+                                                        centers, proxies, proxy_labels, epoch,
+                                                        camids))
             # one host sync for the whole epoch's diagnostics
             stacked = (torch.stack(step_metrics).cpu().double() if step_metrics
                        else torch.zeros((0, len(METRICS)), dtype=torch.float64))
