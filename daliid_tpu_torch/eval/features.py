@@ -38,6 +38,17 @@ Port of ``daliid_tpu/eval/features.py``: :class:`FeatureExtractor`
   ``:236-258``): the paths are rewritten before decode, with the naming of
   ``dataset`` (default: the table's name; MSMT17's copies are
   pid-prefixed);
+- ``keep=True`` (the trainer's mining, whose table is fixed for the run):
+  the first extract keeps each padded uint8 batch on the device, where
+  the table's padded bytes fit :data:`KEEP_SHARE` of the device's free
+  memory (:func:`free_memory_bytes`), and a later ``keep`` extract of the
+  same paths (after any turbulence rewrite), camera ids, image size, batch
+  size and rank block runs the forward over the kept batches, under an
+  ``extract.kept`` span: no decode thread, no pinned or host-to-device
+  copy, the same rows in the same batches, so bit-equal embeddings (and
+  an int8 calibration on the same rows). A ``keep`` extract of another
+  table frees the kept copy before it decodes; an extract without
+  ``keep`` leaves it alone;
 - in a gang of more than one rank (:mod:`daliid_tpu_torch.parallel`,
   ``:238-310``) the batch splits into one contiguous block a rank, each
   rank decoding and forwarding only its block, and
@@ -57,7 +68,7 @@ import os
 import queue
 import threading
 import time
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -68,6 +79,34 @@ from daliid_tpu_torch.data.turbulence import turbulence_path
 from daliid_tpu_torch.ops import quantize as q8
 from daliid_tpu_torch.parallel.mesh import all_reduce_, gather_rows, rank, world
 from daliid_tpu_torch.utils.profiling import current_span, span
+
+# the share of the device's free memory that a kept table may take
+KEEP_SHARE = 0.125
+
+
+def free_memory_bytes(device: torch.device) -> int:
+    """Free memory of ``device``: the card's (``torch.cuda.mem_get_info``),
+    or the host's available memory for a CPU device."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _tiled(rows, real: int, size: int):
+    """The first ``real`` rows repeated to ``size`` rows (numpy or torch)."""
+    reps = -(-size // max(real, 1))
+    if torch.is_tensor(rows):
+        return rows[:real].repeat(reps, *(1,) * (rows.dim() - 1))[:size]
+    return np.tile(rows[:real], (reps,) + (1,) * (rows.ndim - 1))[:size]
+
+
+class _Kept(NamedTuple):
+    """A table's padded uint8 batches kept on the device: ``key`` is what
+    the extract that kept them was called on, ``batches`` its (images,
+    camera ids, valid, real) per batch, as the decode path hands them on."""
+
+    key: tuple
+    batches: list
 
 
 class FeatureExtractor:
@@ -94,6 +133,7 @@ class FeatureExtractor:
         self.decode_workers = max(1, min(decode_workers, 2 * (os.cpu_count() or 1)))
         self._takes_camera_ids = "camera_ids" in inspect.signature(
             bundle.module.forward).parameters
+        self._kept: _Kept | None = None
 
     def update_variables(self, state_dict) -> None:
         """Copy new weights into the module in place; int8 scales calibrated
@@ -145,9 +185,10 @@ class FeatureExtractor:
         return decode_images(paths, *self.img_size, self.decode_workers)
 
     def forward_batch(self, images_u8: np.ndarray, camera_ids: np.ndarray | None = None):
-        """One (B, H, W, 3) uint8 batch (and, for SIE models, its (B,)
-        camera ids, zeros if None) → (B, D) f32 embeddings on the device, or
-        a tuple of them for a multi-head model (not synchronized)."""
+        """One (B, H, W, 3) uint8 batch, a host array or a tensor on the
+        device (and, for SIE models, its (B,) camera ids, zeros if None) →
+        (B, D) f32 embeddings on the device, or a tuple of them for a
+        multi-head model (not synchronized)."""
         x, kw = self._inputs(images_u8, camera_ids)
         with torch.inference_mode(), q8.quantized(self.bundle.module, self._plan or {}):
             out = self.bundle.module(x, **kw)
@@ -155,23 +196,36 @@ class FeatureExtractor:
 
     def _inputs(self, images_u8: np.ndarray, camera_ids):
         """The normalized batch on the device and the forward's keywords."""
-        x = torch.from_numpy(images_u8)
-        if self.device.type == "cuda":
-            x = x.pin_memory().to(self.device, non_blocking=True)
+        x = images_u8 if torch.is_tensor(images_u8) else self._upload(images_u8)
         kw = {}
         if self._takes_camera_ids:
-            cams = np.zeros(len(images_u8), np.int64) if camera_ids is None else camera_ids
-            kw["camera_ids"] = torch.as_tensor(np.asarray(cams, np.int64), device=self.device)
+            kw["camera_ids"] = self._camera_ids(camera_ids, len(images_u8))
         with torch.inference_mode():
             x = normalize_images(x, dtype=getattr(self.bundle.module, "dtype", torch.float32))
         return x, kw
 
+    def _upload(self, images_u8: np.ndarray) -> torch.Tensor:
+        """A uint8 host batch on the device, through pinned memory on a card."""
+        x = torch.from_numpy(images_u8)
+        if self.device.type == "cuda":
+            x = x.pin_memory().to(self.device, non_blocking=True)
+        return x
+
+    def _camera_ids(self, camera_ids, size: int) -> torch.Tensor:
+        if torch.is_tensor(camera_ids):
+            return camera_ids
+        cams = np.zeros(size, np.int64) if camera_ids is None else camera_ids
+        return torch.as_tensor(np.asarray(cams, np.int64), device=self.device)
+
     def extract(self, table_or_paths, turbulence_dir: str | None = None,
                 turb_strength: int | None = None, dataset: str | None = None,
-                verbose: bool = False):
+                verbose: bool = False, keep: bool = False):
         """Embed every image (or, with ``turbulence_dir``, its turbulence
         copy at ``turb_strength``) → (N, feature_dim) float32 numpy array,
-        or a tuple of (N, D_h) arrays for a multi-head model."""
+        or a tuple of (N, D_h) arrays for a multi-head model. With ``keep``
+        the decoded batches are kept on the device for the next ``keep``
+        extract of the same table, where they fit (see the module's
+        docstring)."""
         if isinstance(table_or_paths, ReidTable):
             paths = [str(p) for p in table_or_paths.paths]
             camids = np.asarray(table_or_paths.camids, np.int64)
@@ -189,6 +243,71 @@ class FeatureExtractor:
         lo = rank() * lb
         num_batches = -(-n // bs)
         t0 = time.time()
+        outputs = []
+        pending = []  # batches held back while the int8 calibration accumulates
+        calib_seen = 0
+
+        def run_batch(imgs, cams, valid):
+            out = self.forward_batch(imgs, cams)
+            if n_ranks > 1:
+                out = (tuple(gather_rows(o, [lb] * n_ranks) for o in out)
+                       if isinstance(out, tuple) else gather_rows(out, [lb] * n_ranks))
+            outputs.append(tuple(o[:valid] for o in out) if isinstance(out, tuple)
+                           else out[:valid])
+
+        def take(b, imgs, cams, valid, real):
+            nonlocal calib_seen
+            if self.quantize is not None and not self._calib_final and valid > 0:
+                # calibrate on this rank's real rows, tiled over the padding
+                self.calibrate(_tiled(imgs, real, lb), _tiled(cams, real, lb), rebuild=False)
+                calib_seen += 1
+                pending.append((imgs, cams, valid))
+                if calib_seen >= self.calib_batches or b == num_batches - 1:
+                    self._finalize_calibration()
+                    for p in pending:
+                        run_batch(*p)
+                    pending.clear()
+                return
+            run_batch(imgs, cams, valid)
+
+        key = (paths, camids.tobytes(), self.img_size, bs, lb, lo) if keep else None
+        if key is not None and self._kept is not None and self._kept.key == key:
+            with span("extract.kept", n=n):
+                for b, batch in enumerate(self._kept.batches):
+                    take(b, *batch)
+        else:
+            kept = None
+            if keep:
+                self._kept = None  # another table's copy is freed before this one decodes
+                padded = num_batches * lb * self.img_size[0] * self.img_size[1] * 3
+                if padded <= KEEP_SHARE * free_memory_bytes(self.device):
+                    kept = []
+            self._decoded(paths, camids, num_batches, bs, lb, lo, take, kept)
+            if kept is not None:
+                self._kept = _Kept(key, kept)
+        if pending:  # fewer real batches than calib_batches: commit what there is
+            self._finalize_calibration()
+            for p in pending:
+                run_batch(*p)
+        with span("extract.copy", n=n):
+            if outputs and isinstance(outputs[0], tuple):
+                result = tuple(torch.cat(head).cpu().numpy() for head in zip(*outputs))
+            elif outputs:
+                result = torch.cat(outputs).cpu().numpy()
+            else:
+                result = np.zeros((0, self.bundle.feature_dim), np.float32)
+        if verbose:
+            dt = time.time() - t0
+            print(f"Features extracted in {dt:.2f} seconds ({n / max(dt, 1e-9):.0f} img/s)")
+        return result
+
+    def _decoded(self, paths, camids, num_batches: int, bs: int, lb: int, lo: int, take,
+                 kept: list | None) -> None:
+        """Decode this rank's block of each batch on a producer thread and
+        hand each, padded to ``lb`` rows, to ``take(b, images, camera ids,
+        valid, real)``; with ``kept`` a list, each batch is moved to the
+        device first and kept there."""
+        n = len(paths)
         batch_q: queue.Queue = queue.Queue(maxsize=2)
         stop = threading.Event()
         caller = current_span()
@@ -217,18 +336,6 @@ class FeatureExtractor:
 
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
-        outputs = []
-        pending = []  # batches held back while the int8 calibration accumulates
-        calib_seen = 0
-
-        def run_batch(imgs, cams, valid):
-            out = self.forward_batch(imgs, cams)
-            if n_ranks > 1:
-                out = (tuple(gather_rows(o, [lb] * n_ranks) for o in out)
-                       if isinstance(out, tuple) else gather_rows(out, [lb] * n_ranks))
-            outputs.append(tuple(o[:valid] for o in out) if isinstance(out, tuple)
-                           else out[:valid])
-
         try:
             while True:
                 with span("extract.wait"):
@@ -238,24 +345,12 @@ class FeatureExtractor:
                 if isinstance(item, BaseException):
                     raise item
                 b, imgs, cams, valid, real = item
-                if self.quantize is not None and not self._calib_final and valid > 0:
-                    # calibrate on this rank's real rows, tiled over the padding
-                    reps = -(-lb // max(real, 1))
-                    self.calibrate(np.tile(imgs[:real], (reps, 1, 1, 1))[:lb],
-                                   np.tile(cams[:real], reps)[:lb], rebuild=False)
-                    calib_seen += 1
-                    pending.append((imgs, cams, valid))
-                    if calib_seen >= self.calib_batches or b == num_batches - 1:
-                        self._finalize_calibration()
-                        for p in pending:
-                            run_batch(*p)
-                        pending.clear()
-                    continue
-                run_batch(imgs, cams, valid)
-            if pending:  # fewer real batches than calib_batches: commit what there is
-                self._finalize_calibration()
-                for p in pending:
-                    run_batch(*p)
+                if kept is not None:
+                    imgs = self._upload(imgs)
+                    if self._takes_camera_ids:
+                        cams = self._camera_ids(cams, lb)
+                    kept.append((imgs, cams, valid, real))
+                take(b, imgs, cams, valid, real)
         except BaseException:
             # unblock a producer waiting on the full queue, then re-raise
             stop.set()
@@ -266,17 +361,6 @@ class FeatureExtractor:
                     pass
             raise
         thread.join()
-        with span("extract.copy", n=n):
-            if outputs and isinstance(outputs[0], tuple):
-                result = tuple(torch.cat(head).cpu().numpy() for head in zip(*outputs))
-            elif outputs:
-                result = torch.cat(outputs).cpu().numpy()
-            else:
-                result = np.zeros((0, self.bundle.feature_dim), np.float32)
-        if verbose:
-            dt = time.time() - t0
-            print(f"Features extracted in {dt:.2f} seconds ({n / max(dt, 1e-9):.0f} img/s)")
-        return result
 
 
 def extract_features(table_or_paths, bundle, img_size=(256, 128), batch_size: int = 512,

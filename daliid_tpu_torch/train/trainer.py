@@ -37,9 +37,11 @@ outer loop (``mainKIT.py:58-201``), step by step (``trainer.py:367-569``):
 :func:`microbatch_slots`) whose gradients are weighted by their valid-slot
 counts before one Adam update and one EMA update; BN statistics thread
 through the chunks in order. Each epoch first re-embeds the train set with
-the online (or momentum) weights and mines centers and proxies. A prefetch
-thread decodes the next batch into pinned memory while the device runs the
-current step. Step metrics stay on the device and are fetched once per
+the online (or momentum) weights and mines centers and proxies; the first
+mining keeps the table's decoded batches on the device where they fit, so
+later minings decode nothing (``FeatureExtractor.extract(keep=True)``). A
+prefetch thread decodes the next batch into pinned memory while the device
+runs the current step. Step metrics stay on the device and are fetched once per
 epoch. While a ``torch.profiler`` records, the epoch keeps program spans
 (:func:`~daliid_tpu_torch.utils.profiling.span`): ``mine.extract`` and
 ``mine.host`` inside ``proxy_mining``; ``train.decode`` on the prefetch
@@ -421,7 +423,8 @@ class Trainer:
         extractor = self._mining_extractor or self.extractor
         extractor.update_variables((self.momentum if use_momentum else self.online).state_dict())
         with span("mine.extract", n=len(self.sampler.table)):
-            feats = extractor.extract(self.sampler.table, verbose=verbose)
+            # the table is fixed for the run: later minings reuse the decoded batches
+            feats = extractor.extract(self.sampler.table, verbose=verbose, keep=True)
         class_idx = np.asarray(
             [self.sampler.label_to_class[l] for l in self.sampler.labels], np.int32)
         with span("mine.host", n=self.sampler.num_classes):

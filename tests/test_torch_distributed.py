@@ -4,8 +4,9 @@ Mirrors the six two-process tests of ``tests/test_distributed.py`` (``:70``
 psum, ``:138`` extraction, ``:217`` a train epoch, ``:349`` gallery search,
 ``:393`` the failure drill, ``:479`` sharded ranking) with the port's
 ``torch.distributed`` helpers (``daliid_tpu_torch/parallel``), plus the
-single-process supervisor, int8 calibration over two ranks and the
-grad-accum chunks within a rank's block. Every rank is a real process,
+single-process supervisor, int8 calibration over two ranks, the batches a
+rank keeps for mining (its own block) and the grad-accum chunks within a
+rank's block. Every rank is a real process,
 bootstrapped through a localhost store, on ``--device cpu`` with one torch
 thread and a hard timeout.
 
@@ -249,6 +250,66 @@ def test_two_process_extraction_matches_jax_and_calibrates_like_one_process(
                 == json.loads((tmp_path / "one" / "scales_0.json").read_text()))
         np.testing.assert_array_equal(np.load(out / f"int8_{r}.npy"),
                                       np.load(tmp_path / "one" / "int8_0.npy"))
+
+
+_KEEP = r"""
+from daliid_tpu_torch.eval.features import FeatureExtractor
+from daliid_tpu_torch.models.factory import ModelBundle
+from daliid_tpu_torch.models.resnet import ResNet50ReID
+
+paths = json.load(open(os.path.join(OUT, "..", "paths.json")))
+model = ResNet50ReID(stage_sizes=(1, 1, 1, 1)).eval()
+model.load_state_dict(torch.load(os.path.join(OUT, "..", "state.pt")), strict=True)
+bundle = ModelBundle(module=model, feature_dim=2048, name="tiny")
+for kind, kw in (("f32", {}), ("int8", dict(quantize="int8", calib_batches=2))):
+    ex = FeatureExtractor(bundle, img_size=(32, 16), batch_size=4, device="cpu", **kw)
+    decoded = ex.extract(paths, keep=True)
+    kept = ex._kept
+    calls = []
+    ex._decode_paths = lambda p: calls.append(p)  # the kept copy decodes nothing
+    ex.update_variables(model.state_dict())  # int8: recalibrate, on the kept rows
+    again = ex.extract(paths, keep=True)
+    assert ex._kept is kept and calls == [], calls
+    np.testing.assert_array_equal(decoded, again)
+    np.save(os.path.join(OUT, f"keep_{kind}_{RANK}.npy"), again)
+    np.save(os.path.join(OUT, f"rows_{kind}_{RANK}.npy"),
+            np.stack([b[0].numpy() for b in kept.batches]))
+print("keep OK")
+"""
+
+
+def test_two_process_kept_batches_are_each_ranks_block(tmp_path):
+    """Each rank of a 2-rank gang keeps only its block of each batch of 4
+    (2 rows; the tail batch's one real row on rank 0, rank 1 all padding),
+    serves a second extract from it without decoding, and its rows and
+    the gathered embeddings (f32 and int8, recalibrated on the kept rows)
+    equal one process's."""
+    from PIL import Image
+
+    images = np.random.default_rng(5).integers(0, 256, (5, *IMG, 3), dtype=np.uint8)
+    paths = []
+    for i, im in enumerate(images):
+        paths.append(str(tmp_path / f"{i}.png"))  # lossless: the decode is exact
+        Image.fromarray(im).save(paths[-1])
+    (tmp_path / "paths.json").write_text(json.dumps(paths))
+    _, variables = _flax_variables()
+    torch.save(variables_from_jax("resnet50", variables), tmp_path / "state.pt")
+    assert all("keep OK" in o for o in _gang(tmp_path, _KEEP))
+    _single_process(tmp_path, _KEEP)
+    out, one = tmp_path / "out", tmp_path / "one"
+    padded = np.concatenate([images, np.zeros((3, *IMG, 3), np.uint8)]).reshape(2, 4, *IMG, 3)
+    for kind in ("f32", "int8"):
+        np.testing.assert_array_equal(np.load(one / f"rows_{kind}_0.npy"), padded)
+        for r in range(2):
+            np.testing.assert_array_equal(np.load(out / f"rows_{kind}_{r}.npy"),
+                                          padded[:, 2 * r:2 * r + 2])
+    want = np.load(one / "keep_f32_0.npy")
+    for r in range(2):
+        # f32 as the extraction test holds it: a rank's convolutions see 2 rows, not 4
+        np.testing.assert_allclose(np.load(out / f"keep_f32_{r}.npy"), want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+        np.testing.assert_array_equal(np.load(out / f"keep_int8_{r}.npy"),
+                                      np.load(one / "keep_int8_0.npy"))
 
 
 # ---------------------------------------------------------------- :217 a train epoch

@@ -211,6 +211,8 @@ def test_spans_have_their_names_threads_parents_and_counts(runs):
         "extract.wait": (True, "mine.extract", None, None),
         "extract.copy": (True, "mine.extract", EPOCHS, len(table)),
         "extract.decode": (False, "mine.extract", None, None),
+        # later minings run over the batches the first one kept
+        "extract.kept": (True, "mine.extract", EPOCHS - 1, len(table)),
         "train.prefetch_wait": (True, "finetuning", EPOCHS * steps, None),
         "train.step": (True, "finetuning", EPOCHS * steps, batch),
         "train.decode": (False, "finetuning", EPOCHS * steps, batch),
@@ -225,10 +227,12 @@ def test_spans_have_their_names_threads_parents_and_counts(runs):
         if n is not None:
             assert {r.n for r in recs} == {n}, name
         assert all(r.start_ns <= r.end_ns for r in recs)
-    # each mining decodes the table once; an epoch decodes its batch slots
-    for m in by_name["mine.extract"]:
+    # the first mining decodes the table once, later ones decode nothing;
+    # an epoch decodes its batch slots
+    first, *later = sorted(by_name["mine.extract"], key=lambda r: r.start_ns)
+    for m in (first, *later):
         inside = [r for r in by_name["extract.decode"] if r.parent == m.id]
-        assert sum(r.n for r in inside) == m.n
+        assert sum(r.n for r in inside) == (m.n if m is first else 0)
     for f in by_name["finetuning"]:
         inside = [r for r in by_name["train.decode"] if r.parent == f.id]
         assert sum(r.n for r in inside) == steps * batch
