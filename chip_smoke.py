@@ -46,6 +46,18 @@ Phases, in order; any failed check exits non-zero and prints no result:
 9. K4 ``flash_attention`` against its plain version on the card (f32 within
    2e-5, bf16 within one bf16 ulp, at the JPM, ViT-B and vit_small shapes
    and ragged small ones) and its backward (3e-5, f32).
+9a. the biased windowed-attention kernel (``flash_attention`` with a bias,
+    ``wattn_bias_mma``) against its plain version in bf16 at Swin-B's four
+    stage shapes at batch 384, unshifted (G = 1) and shifted (G = windows),
+    and ragged small cases, within one bf16 ulp; its plain backward with
+    ``dbias`` against autograd in f32; Swin's other route
+    (``swin.window_sdpa``, one 4-d ``scaled_dot_product_attention`` call)
+    in f32, values and gradients. Its launches are counted in phase 11a
+    and it is timed later beside its bound, its plain version, the model's
+    SDPA route and the fastest single SDPA call (the backend PyTorch picks
+    logged). ``chip_smoke.py --swin`` runs the build, phases 9, 9a and 11a,
+    K4's and the biased kernel's timings and Swin-B's step under each remat
+    mode, and prints the biased kernel's entry of the kernels line.
 9b. ``conv_int8`` against its plain version on the card (``quantize_sym``,
     then im2col and one float64 product, or the depthwise taps summed in
     int32: exact integer sums, no cuDNN) at the zoo's convolution shapes at
@@ -64,6 +76,12 @@ Phases, in order; any failed check exits non-zero and prints no result:
     SDPA routes agree within 1e-3 in f32.
 11. transformer train: a JPM ``Trainer`` epoch with K4, then the train CLI
     with ``--model_name transreid_jpm`` on SDPA.
+11a. Swin-B train as the ``swin_base.train-market`` cell runs it:
+    ``build_model_pair('swin_base')`` at 384x128, bf16, remat ``none``, and
+    a ``Trainer`` epoch of P16 K12 paired steps (384 images) with its mining
+    at batch 512: the biased kernel (``wattn_bias_mma``, its own counter)
+    launched 24 times a forward, each step's and each mining batch's; K1
+    once a step; the unbiased K4 never.
 12. evaluate-fusion: ``cli.evaluate_fusion.main`` on two ResNet-50
     checkpoints written from seeds 21 and 22 (bf16, 256x128), with the ROC
     dump: 7 rankings (concat, clean, distortion, average, magnitude under
@@ -230,7 +248,7 @@ Phases, in order; any failed check exits non-zero and prints no result:
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. Counts of launches are set to 0 just
 before each of the serve, search, evaluate, train, transformer evaluate,
-transformer train, fusion, ensemble, multi-head, k > 64 search, zoo
+transformer train, Swin-B train, fusion, ensemble, multi-head, k > 64 search, zoo
 evaluate (each family), densenet train, re-ranked evaluate, re-ranked
 search, each step of the datasets phase, each int8 phase, each command
 of phase 20's processes (which print theirs) and each step of phase 21
@@ -285,8 +303,16 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12,
 K4_SHAPES = [(384, 211, 12, 64), (384, 53, 12, 64), (512, 129, 12, 64), (64, 129, 8, 96),
              (3, 7, 2, 32), (2, 1, 1, 64), (5, 70, 3, 96)]
 K4_TRAIN_SHAPES = K4_SHAPES[:2]
+# the biased windowed-attention kernel at Swin-B's four stages, batch 384 at
+# 384x128: (images, windows an image, tokens, heads, head dim); each in an
+# unshifted block (G = 1) and a shifted one (G = windows)
+SWIN_STAGES = [(384, 70, 49, 4, 32), (384, 21, 49, 8, 32), (384, 8, 49, 16, 32),
+               (384, 2, 49, 32, 32)]
 # K4 launches per forward: JPM's 11 trunk blocks, b1 and 4 x b2; ViT-B's 12 blocks
 K4_PER_FORWARD = {"transreid_jpm": 16, "vit": 12}
+# Swin-B as the swin_base.train-market cell runs it: its input, its remat mode
+# and the biased kernel's launches a forward (one a block)
+SWIN_IMG, SWIN_REMAT, SWIN_PER_FORWARD = (384, 128), "none", 24
 EXTRACT_BATCH = 512
 
 
@@ -891,6 +917,130 @@ def phase_k4(torch, dev):
         f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}), the JPM train shapes "
         f"among them; backward at {shape} f32 max |diff| {bwd:.3g}")
     return max(worst.values()), bwd
+
+
+def _wattn_inputs(torch, gen, dev, stage, g: int, dtype=None):
+    """q, k, v (the column blocks of one qkv tensor, as Swin's projection
+    hands them over) and a (G, H, N, N) f32 bias at ``stage``: a table-like
+    N(0, 1) bias, plus with G > 1 a -100 mask over a random half of each
+    window's pairs."""
+    b, nw, n, h, d = stage
+    q, k, v = _qkv_views(torch, gen, dev, (b * nw, n, h, d), dtype or torch.bfloat16)
+    bias = torch.randn((g, h, n, n), generator=gen, device=dev)
+    if g > 1:
+        cut = torch.rand((g, 1, n, n), generator=gen, device=dev) < 0.5
+        bias = bias + cut.float() * -100.0
+    return q, k, v, bias
+
+
+def phase_wattn(torch, dev):
+    """The biased windowed-attention kernel (``flash_attention`` with a
+    bias) against its plain version in bf16 at Swin-B's four stage shapes,
+    unshifted and shifted, and ragged small cases; its backward (the plain
+    recomputing one, ``dbias`` included) against autograd through the plain
+    version in f32 at the last stage's shape, within 3e-5 relative to the
+    largest gradient; and the model's SDPA route (``swin.window_sdpa``) in
+    f32 there, values and gradients, within 1e-4. → (max |diff| forward,
+    max relative |diff| backward)."""
+    from daliid_tpu_torch.models.swin import window_sdpa
+    from daliid_tpu_torch.ops.flash_attention import (
+        attention_backward,
+        attention_plain,
+        flash_attention,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    worst = 0.0
+    cases = [(stage, g) for stage in SWIN_STAGES for g in (1, stage[1])]
+    cases += [((3, 2, 9, 2, 32), 2), ((2, 1, 64, 3, 32), 1), ((5, 3, 17, 1, 32), 3)]
+    for stage, g in cases:
+        q, k, v, bias = _wattn_inputs(torch, gen, dev, stage, g)
+        worst = max(worst, k4_compare(torch, flash_attention(q, k, v, bias),
+                                      attention_plain(q, k, v, bias), torch.bfloat16,
+                                      f"biased (images, windows, N, H, D) = {stage}, G = {g}"))
+        del q, k, v, bias
+    b, nw, n, h, d = SWIN_STAGES[-1]
+    q, k, v, bias = _wattn_inputs(torch, gen, dev, SWIN_STAGES[-1], nw, torch.float32)
+    q, k, v, bias = (t.contiguous().requires_grad_() for t in (q, k, v, bias))
+    g_out = torch.randn((b * nw, n, h, d), generator=gen, device=dev)
+    # the kernel takes bf16 alone; its autograd Function's backward is this
+    got = attention_backward(q.detach(), k.detach(), v.detach(), g_out, bias.detach())
+    attention_plain(q, k, v, bias).backward(g_out)
+    torch.cuda.synchronize()
+    bwd = max(float((a - t.grad).abs().max() / t.grad.abs().max())
+              for a, t in zip(got, (q, k, v, bias)))
+    check(bwd <= 3e-5, f"the biased backward differs from autograd through the plain version "
+                       f"by {bwd} (relative to the largest gradient)")
+    # Swin's other route (any call the kernel does not take, so f32 on the
+    # card): its values and gradients against the plain version's
+    want = [t.grad for t in (q, k, v, bias)]
+    for t in (q, k, v, bias):
+        t.grad = None
+    out = window_sdpa(q, k, v, bias)
+    fwd_sdpa = float((out - attention_plain(q.detach(), k.detach(), v.detach(),
+                                            bias.detach())).abs().max())
+    out.backward(g_out)
+    torch.cuda.synchronize()
+    sdpa = max([fwd_sdpa / float(out.detach().abs().max())]
+               + [float((t.grad - w).abs().max() / w.abs().max())
+                             for t, w in zip((q, k, v, bias), want)])
+    check(sdpa <= 1e-4, f"swin.window_sdpa in f32 differs from the plain version or its "
+                        f"gradient by {sdpa} (relative to the largest gradient)")
+    del q, k, v, bias, g_out, got, out, want
+    torch.cuda.empty_cache()
+    log(f"biased windowed attention == plain on {len(cases)} cases (max |diff| bf16 "
+        f"{worst:.3g}), Swin-B's four stages among them; backward at {SWIN_STAGES[-1]} f32 "
+        f"max relative |diff| {bwd:.3g}; the SDPA route (swin.window_sdpa) in f32 within "
+        f"{sdpa:.3g}, gradients included")
+    return worst, bwd
+
+
+def phase_swin_train(torch, dev, root, counts):
+    """Swin-B on the main path at the ``swin_base.train-market`` cell's
+    batch: ``build_model_pair('swin_base', img_size=SWIN_IMG, bf16,
+    remat=SWIN_REMAT)`` and the port's Trainer (P16 K12 paired, 384 images a
+    step, extractor batch 512), one epoch with its mining. The biased kernel
+    launches ``SWIN_PER_FORWARD`` times a forward, each step's and each
+    mining batch's; K1 once a step; the unbiased K4 never. → launches."""
+    import numpy as np
+
+    from daliid_tpu_torch.data import load_dataset
+    from daliid_tpu_torch.models import build_model_pair
+    from daliid_tpu_torch.train.sampler import PKBatchSampler
+    from daliid_tpu_torch.train.trainer import Trainer
+
+    table = load_dataset("Synthetic", root=str(root))["train"]
+    online, momentum = build_model_pair(
+        "swin_base", torch.Generator().manual_seed(18), img_size=SWIN_IMG, dtype=torch.bfloat16,
+        device=dev, num_classes=table.num_ids, remat=SWIN_REMAT)
+    sampler = PKBatchSampler(table, table.pids, P=P, K=K, kind_of_transform=1,
+                             turbulence_dir=str(root / "Synthetic" / "turbulence"), seed=18)
+    trainer = Trainer(online, momentum, sampler, img_size=SWIN_IMG, tau=0.05, lambda_proxy=0.4,
+                      compute_dtype=torch.bfloat16, extractor_batch=EXTRACT_BATCH)
+    counts.reset()
+    t0 = time.time()
+    means = trainer.train_epoch(1, verbose=True)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launched = counts.read()
+    steps, mined = sampler.batches_per_epoch(), _forwards(table)
+    check(launched["fused_augment"] == steps,
+          f"the Swin-B train path launched K1 {launched['fused_augment']} times for {steps} steps")
+    check(launched["wattn_bias_mma"] == SWIN_PER_FORWARD * (steps + mined),
+          f"the Swin-B train path launched the biased kernel {launched['wattn_bias_mma']} times "
+          f"for {steps} steps and {mined} mining batches")
+    check(launched["flash_attention"] == 0,
+          f"the Swin-B train path launched the unbiased K4 {launched['flash_attention']} times")
+    for key in ("loss", "center_loss", "proxy_loss"):
+        check(np.isfinite(means[key]), f"Swin-B epoch {key} = {means[key]}")
+    log(f"Swin-B train (bf16, remat {SWIN_REMAT}, {SWIN_IMG[0]}x{SWIN_IMG[1]}): {steps} steps of "
+        f"{2 * P * K} images and {mined} mining batches of {EXTRACT_BATCH} in {seconds:.1f} s; "
+        f"loss {means['loss']:.5f} center {means['center_loss']:.5f} proxy "
+        f"{means['proxy_loss']:.5f}; launches {launched}")
+    del trainer, online, momentum
+    torch.cuda.empty_cache()
+    return launched
 
 
 def set_fused_attention(module, on: bool) -> None:
@@ -2455,6 +2605,203 @@ def _time_k4(torch, dev):
         log(f"timing K4 at {shape}: {json.dumps(entries[-1])}")
         del q, k, v, g_out
     return entries
+
+
+def _device_kernels(torch, fn) -> list:
+    """The names of the device kernels one call of ``fn`` launches
+    (torch.profiler), or [] where the profiler sees none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    except RuntimeError as exc:
+        log(f"torch.profiler saw no kernels: {type(exc).__name__}: {exc}")
+        return []
+
+
+def _sdpa_forms(torch, q, k, v, bias):
+    """``scaled_dot_product_attention`` of (B, N, H, D) q, k, v with a
+    (G, H, N, N) bias, each form on inputs laid out for it beforehand: →
+    {form: (q, k, v, mask)}. ``windows_beside_heads`` is one 4-d call of
+    (B/G, G·H, N, D) with the mask (1, G·H, N, N) broadcast over the images
+    (the model's route, ``swin.window_sdpa``); ``mask_expanded`` one 4-d
+    call of (B, H, N, D) with the mask written out for every window;
+    ``five_d`` the (B/G, G, H, N, D) call with the (G, H, N, N) mask."""
+    b, n, h, d = q.shape
+    g = bias.shape[0]
+    mask = bias.to(q.dtype)
+    beside = [t.unflatten(0, (b // g, g)).permute(0, 1, 3, 2, 4).flatten(1, 2).contiguous()
+              for t in (q, k, v)]
+    expanded = mask.unsqueeze(0).expand(b // g, g, h, n, n).reshape(b, h, n, n)
+    return {"windows_beside_heads": (*beside, mask.flatten(0, 1).unsqueeze(0)),
+            "mask_expanded": (*(t.transpose(1, 2) for t in (q, k, v)), expanded),
+            "five_d": (*(t.transpose(1, 2).unflatten(0, (b // g, g)) for t in (q, k, v)), mask)}
+
+
+def _time_sdpa(torch, q, k, v, bias, what: str) -> dict:
+    """Each form of ``_sdpa_forms`` on PyTorch's own choice of backend, and
+    on each backend alone: ms (None where refused) and the device kernels
+    the default call launches. → {"library_ms": the least of all these
+    times, "library_form": its form and backend, "forms": {...}}."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    backends = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+    forms = {}
+    for form, (q4, k4, v4, mask) in _sdpa_forms(torch, q, k, v, bias).items():
+        def call():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+        entry = {"default_ms": _library_ms(torch, call, f"SDPA {form} at {what}")}
+        if entry["default_ms"] is not None:
+            entry["default_kernels"] = _device_kernels(torch, call)
+        for name in backends:
+            backend = getattr(SDPBackend, name, None)
+            if backend is None:
+                continue
+            with sdpa_kernel([backend]):
+                entry[f"{name.lower()}_ms"] = _library_ms(torch, call,
+                                                          f"SDPA {form} on {name} at {what}")
+        forms[form] = entry
+        log(f"SDPA {form} at {what}: {json.dumps(entry)}")
+        del q4, k4, v4, mask
+    timed = {f"{form}, {key[:-3]}": ms for form, e in forms.items() for key, ms in e.items()
+             if key.endswith("_ms") and ms is not None}
+    best = min(timed, key=timed.get) if timed else None
+    return {"library_ms": timed.get(best), "library_form": best, "forms": forms}
+
+
+def _time_wattn(torch, dev):
+    """The biased kernel at Swin-B's four stages in the shifted blocks' form
+    (G = windows), batch 384, bf16: kernel, plain version, the plain
+    backward, the model's SDPA route (``swin.window_sdpa``, its layout
+    copies included), and as the yardstick the fastest single
+    ``scaled_dot_product_attention`` call on inputs laid out for it
+    (``_sdpa_forms``, on PyTorch's choice of backend, logged, or on one
+    backend forced); the bound counts
+    q, k, v and the output once in bf16 and the bias once in f32; → one
+    timing per stage."""
+    from daliid_tpu_torch.models.swin import window_sdpa
+    from daliid_tpu_torch.ops.flash_attention import (
+        attention_backward,
+        attention_plain,
+        flash_attention,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    entries = []
+    for stage in SWIN_STAGES:
+        b, nw, n, h, d = stage
+        q, k, v, bias = _wattn_inputs(torch, gen, dev, stage, nw)
+        what = (f"images={b} windows={nw} N={n} H={h} D={d} G={nw} bf16, q/k/v strided views "
+                f"of one qkv tensor, f32 bias")
+        err = k4_compare(torch, flash_attention(q, k, v, bias), attention_plain(q, k, v, bias),
+                         torch.bfloat16, what)
+        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, bias), reps=20)
+        plain_ms = cuda_ms(torch, lambda: attention_plain(q, k, v, bias), reps=3, warmup=1)
+        sdpa = _time_sdpa(torch, q, k, v, bias, what)
+        entries.append(_timing(what, ms, plain_ms, sdpa["library_ms"],
+                               4 * b * nw * n * h * d * 2 + nw * h * n * n * 4,
+                               4 * b * nw * h * n * n * d, "bf16", err))
+        entries[-1]["library"] = (f"F.scaled_dot_product_attention, {sdpa['library_form']} "
+                                  f"(_sdpa_forms; default: PyTorch's choice of backend)")
+        entries[-1]["sdpa_forms"] = sdpa["forms"]
+        # the route rounds the bias to bf16 for SDPA: held loosely, so that
+        # only a wrong layout (errors of the values' own size) fails
+        want = attention_plain(q, k, v, bias).float()
+        sdpa_err = float((window_sdpa(q, k, v, bias).float() - want).abs().max())
+        check(sdpa_err <= 0.05 * float(want.abs().max()),
+              f"swin.window_sdpa differs from the plain version by {sdpa_err:.3g} at {what}")
+        entries[-1]["model_sdpa_route_ms"] = cuda_ms(
+            torch, lambda: window_sdpa(q, k, v, bias), reps=5, warmup=1)
+        entries[-1]["model_sdpa_route_max_abs_err"] = sdpa_err
+        del want
+        g_out = torch.randn((b * nw, n, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        entries[-1]["backward_ms"] = cuda_ms(
+            torch, lambda: attention_backward(q, k, v, g_out, bias), reps=3, warmup=1)
+        log(f"timing biased attention at {stage}: {json.dumps(entries[-1])}")
+        del q, k, v, bias, g_out
+        torch.cuda.empty_cache()
+    return entries
+
+
+def _wattn_entry(torch, dev, launches: int, err: float, bwd_err: float) -> dict:
+    """The kernels line's entry of ``wattn_bias_mma``: timed at Swin-B's
+    first stage, its other stages under ``at_stages``."""
+    times = _time_wattn(torch, dev)
+    entry = {"name": "wattn_bias_mma", "route": "cuda", **KERNELS["wattn_bias_mma"], **times[0],
+             "at_stages": times[1:], "launches": launches,
+             "max_abs_err": max([err] + [t["max_abs_err"] for t in times]),
+             "backward_max_abs_err": bwd_err}
+    check(launches > 0, "wattn_bias_mma was not launched on the main path")
+    return entry
+
+
+def _time_swin_steps(torch, dev, batch: int = 384) -> dict:
+    """One Swin-B forward and backward at 384x128, bf16 (so the biased
+    kernel), under each remat mode on the same weights and batch: ms a step (3 after
+    one warm-up), peak memory above the model, or the error that stopped it."""
+    from daliid_tpu_torch.models.factory import get_model
+
+    out = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    x = torch.randn((batch, 3, 384, 128), generator=gen, device=dev).to(torch.bfloat16)
+    for mode in ("none", "tuned", "full"):
+        model = get_model("swin_base", img_size=SWIN_IMG, dtype=torch.bfloat16, device=dev,
+                          remat=mode).module.train()
+        drop = torch.Generator(device=dev)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            model(x, generator=drop).float().square().mean().backward()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        try:
+            ms = cuda_ms(torch, step, reps=3, warmup=1)
+            out[mode] = {"step_ms": ms, "img_per_s": 1e3 * batch / ms,
+                         "peak_gb_above_model": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        except torch.cuda.OutOfMemoryError as exc:
+            out[mode] = {"error": f"OutOfMemoryError: {str(exc).splitlines()[0]}"}
+        log(f"Swin-B step at {batch}, remat {mode}: {json.dumps(out[mode])}")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def swin_main(torch) -> int:
+    """``chip_smoke.py --swin``: the build, K4 and the biased kernel against
+    their plain versions, Swin-B's epoch on the main path with its launches
+    counted, K4's time at the JPM trunk's shape, the biased kernel's timings
+    beside the SDPA forms, and Swin-B's step under each remat mode."""
+    card, dev, _ = phase_device(torch)
+    k4_err, _ = phase_k4(torch, dev)
+    wattn_err, wattn_bwd = phase_wattn(torch, dev)
+    launched = phase_swin_train(torch, dev, make_train_dataset(), Counts())
+    k4 = _time_k4(torch, dev)[0]
+    wattn = _wattn_entry(torch, dev, launched["wattn_bias_mma"], wattn_err, wattn_bwd)
+    steps = _time_swin_steps(torch, dev)
+    stages = [wattn] + wattn["at_stages"]
+    log(f"K4 (unbiased) at (384, 211, 12, 64) bf16: {k4['ms']:.4f} ms (bound "
+        f"{k4['bound_ms']:.4f} ms)")
+    log(f"biased kernel, one Swin-B forward of 384 (each stage's blocks, shifted form): "
+        f"{sum(n * e['ms'] for n, e in zip((2, 2, 18, 2), stages)):.3f} ms, bound "
+        f"{sum(n * e['bound_ms'] for n, e in zip((2, 2, 18, 2), stages)):.3f} ms, fastest "
+        f"single SDPA call {sum(n * e['library_ms'] for n, e in zip((2, 2, 18, 2), stages)):.3f}"
+        f" ms, the model's SDPA route "
+        f"{sum(n * e['model_sdpa_route_ms'] for n, e in zip((2, 2, 18, 2), stages)):.3f} ms")
+    print(json.dumps({"kernels": [wattn]}), flush=True)
+    print(json.dumps({"swin": {"card": card, "k4_ms": k4["ms"], "k4_max_abs_err": k4_err,
+                               "launches": launched, "steps": steps}}), flush=True)
+    return 0
 
 
 def _time_remat(torch, dev, trainer, images_u8, images, rest, camids) -> dict:
@@ -4086,19 +4433,21 @@ class Counts:
         from daliid_tpu_torch.ops.rank_counts import positive_rank_counts
         from daliid_tpu_torch.ops.search_topk import f32_search_topk, sq8_search_topk
 
-        self.wrappers = {"rank_counts": positive_rank_counts,
-                         "search_topk_sq8": sq8_search_topk,
-                         "search_topk_f32": f32_search_topk,
-                         "fused_augment": fused_augment,
-                         "flash_attention": flash_attention,
-                         "conv_int8": conv_int8}
+        # each kernel's wrapper and the attribute that counts its launches
+        self.counters = {"rank_counts": (positive_rank_counts, "launches"),
+                         "search_topk_sq8": (sq8_search_topk, "launches"),
+                         "search_topk_f32": (f32_search_topk, "launches"),
+                         "fused_augment": (fused_augment, "launches"),
+                         "flash_attention": (flash_attention, "launches"),
+                         "wattn_bias_mma": (flash_attention, "bias_launches"),
+                         "conv_int8": (conv_int8, "launches")}
 
     def reset(self):
-        for w in self.wrappers.values():
-            w.launches = 0
+        for w, attr in self.counters.values():
+            setattr(w, attr, 0)
 
     def read(self) -> dict:
-        return {name: w.launches for name, w in self.wrappers.items()}
+        return {name: getattr(w, attr) for name, (w, attr) in self.counters.items()}
 
 
 KERNELS = {
@@ -4116,6 +4465,12 @@ KERNELS = {
                         "replaces": "daliid_tpu/ops/flash_attention.py:55",
                         "check": "f32 atol 2e-5; bf16 one bf16 ulp (or 2e-5); "
                                  "backward f32 atol 3e-5"},
+    # K4 with an additive bias, for Swin-B's windows: the JAX package has no
+    # such model, so no Pallas kernel
+    "wattn_bias_mma": {"source": "daliid_tpu_torch/csrc/flash_attention.cu",
+                       "replaces": "none: port only (Swin-B's windowed attention)",
+                       "check": "bf16 one bf16 ulp (or 2e-5); backward (dbias included) "
+                                "f32 3e-5 of the largest gradient"},
     # a kernel of the port alone: the JAX package runs these convolutions
     # through XLA (lax.conv_general_dilated on int8), no Pallas kernel
     "conv_int8": {"source": "daliid_tpu_torch/csrc/conv_int8.cu",
@@ -4134,6 +4489,7 @@ PATH_KERNELS = {"rank_counts": ("rank_counts_kernel",),
                 "search_topk_sq8": ("topk_pass1<1>", "topk_pass2"),
                 "search_topk_f32": ("topk_pass1<0>", "topk_pass2"),
                 "flash_attention": ("attention_mma<64,8>", "attention_mma<64,4>"),
+                "wattn_bias_mma": ("wattn_bias_mma<32>",),
                 # the bf16 path's kernels: the gathering implicit GEMM (1x1
                 # convolutions), the staged window (the stems and k x k), depthwise
                 "conv_int8": tuple(f"conv_wgmma<__nv_bfloat16,{bn},{staged},{nwg}>"
@@ -4158,6 +4514,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if sys.argv[1:2] == ["--gang-child"]:
         return gang_child(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--swin"]:
+        return swin_main(torch)
     if sys.argv[1:2] == ["--compare"]:
         _, dev, _ = phase_device(torch)
         geos = {" ".join(key): geo for key, geo in conv_shapes(torch, dev).items()}
@@ -4176,6 +4534,7 @@ def main() -> int:
     f32_err = phase_k3(torch, dev, (n_q, capacity, 2048, n_g))
     k1_err = phase_k1(torch, dev)
     k4_err, k4_bwd_err = phase_k4(torch, dev)
+    wattn_err, wattn_bwd = phase_wattn(torch, dev)
     shapes = conv_shapes(torch, dev)
     conv_err = phase_conv_int8(torch, dev, shapes)
     train_root = make_train_dataset()
@@ -4199,6 +4558,7 @@ def main() -> int:
                   lambda: phase_train(torch, counts, train_root),
                   lambda: phase_transformer_evaluate(torch, dev, splits, counts),
                   lambda: phase_transformer_train(torch, dev, train_root, counts),
+                  lambda: phase_swin_train(torch, dev, train_root, counts),
                   lambda: timed("evaluate-fusion", lambda: phase_fusion(torch, counts)),
                   lambda: timed("evaluate-ensemble", lambda: phase_ensemble(torch, counts)),
                   lambda: timed("evaluate multipart --multiple_output --mrfuse",
@@ -4264,6 +4624,8 @@ def main() -> int:
     results["flash_attention"]["max_abs_err"] = max(k4_times[0]["max_abs_err"],
                                                     k4_times[1]["max_abs_err"], k4_err)
     results["flash_attention"]["backward_max_abs_err"] = k4_bwd_err
+    results["wattn_bias_mma"] = _wattn_entry(torch, dev, launches["wattn_bias_mma"], wattn_err,
+                                             wattn_bwd)
     for name, kernels in PATH_KERNELS.items():
         lib = Path(KERNELS[name]["source"]).stem
         results[name]["ptxas"] = {k: ptxas.get(lib, {}).get(k) for k in kernels}
@@ -4369,7 +4731,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check", "shape")
     extra = ("at_path_shape", "at_path_p", "at_max_positives_bound", "at_msmt17_protocol",
-             "at_n53",
+             "at_n53", "at_stages", "model_sdpa_route_ms", "sdpa_forms",
              "backward_max_abs_err",
              "backward_ms", "ptxas", "library", "plan", "im2col_int_mm_ms", "cudnn_bf16_ms",
              "int8_input_ms", "at_shapes", "profiled_resnet50_int8")

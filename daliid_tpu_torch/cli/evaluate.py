@@ -72,7 +72,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="DaliID single-model evaluation (PyTorch/CUDA)")
     p.add_argument("--targets", type=str, nargs="+", required=True)
     p.add_argument("--data_root", type=str, default=None)
-    p.add_argument("--model_name", type=str, default="resnet50")
+    p.add_argument("--model_name", "--model", type=str, default="resnet50")
     p.add_argument("--model_path", type=str, default=None,
                    help="JAX save_variables .npz or reference torch state_dict")
     p.add_argument("--img_height", type=int, default=256)

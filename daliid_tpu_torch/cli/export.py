@@ -24,7 +24,8 @@ variables of a fresh model (every leaf required at its shape) and writes
 ``state_to_torch``'s reference scheme. A multi-head ResNet
 (``dualresnet50``, ``multipart_resnet50``, ``multiview_resnet50``) is
 refused to a torch pickle, whose reference scheme has no keys for its
-heads: keep it as an ``.npz``.
+heads: keep it as an ``.npz``. A model that exists only in the port
+(``swin_base``) has no JAX layout and is refused either way.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(args):
     from daliid_tpu_torch.models import get_model
+    from daliid_tpu_torch.models.factory import jax_layout_refusal
     from daliid_tpu_torch.models.torch_port import (
         _HEADS_WITHOUT_TORCH_KEYS,
         load_torch_checkpoint,
@@ -73,6 +75,10 @@ def main(args):
             f"exactly one side must be a torch pickle ({'/'.join(TORCH_EXTS)}) "
             f"and the other an .npz: got {args.input} -> {args.output}"
         )
+    try:
+        jax_layout_refusal(args.model_name)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if to_torch and args.model_name in _HEADS_WITHOUT_TORCH_KEYS:
         raise SystemExit(multihead_torch_refusal(args.model_name))
     device = resolve_device(args.device)

@@ -22,7 +22,9 @@ the first epoch when a validation would rank it, and so is a multi-head
 model, whose tuple of embeddings the losses do not take. ``--remat``
 (``models/vit.py::REMAT_MODES``) checkpoints the transformer blocks of the
 ``REMAT_MODELS`` and exits with the JAX CLI's error for any other model
-(``:258-263``).
+(``:258-263``). ``--model`` is short for ``--model_name``; the port-only
+``swin_base`` trains as ``--model swin_base --img_height 384 --img_width
+128`` and takes ``--remat`` as the ViT family does.
 
 ``--multihost`` (``--coordinator_address``, ``--num_processes``,
 ``--process_id``; JAX ``:441-446``) joins a gang (:mod:`daliid_tpu_torch.parallel`;
@@ -80,7 +82,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="DaliID training (PyTorch/CUDA)")
     p.add_argument("--img_height", type=int, default=256)
     p.add_argument("--img_width", type=int, default=128)
-    p.add_argument("--model_name", type=str, default="resnet50")
+    p.add_argument("--model_name", "--model", type=str, default="resnet50")
     p.add_argument("--model_path", type=str, default=None,
                    help="initial weights: JAX save_variables .npz or torch state_dict")
     p.add_argument("--lr", type=float, default=3.5e-4)

@@ -466,6 +466,184 @@ cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v, Vie
                  : launch_f32<D>(q, k, v, qs, ks, vs, B, N, H, scale, out, s);
 }
 
+// ---------------------------------------------------------------- bf16, additive bias
+//
+// Windowed attention with an additive bias (Swin's relative-position bias,
+// plus its shift mask in shifted blocks); no TPU kernel counterpart (the JAX
+// package has no such model). For batch row b (image * G + window) and head
+// h:
+//     out[b, :, h, :] = softmax(q . k^T * scale + bias[b % G, h]) . v
+// with bias an f32 (G, H, N, N) tensor, G the windows of an image (1 where
+// every window takes the same bias), N <= 64 (Swin's 7 x 7 windows: 49).
+//
+// Bound on the H100 at Swin-B's first stage, batch 384 (26,880 windows of
+// 49 tokens, 4 heads of 32): q, k, v and the output once, 1.35 GB over
+// 3.35 TB/s = 0.40 ms, against 0.03 ms of tensor-core work: the bytes bound
+// it. The bias (at most 2.7 MB) is read from L2 by every block.
+//
+// One block of 4 warps per (b, h): the window's N <= 64 rows of Q, K and V
+// come into shared memory once by 16-byte cp.async copies (rows past N
+// zero), each warp keeps 16 query rows' Q fragments in registers, S = Q . K^T
+// runs on mma.sync m16n8k16 (bf16 in, f32 accumulate) and stays in
+// registers; the scores are scaled, the bias added from global memory (the
+// fragment's own rows and keys), keys >= N masked, and one plain softmax
+// taken over the single key tile (no online rescaling). P . V takes P split
+// as P_hi + P_lo, as in attention_mma, so the result is within one bf16 ulp
+// of the f32 plain version; it is rounded once, staged in the warp's rows of
+// the Q tile and written with 16-byte stores.
+template <int D>
+__global__ void __launch_bounds__(128)
+    wattn_bias_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, View qs, View ks, View vs,
+                   const float* __restrict__ bias, int G, int H, int N, float scale,
+                   __nv_bfloat16* __restrict__ out) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int RS = D + 8;   // row stride of every tile (elements)
+  constexpr int KC = D / 16;  // k16 chunks of S = Q . K^T
+  constexpr int DT = D / 8;   // n8 tiles of the output
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* Ks = Qs + KT * RS;
+  __nv_bfloat16* Vs = Ks + KT * RS;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  stage_async<D, KT>(Qs, q, qs, b, h, 0, N);
+  stage_async<D, KT>(Ks, k, ks, b, h, 0, N);
+  stage_async<D, KT>(Vs, v, vs, b, h, 0, N);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  if (warp * 16 >= N) return;  // warp-uniform; no barrier follows
+
+  uint32_t qf[KC][4];
+#pragma unroll
+  for (int c = 0; c < KC; ++c)
+    mma::ldmatrix_x4(qf[c], Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * RS +
+                                16 * c + 8 * (lane >> 4));
+  const int nt = (N + 7) / 8;    // n8 key tiles holding a valid key
+  const int kc = (N + 15) / 16;  // k16 key chunks of P . V
+
+  float s[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+  for (int jp = 0; jp < 4; ++jp) {
+    if (2 * jp < nt) {
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        uint32_t kb[4];
+        mma::ldmatrix_x4(kb, Ks + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * RS + 16 * c +
+                                 8 * ((lane >> 3) & 1));
+        mma::mma_bf16(s[2 * jp], qf[c], kb[0], kb[1]);
+        mma::mma_bf16(s[2 * jp + 1], qf[c], kb[2], kb[3]);
+      }
+    }
+  }
+
+  // scale, add the bias (log2 units: exp2 below), mask keys >= N; rows
+  // r0 = g and r1 = g + 8 of the warp: s[.][0..1] and s[.][2..3]
+  const int r0 = warp * 16 + g, r1 = r0 + 8;
+  const float* bp = bias + ((long long)(b % G) * H + h) * N * N;
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * j + 2 * t + (e & 1);
+      const int row = e < 2 ? r0 : r1;
+      float add = 0.0f;
+      if (key < N && row < N) add = __ldg(bp + row * N + key);
+      s[j][e] = key < N ? fmaf(s[j][e], scale, add * kLog2e) : -INFINITY;
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = exp2f(s[j][0] - mx0);
+    s[j][1] = exp2f(s[j][1] - mx0);
+    s[j][2] = exp2f(s[j][2] - mx1);
+    s[j][3] = exp2f(s[j][3] - mx1);
+    l0 += s[j][0] + s[j][1];
+    l1 += s[j][2] + s[j][3];
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (c < kc) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)  // rows g, g + 8; keys 2t, 2t + 8 of the chunk
+        mma::split2_bf16(s[2 * c + (r >> 1)][2 * (r & 1)], s[2 * c + (r >> 1)][2 * (r & 1) + 1],
+                         ph[r], pl[r]);
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t vb[4];
+        mma::ldmatrix_x4_trans(vb, Vs + (16 * c + (lane & 7) + 8 * ((lane >> 3) & 1)) * RS +
+                                       16 * dp + 8 * (lane >> 4));
+        mma::mma_bf16(o[2 * dp], pl, vb[0], vb[1]);
+        mma::mma_bf16(o[2 * dp], ph, vb[0], vb[1]);
+        mma::mma_bf16(o[2 * dp + 1], pl, vb[2], vb[3]);
+        mma::mma_bf16(o[2 * dp + 1], ph, vb[2], vb[3]);
+      }
+    }
+  }
+
+  // out = O / l in bf16, through the warp's own 16 rows of the Q tile
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  __nv_bfloat16* rows = Qs + warp * 16 * RS;
+  __syncwarp();  // every lane's Q fragments are loaded before the rows are overwritten
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    *reinterpret_cast<uint32_t*>(rows + g * RS + 8 * j + 2 * t) =
+        mma::pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
+    *reinterpret_cast<uint32_t*>(rows + (g + 8) * RS + 8 * j + 2 * t) =
+        mma::pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
+  }
+  __syncwarp();
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  for (int e = lane; e < 16 * CPR; e += 32) {
+    const int r = e / CPR, c = e % CPR;
+    const int n = warp * 16 + r;
+    if (n < N)
+      *reinterpret_cast<float4*>(out + (((long long)b * N + n) * H + h) * D + c * 8) =
+          *reinterpret_cast<const float4*>(rows + r * RS + c * 8);
+  }
+}
+
+template <int D>
+cudaError_t launch_bias(const void* q, const void* k, const void* v, View qs, View ks, View vs,
+                        const float* bias, int B, int N, int H, int G, float scale, void* out,
+                        cudaStream_t stream) {
+  constexpr size_t smem = sizeof(__nv_bfloat16) * (size_t)(3 * KT) * (D + 8);
+  auto kernel = wattn_bias_mma<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)(B * H), 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), qs, ks, vs, bias, G, H, N, scale * 1.4426950408889634f,
+      static_cast<__nv_bfloat16*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Attention over (B, N, H, D) views q, k, v (strides in elements, D
@@ -486,6 +664,30 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 32: return (int)launch<32>(is_bf16, q, k, v, qs, ks, vs, B, N, H, scale, out, s);
     case 64: return (int)launch<64>(is_bf16, q, k, v, qs, ks, vs, B, N, H, scale, out, s);
     case 96: return (int)launch<96>(is_bf16, q, k, v, qs, ks, vs, B, N, H, scale, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Windowed attention with an additive bias over bf16 (B, N, H, D) views q,
+// k, v (strides in elements, D unit-stride, bases and strides of dimensions
+// longer than 1 multiples of 16 bytes) into the contiguous bf16 (B, N, H, D)
+// `out`, on `stream`: bias is a contiguous f32 (G, H, N, N) tensor added to
+// batch row b's scaled scores as bias[b % G]. D = 32 (Swin's heads), 1 <= N <= 64,
+// G divides B. Returns cudaGetLastError() (or the error of the launch's
+// set-up).
+extern "C" int windowed_attention_bias(const void* q, const void* k, const void* v,
+                                       long long q_sb, long long q_sn, long long q_sh,
+                                       long long k_sb, long long k_sn, long long k_sh,
+                                       long long v_sb, long long v_sn, long long v_sh,
+                                       const void* bias, int B, int N, int H, int D, int G,
+                                       float scale, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const View qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
+  if (B <= 0 || H <= 0) return (int)cudaGetLastError();
+  if (N <= 0 || N > KT || G <= 0 || B % G != 0) return (int)cudaErrorInvalidValue;
+  const float* bp = static_cast<const float*>(bias);
+  switch (D) {
+    case 32: return (int)launch_bias<32>(q, k, v, qs, ks, vs, bp, B, N, H, G, scale, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

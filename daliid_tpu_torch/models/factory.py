@@ -7,8 +7,9 @@ and ``multiview_resnet50`` (``:72-109``, ``:223-238``), the rest of the CNN
 zoo ``osnet``, ``densenet121`` (with ``num_classes``), ``efficientnetB0``
 and ``inceptionV3`` (``:107-130``), the ViT family ``vit``,
 ``vit_small``, ``deit_small``, ``tiny_vit_smoke``, ``transreid_jpm`` and
-``transreid`` (``:131-197``): all 18 names of the JAX registry. Also the
-flag sets of ``:50-61``,
+``transreid`` (``:131-197``): all 18 names of the JAX registry; and
+``swin_base`` (:mod:`daliid_tpu_torch.models.swin`), which the JAX package
+lacks (``PORT_ONLY_MODELS``). Also the flag sets of ``:50-61``,
 :func:`get_model` (``:200-220``), :func:`build_ensembles` (``:241-253``)
 and :func:`build_model_pair` (``:256-266``). As in the JAX package every
 factory takes ``**kw`` and ignores what it does not use; the CLIs check
@@ -23,8 +24,8 @@ Weights are initialized from an explicit ``torch.Generator``, in the
 families of flax's defaults: every convolution and linear kernel ~ N(0,
 1/fan_in) (LeCun-normal), zero biases, unit scale and zero bias in BN and
 LayerNorm, zero running mean and unit running variance; the ViT's cls,
-position and SIE tokens ~ truncated normal(0.02) at +-2 std; the JPM
-classifiers ~ N(0, 0.001).
+position and SIE tokens and Swin's relative-position bias tables ~
+truncated normal(0.02) at +-2 std; the JPM classifiers ~ N(0, 0.001).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from daliid_tpu_torch.models.densenet import DenseNet121ReID
 from daliid_tpu_torch.models.efficientnet import EfficientNetB0ReID
 from daliid_tpu_torch.models.inception import InceptionV3ReID
 from daliid_tpu_torch.models.osnet import OSNetReID
+from daliid_tpu_torch.models.swin import WindowAttention, swin_base_reid
 from daliid_tpu_torch.models.resnet import (
     DualResNet50ReID,
     MultiPartResNet50ReID,
@@ -74,13 +76,18 @@ MODEL_REGISTRY: Dict[str, Callable[..., tuple]] = {}
 # for the others, which would swallow them)
 MARGIN_HEAD_MODELS = frozenset({"transreid_jpm"})
 SIE_MODELS = frozenset({"transreid", "transreid_jpm"})
-GELU_APPROX_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "transreid_jpm"})
+GELU_APPROX_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "transreid_jpm",
+                                "swin_base"})
 # the ViTReID family (one state_dict scheme: base.* + bottleneck)
 VIT_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "tiny_vit_smoke"})
 # the models whose factories pass ``remat=`` to the transformer blocks
-REMAT_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "transreid_jpm"})
+REMAT_MODELS = frozenset({"vit", "vit_small", "deit_small", "transreid", "transreid_jpm",
+                          "swin_base"})
 # the models whose forward returns a tuple of head embeddings
 MULTIHEAD_MODELS = frozenset({"dualresnet50", "multipart_resnet50", "multiview_resnet50"})
+# the models of the port that the JAX package does not have: no path converts
+# them to or from its layout
+PORT_ONLY_MODELS = frozenset({"swin_base"})
 
 
 def register_model(name: str):
@@ -214,6 +221,16 @@ def _transreid(dtype=torch.float32, img_size=(256, 128), sie_cameras=0, sie_view
                           dtype=dtype), 768
 
 
+@register_model("swin_base")
+def _swin_base(dtype=torch.float32, img_size=(384, 128), gelu_approx=False, remat="none",
+               **kw):
+    """Swin-B as a re-ID encoder (arXiv:2103.14030; port only). Its windowed
+    attention takes the biased kernel wherever that kernel takes the call
+    (bf16 on CUDA), so it reads no ``use_fused_attention``."""
+    return swin_base_reid(dtype=dtype, img_size=tuple(img_size), gelu_approx=gelu_approx,
+                          remat=remat), 1024
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init in flax's families (see the module docstring)."""
@@ -228,6 +245,18 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             for p in (m.cls_token, m.pos_embed, getattr(m, "sie_embed", None)):
                 if p is not None:
                     nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
+        elif isinstance(m, WindowAttention):
+            nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, a=-0.04, b=0.04,
+                                  generator=generator)
+
+
+def jax_layout_refusal(name: str) -> None:
+    """Raise for a model that exists only in the port, on a path that
+    converts to or from the JAX package's layout."""
+    if name in PORT_ONLY_MODELS:
+        raise ValueError(f"{name} exists only in the port: the JAX package has no such model, "
+                         f"so it has no JAX layout to convert to or from; keep its weights "
+                         f"as the port's own torch state_dict (.pt)")
 
 
 def check_model_name(name: str) -> None:

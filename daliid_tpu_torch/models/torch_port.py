@@ -49,6 +49,14 @@ entry point dispatches on the model name, as ``variables_from_torch`` does
   wrappers keep unused are dropped, and a DenseNet classifier is dropped
   for a model built without one (``num_classes=0``, as evaluation builds
   it).
+
+``swin_base`` exists only in the port (``factory.PORT_ONLY_MODELS``): every
+conversion to or from the JAX package's layout (the key tables, so
+:func:`variables_to_jax`, :func:`variables_from_jax`, :func:`params_from_jax`
+and :func:`quant_scales_from_jax`, hence ``.npz`` files) and
+:func:`state_to_torch`, which writes the JAX package's reference scheme,
+refuse it by name; :func:`state_from_torch` takes its port-written
+``state_dict`` as it is.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ import numpy as np
 import torch
 
 from daliid_tpu_torch.models.efficientnet import _B0_CONFIG
-from daliid_tpu_torch.models.factory import VIT_MODELS
+from daliid_tpu_torch.models.factory import VIT_MODELS, jax_layout_refusal
 from daliid_tpu_torch.models.vit import resize_pos_embed
 
 _KEYSTR_PART = re.compile(r"\['([^']*)'\]")
@@ -288,7 +296,9 @@ def _entries_of(model_name: str, has):
     whether the weights at hand have the module under ``torch_key`` (the
     port's ``state_dict``) or ``flax_path`` (the JAX params): every
     structural choice (depth, SIE, IBN, shortcuts, heads, classifiers)
-    names both at one call, so the two directions read one table."""
+    names both at one call, so the two directions read one table. A model
+    the JAX package lacks has no table."""
+    jax_layout_refusal(model_name)
     if model_name in VIT_MODELS:
         return _vit_trunk_entries(has, ()) + [("bottleneck", ("last_bn",), "bn")]
     if model_name == "transreid_jpm":
@@ -654,7 +664,9 @@ def state_to_torch(model_name: str, state_dict: Mapping[str, torch.Tensor],
     A multi-head ResNet is refused with an error that names its heads: the
     reference ResNet-50 scheme has no entries for them (the JAX package's
     export drops them from a multi-part or multi-view file and fails on
-    the dual one). ``tiny_vit_smoke`` has no reference scheme."""
+    the dual one). ``tiny_vit_smoke`` has no reference scheme, and a model
+    that exists only in the port is refused by name."""
+    jax_layout_refusal(model_name)
     if model_name in _HEADS_WITHOUT_TORCH_KEYS:
         raise ValueError(multihead_torch_refusal(model_name))
     if model_name == "tiny_vit_smoke":
@@ -682,6 +694,7 @@ def load_state(model_name: str, path: str, module=None) -> Dict[str, torch.Tenso
     torch pickle (a reference checkpoint, or a ``model_*.pt`` the port's
     trainer wrote)."""
     if path.endswith(".npz"):
+        jax_layout_refusal(model_name)
         return _without_unused_classifier(variables_from_jax(model_name, read_jax_npz(path)),
                                           module)
     return state_from_torch(model_name, load_torch_checkpoint(path), module)

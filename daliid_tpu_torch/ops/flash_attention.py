@@ -36,6 +36,21 @@ padding of N and D to multiples of 128 are not carried over.
 On CPU tensors :func:`flash_attention` computes the plain version; on CUDA
 tensors it launches the kernel or raises. The kernel takes D in {32, 64, 96}
 and any N >= 1, in f32 or bf16.
+
+With an additive ``bias`` (windowed attention, Swin's relative-position bias
+and shift mask; no TPU kernel counterpart, the JAX package has no such
+model) the function is
+
+    softmax(q . k^T * D^-1/2 + bias[b % G]) . v
+
+for batch row b and a (G, H, N, N) f32 ``bias``: G is the number of windows
+of an image (batch rows are ``image * G + window``), or 1 where every window
+takes the same bias. Its gradient is the same recomputing backward, which
+also returns ``dbias``, the sum of dS over the images. On the card the
+biased forward is a kernel of its own (``wattn_bias_mma`` in
+``csrc/flash_attention.cu``: bf16, D = 32, N <= 64, one block a
+window and head), so the unbiased kernel and its launches are as they were;
+its launches count in ``flash_attention.bias_launches``.
 """
 
 from __future__ import annotations
@@ -50,36 +65,57 @@ HEAD_DIMS = (32, 64, 96)
 # the C entry point: q, k, v, 9 strides, B, N, H, D, scale, is_bf16, out, stream
 ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2)
+# the biased kernel: head dims, the longest window, and its C entry point
+# (q, k, v, 9 strides, bias, B, N, H, D, G, scale, out, stream)
+BIAS_HEAD_DIMS = (32,)
+BIAS_MAX_N = 64
+BIAS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 9 + [ctypes.c_void_p]
+                 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
 
 def _scale(d: int) -> float:
     return 1.0 / (d ** 0.5)
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _biased(s: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """(B, H, N, N) scores plus ``bias[b % G]`` for batch row b."""
+    if bias is None:
+        return s
+    b, h, n, _ = s.shape
+    g = bias.shape[0]
+    return (s.view(b // g, g, h, n, n) + bias.float()).view(b, h, n, n)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor | None = None) -> torch.Tensor:
     """The same function in plain PyTorch (any device), in the Pallas
-    body's order: (B, N, H, D) q, k, v → contiguous (B, N, H, D) in q's
-    dtype."""
+    body's order: (B, N, H, D) q, k, v and an optional (G, H, N, N) bias →
+    contiguous (B, N, H, D) in q's dtype."""
     qf, kf, vf = q.float(), k.float(), v.float()
-    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * _scale(q.shape[-1])
+    s = _biased(torch.einsum("bnhd,bmhd->bhnm", qf, kf) * _scale(q.shape[-1]), bias)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.einsum("bhnm,bmhd->bnhd", p, vf).to(q.dtype).contiguous()
 
 
-def attention_backward(q, k, v, g):
+def attention_backward(q, k, v, g, bias=None):
     """The JAX VJP's backward (``_bwd``): recompute P in f32, then
-    → (dq, dk, dv) in the inputs' dtypes."""
+    → (dq, dk, dv) in the inputs' dtypes; with a (G, H, N, N) ``bias`` also
+    its gradient, dS summed over the images, in the bias's dtype."""
     scale = _scale(q.shape[-1])
     q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
-    s = torch.einsum("bnhd,bmhd->bhnm", q32, k32) * scale
+    s = _biased(torch.einsum("bnhd,bmhd->bhnm", q32, k32) * scale, bias)
     p = torch.softmax(s, dim=-1)
     dv = torch.einsum("bhnm,bnhd->bmhd", p, g32)
     dp = torch.einsum("bnhd,bmhd->bhnm", g32, v32)
     ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
     dq = torch.einsum("bhnm,bmhd->bnhd", ds, k32) * scale
     dk = torch.einsum("bhnm,bnhd->bmhd", ds, q32) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if bias is None:
+        return grads
+    dbias = ds.view(-1, *bias.shape).sum(dim=0)
+    return grads + (dbias.to(bias.dtype),)
 
 
 def _fn():
@@ -115,21 +151,64 @@ def _kernel_reads(t: torch.Tensor) -> bool:
         (s * t.element_size()) % 16 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
 
 
-def _forward(q, k, v) -> torch.Tensor:
+def _bias_fn():
+    lib = _build.load("flash_attention")
+    fn = lib.windowed_attention_bias
+    if fn.argtypes is None:
+        fn.argtypes = BIAS_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_bias(q, bias) -> None:
+    b, n, h, _ = q.shape
+    if (bias.dim() != 4 or bias.shape[1:] != (h, n, n) or bias.shape[0] < 1
+            or b % bias.shape[0]):
+        raise ValueError(f"bias must be (G, H, N, N) = (G, {h}, {n}, {n}) with G dividing "
+                         f"B = {b}, got {tuple(bias.shape)}")
+    if bias.device != q.device:
+        raise ValueError("the bias must be on q's device")
+
+
+def bias_kernel_takes(q: torch.Tensor) -> bool:
+    """Whether the biased kernel takes (B, N, H, D) ``q`` (and k, v like it):
+    bfloat16 on a CUDA device, D in ``BIAS_HEAD_DIMS``, N <= ``BIAS_MAX_N``."""
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
+            and q.shape[-1] in BIAS_HEAD_DIMS and q.shape[1] <= BIAS_MAX_N)
+
+
+def _launch_inputs(q, k, v, bias=None):
+    """The checks both kernels' wrappers share. → ``(result, None)``: the
+    plain version's on the CPU, or the empty output where there is nothing
+    to attend; else ``(out, ((q, k, v), strides))`` for a launch, with a
+    copy of each view the kernel cannot read."""
     _check(q, k, v)
+    if bias is not None:
+        _check_bias(q, bias)
     if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    b, n, h, d = q.shape
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+        return attention_plain(q, k, v, bias), None
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:  # nothing to attend: no kernel
-        return out
+        return out, None
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes head dims {HEAD_DIMS}, got {d}")
+    if bias is None and q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"the attention kernel takes head dims {HEAD_DIMS}, got {q.shape[-1]}")
+    if bias is not None and not bias_kernel_takes(q):
+        raise ValueError(f"the biased attention kernel takes bfloat16 q, k, v, head dims "
+                         f"{BIAS_HEAD_DIMS} and at most {BIAS_MAX_N} tokens, got {q.dtype}, "
+                         f"D = {q.shape[-1]}, N = {q.shape[1]}")
     q, k, v = (t if _kernel_reads(t) else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
-    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    return out, ((q, k, v), [s for t in (q, k, v) for s in t.stride()[:3]])
+
+
+def _forward(q, k, v) -> torch.Tensor:
+    out, launch = _launch_inputs(q, k, v)
+    if launch is None:
+        return out
+    (q, k, v), strides = launch
+    b, n, h, d = q.shape
     status = _fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, b, n, h, d, _scale(d),
         int(q.dtype == torch.bfloat16), out.data_ptr(),
@@ -137,6 +216,23 @@ def _forward(q, k, v) -> torch.Tensor:
     )
     _build.check(status, "flash_attention")
     flash_attention.launches += 1
+    return out
+
+
+def _forward_bias(q, k, v, bias) -> torch.Tensor:
+    out, launch = _launch_inputs(q, k, v, bias)
+    if launch is None:
+        return out
+    (q, k, v), strides = launch
+    b, n, h, d = q.shape
+    bias = bias.detach().to(torch.float32).contiguous()
+    status = _bias_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, bias.data_ptr(), b, n, h, d,
+        bias.shape[0], _scale(d), out.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, "windowed_attention_bias")
+    flash_attention.bias_launches += 1
     return out
 
 
@@ -154,11 +250,32 @@ class _FlashAttention(torch.autograd.Function):
         return attention_backward(*ctx.saved_tensors, g)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+class _FlashAttentionBias(torch.autograd.Function):
+    """The biased kernel (or the plain version) forward; the recomputing
+    backward with the bias's gradient. Saves q, k, v and the bias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return _forward_bias(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        return attention_backward(q, k, v, g, bias)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor | None = None) -> torch.Tensor:
     """Fused attention over (B, N, H, D) q, k, v → contiguous (B, N, H, D)
     in their dtype, differentiable; the counterpart of the JAX package's
-    ``flash_attention`` (scale ``D^-1/2``; fold another scale into q)."""
-    return _FlashAttention.apply(q, k, v)
+    ``flash_attention`` (scale ``D^-1/2``; fold another scale into q). An
+    optional (G, H, N, N) ``bias`` is added to batch row b's scaled scores
+    as ``bias[b % G]`` (see the module note)."""
+    if bias is None:
+        return _FlashAttention.apply(q, k, v)
+    return _FlashAttentionBias.apply(q, k, v, bias)
 
 
 flash_attention.launches = 0
+flash_attention.bias_launches = 0

@@ -214,9 +214,13 @@ def _jax_factory_names():
 
 
 def test_check_model_name_accepts_all_eighteen():
+    """The JAX package's 18 names, plus the named set of models that exist
+    only in the port."""
     names = _jax_factory_names()
-    assert set(port_factory.MODEL_REGISTRY) == names and len(names) == 18
-    for name in names:
+    assert len(names) == 18 and not names & port_factory.PORT_ONLY_MODELS
+    assert port_factory.PORT_ONLY_MODELS == {"swin_base"}
+    assert set(port_factory.MODEL_REGISTRY) == names | port_factory.PORT_ONLY_MODELS
+    for name in names | port_factory.PORT_ONLY_MODELS:
         port_factory.check_model_name(name)
     with pytest.raises(KeyError, match="not yet ported"):
         port_factory.check_model_name("vit_base")

@@ -37,6 +37,7 @@ from daliid_tpu_torch.cli import train as port_train
 from daliid_tpu_torch.models import factory as port_factory
 from daliid_tpu_torch.models.factory import init_weights
 from daliid_tpu_torch.models.torch_port import params_from_jax, variables_from_jax
+from daliid_tpu_torch.models.swin import SwinBlock
 from daliid_tpu_torch.models.transreid_jpm import TransReIDJPM
 from daliid_tpu_torch.models.vit import REMAT_MODES, Block, ViTReID, check_remat
 
@@ -147,12 +148,14 @@ def test_port_remat_matches_jax_remat(name, remat):
 @pytest.mark.parametrize("name", sorted(port_factory.REMAT_MODELS))
 def test_factory_passes_remat_to_every_block(name):
     module = port_factory.get_model(name, img_size=(64, 32), remat="tuned").module
-    blocks = [m for m in module.modules() if isinstance(m, Block)]
+    blocks = [m for m in module.modules() if isinstance(m, (Block, SwinBlock))]
     assert blocks and all(b.remat == "tuned" for b in blocks)
 
 
 def test_remat_sets_and_refusals_match_jax(tmp_path):
-    assert port_factory.REMAT_MODELS == jax_factory.REMAT_MODELS
+    # the JAX package's set, plus the port-only models that take remat
+    assert port_factory.REMAT_MODELS - port_factory.PORT_ONLY_MODELS == jax_factory.REMAT_MODELS
+    assert port_factory.REMAT_MODELS & port_factory.PORT_ONLY_MODELS == {"swin_base"}
     assert REMAT_MODES == ("none", "full", "tuned")
     with pytest.raises(ValueError, match="remat"):
         remat_block_cls("everything")
