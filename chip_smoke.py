@@ -45,7 +45,7 @@ Phases, in order; any failed check exits non-zero and prints no result:
    epoch losses must be finite and the checkpoints written.
 9. K4 ``flash_attention`` against its plain version on the card (f32 within
    2e-5, bf16 within one bf16 ulp, at the JPM, ViT-B and vit_small shapes
-   and ragged small ones) and its backward (3e-5, f32).
+   and ragged small ones) and its backward (3e-5, f32; the kernels of 9b).
 9a. the biased windowed-attention kernel (``flash_attention`` with a bias,
     ``wattn_bias_mma``) against its plain version in bf16 at Swin-B's four
     stage shapes at batch 384, unshifted (G = 1) and shifted (G = windows),
@@ -58,6 +58,16 @@ Phases, in order; any failed check exits non-zero and prints no result:
     logged). ``chip_smoke.py --swin`` runs the build, phases 9, 9a and 11a,
     K4's and the biased kernel's timings and Swin-B's step under each remat
     mode, and prints the biased kernel's entry of the kernels line.
+9b. K4's backward kernels (``csrc/attention_grad.cu``: ``k4_grad_dq`` and
+    ``k4_grad_dkv``, ``wattn_grad_mma``) against ``attention_backward``: bf16
+    dq, dk, dv within one bf16 ulp at the JPM's, ViT-B's and Swin-B's four
+    stages' shapes (G = 1 and G = windows), dbias within 2^-16 of the sum of
+    |dS|, f32 within 3e-5, two calls bit-equal (the checks that
+    ``tests/test_torch_attention_grad_card.py`` imports). They are timed
+    beside their bounds, the plain backward and SDPA's forward + backward;
+    their launches are counted on the main path by phases 11 and 11a (one
+    backward a forward of each train step). ``chip_smoke.py --grad`` runs
+    the build, phase 9b, phases 11 and 11a and those timings.
 9b. ``conv_int8`` against its plain version on the card (``quantize_sym``,
     then im2col and one float64 product, or the depthwise taps summed in
     int32: exact integer sums, no cuDNN) at the zoo's convolution shapes at
@@ -885,9 +895,10 @@ def k4_compare(torch, got, want, dtype, what: str) -> float:
 
 def phase_k4(torch, dev):
     """K4 against its plain version, forward in f32 and bf16 at every shape of
-    ``K4_SHAPES``; the backward (the JAX VJP's, through the autograd
-    Function) against autograd through the plain version at the JPM trunk's
-    train shape in f32, within 3e-5. → (max |diff| forward, backward)."""
+    ``K4_SHAPES``; the backward (the f32 kernels of ``csrc/attention_grad.cu``,
+    through the autograd Function) against autograd through the plain
+    version at the JPM trunk's train shape in f32, within 3e-5. → (max
+    |diff| forward, backward)."""
     from daliid_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
     gen = torch.Generator(device=dev)
@@ -1032,6 +1043,9 @@ def phase_swin_train(torch, dev, root, counts):
           f"for {steps} steps and {mined} mining batches")
     check(launched["flash_attention"] == 0,
           f"the Swin-B train path launched the unbiased K4 {launched['flash_attention']} times")
+    check(launched["wattn_grad_mma"] == SWIN_PER_FORWARD * steps and launched["k4_grad"] == 0,
+          f"the Swin-B train path ran the biased backward {launched['wattn_grad_mma']} and the "
+          f"unbiased {launched['k4_grad']} times for {steps} steps")
     for key in ("loss", "center_loss", "proxy_loss"):
         check(np.isfinite(means[key]), f"Swin-B epoch {key} = {means[key]}")
     log(f"Swin-B train (bf16, remat {SWIN_REMAT}, {SWIN_IMG[0]}x{SWIN_IMG[1]}): {steps} steps of "
@@ -1158,6 +1172,8 @@ def phase_transformer_train(torch, dev, root, counts):
     check(launched["flash_attention"] == K4_PER_FORWARD["transreid_jpm"] * forwards,
           f"the JPM train path launched K4 {launched['flash_attention']} times for "
           f"{forwards} forwards")
+    check(launched["k4_grad"] == K4_PER_FORWARD["transreid_jpm"] * steps,
+          f"the JPM train path ran K4's backward {launched['k4_grad']} times for {steps} steps")
     check(launched["rank_counts"] > 0, "the JPM validation did not launch K2")
     for key in ("loss", "center_loss", "proxy_loss"):
         check(np.isfinite(means[key]), f"JPM epoch {key} = {means[key]}")
@@ -2597,8 +2613,8 @@ def _time_k4(torch, dev):
         # q, k, v read once and the output written once, 2 bytes each; QK^T and PV
         entries.append(_timing(what, ms, plain_ms, lib_ms, 4 * b * n * h * d * 2,
                                4 * b * h * n * n * d, "bf16", err))
-        # the K4 route's gradient, the JAX VJP's backward in plain f32 torch,
-        # as autograd calls it on the saved bf16 views
+        # the plain backward (the CPU's route; the card's kernels are timed
+        # in _time_k4_grad) on the saved bf16 views
         g_out = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         entries[-1]["backward_ms"] = cuda_ms(torch, lambda: attention_backward(q, k, v, g_out),
                                              reps=5, warmup=1)
@@ -2801,6 +2817,278 @@ def swin_main(torch) -> int:
     print(json.dumps({"kernels": [wattn]}), flush=True)
     print(json.dumps({"swin": {"card": card, "k4_ms": k4["ms"], "k4_max_abs_err": k4_err,
                                "launches": launched, "steps": steps}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------- phase 9b: K4's backward
+# The backward kernels' checks, here and in tests/test_torch_attention_grad_card.py
+# (which imports them). Shapes (B, N, H, D): the JPM trunk and its local
+# chunks at batch 384, ViT-B/16's 96-wide heads, one token, ragged ones;
+# Swin-B's four stages, each unshifted (G = 1) and shifted (G = windows), and
+# ragged biased ones; the f32 pair's shapes.
+GRAD_UNBIASED = K4_TRAIN_SHAPES + [(64, 129, 8, 96), (3, 1, 2, 32), (5, 70, 3, 96), (2, 97, 3, 32)]
+GRAD_BIASED = [(s, g) for s in SWIN_STAGES for g in (1, s[1])] + [
+    ((3, 2, 9, 2, 32), 2), ((2, 1, 64, 3, 32), 1), ((5, 3, 17, 1, 32), 3), ((7, 1, 1, 2, 32), 1)]
+GRAD_F32 = [(32, 211, 12, 64), (4, 70, 3, 96), (3, 1, 2, 32), (6, 53, 4, 32)]
+
+
+def grads(torch, q, k, v, g, bias=None) -> list:
+    """The gradients through the autograd Function, as training takes them
+    (dq, dk, dv, and dbias with a bias)."""
+    from daliid_tpu_torch.ops.flash_attention import flash_attention
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias) if t is not None]
+    flash_attention(*leaves[:3], leaves[3] if bias is not None else None).backward(g)
+    return [t.grad for t in leaves]
+
+
+def same_bits(torch, a, b) -> bool:
+    return all(torch.equal(x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32),
+                           y.view(torch.int16 if y.dtype == torch.bfloat16 else torch.int32))
+               for x, y in zip(a, b))
+
+
+def _bf16_grads_compare(torch, got, want, what: str) -> float:
+    """dq, dk, dv within one bf16 ulp of the larger magnitude of
+    ``attention_backward``'s bf16 result, or 2e-5 where that ulp is finer:
+    both round an f32 value once; near zero the two f32 values differ by
+    their summation orders, as the forward's check allows. → max |diff|."""
+    worst = 0.0
+    for name, a, w in zip("qkv", got, want):
+        check(a.shape == w.shape and a.dtype == w.dtype == torch.bfloat16 and a.is_contiguous(),
+              f"d{name} {tuple(a.shape)} {a.dtype} at {what}")
+        x, y = a.float(), w.float()
+        diff = (x - y).abs()
+        bad = int((diff > torch.clamp(bf16_ulp(torch, torch.maximum(x.abs(), y.abs())),
+                                      min=2e-5)).sum())
+        check(bad == 0, f"d{name} at {what}: {bad} elements beyond one bf16 ulp (max "
+                        f"{float(diff.max())})")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def check_unbiased(torch, dev, shape, seed: int = 19) -> float:
+    """The bf16 kernels against the plain backward at ``shape``: one ulp;
+    two calls bit-equal; one count a call. → largest |difference|."""
+    from daliid_tpu_torch.ops.flash_attention import attention_backward, flash_attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v = _qkv_views(torch, gen, dev, shape, torch.bfloat16)
+    g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    before = (flash_attention.launches, flash_attention.grad_launches)
+    got, again = grads(torch, q, k, v, g), grads(torch, q, k, v, g)
+    torch.cuda.synchronize()
+    counted = (flash_attention.launches - before[0], flash_attention.grad_launches - before[1])
+    check(counted == (2, 2), f"two calls at {shape} counted {counted} forwards and backwards")
+    check(same_bits(torch, got, again), f"two backward calls differ at {shape}")
+    return _bf16_grads_compare(torch, got, attention_backward(q, k, v, g), str(shape))
+
+
+def check_biased(torch, dev, stage, groups: int, seed: int = 20) -> tuple:
+    """The biased kernel against the plain backward at a Swin stage (images,
+    windows, N, H, D) with G = ``groups``: dq, dk, dv one ulp; dbias (f32)
+    within 2^-16 of the sum over the images of |dS| elementwise, plus 1e-30
+    (the kernel adds each chunk's images in turn and then the chunks, the
+    plain version sums in a tree, and each order's rounding stays under 256
+    f32 roundings of that sum; a pair under the shift mask's -100 has P near
+    e^-100, a subnormal in one version and 0 or another subnormal in the
+    other); two calls bit-equal. → (largest |difference| of dq, dk, dv; of
+    dbias relative to its largest |entry|)."""
+    from daliid_tpu_torch.ops.flash_attention import attention_backward, flash_attention
+
+    b, nw, n, h, d = stage
+    what = f"{stage}, G = {groups}"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v, bias = _wattn_inputs(torch, gen, dev, stage, groups)
+    g = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    before = (flash_attention.bias_launches, flash_attention.bias_grad_launches)
+    got, again = grads(torch, q, k, v, g, bias), grads(torch, q, k, v, g, bias)
+    torch.cuda.synchronize()
+    counted = (flash_attention.bias_launches - before[0],
+               flash_attention.bias_grad_launches - before[1])
+    check(counted == (2, 2), f"two calls at {what} counted {counted} forwards and backwards")
+    check(same_bits(torch, got, again), f"two backward calls differ at {what}")
+    want = attention_backward(q, k, v, g, bias)
+    worst = _bf16_grads_compare(torch, got[:3], want[:3], what)
+    # the sum over the images of |dS|, in f32 as the plain version forms dS
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * d ** -0.5
+    p = torch.softmax((s.view(-1, groups, h, n, n) + bias).view(-1, h, n, n), dim=-1)
+    dp = torch.einsum("bnhd,bmhd->bhnm", g.float(), v.float())
+    scale = (p * (dp - (p * dp).sum(-1, keepdim=True))).abs().view(-1, groups, h, n, n).sum(0)
+    del s, p, dp
+    diff = (got[3] - want[3]).abs()
+    ratio = diff / (scale * 2.0 ** -16 + 1e-30)
+    check(got[3].dtype == torch.float32 and bool((ratio <= 1).all()),
+          f"dbias at {what}: {int((ratio > 1).sum())} entries beyond the tolerance, worst "
+          f"{float(ratio.max())} of it; max |diff| {float(diff.max())}")
+    return worst, float(diff.max() / want[3].abs().max())
+
+
+def check_f32(torch, dev, shape, seed: int = 21) -> float:
+    """The f32 kernels (CUDA cores) against the plain backward, within 3e-5
+    (the forward's backward check); two calls bit-equal. → largest
+    |difference|."""
+    from daliid_tpu_torch.ops.flash_attention import attention_backward
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v = _qkv_views(torch, gen, dev, shape, torch.float32)
+    g = torch.randn(shape, generator=gen, device=dev)
+    got = grads(torch, q, k, v, g)
+    check(same_bits(torch, got, grads(torch, q, k, v, g)), f"two f32 calls differ at {shape}")
+    worst = max(float((a - w).abs().max()) for a, w in zip(got, attention_backward(q, k, v, g)))
+    check(worst <= 3e-5, f"f32 backward at {shape}: max |diff| {worst}")
+    return worst
+
+
+def phase_k4_grad(torch, dev) -> dict:
+    """9b: the backward kernels against ``attention_backward`` at every shape
+    above. → the largest differences."""
+    worst = {"bf16": max(check_unbiased(torch, dev, shape) for shape in GRAD_UNBIASED)}
+    biased = [check_biased(torch, dev, stage, g) for stage, g in GRAD_BIASED]
+    worst["bias_bf16"] = max(b[0] for b in biased)
+    worst["dbias_relative"] = max(b[1] for b in biased)
+    worst["f32"] = max(check_f32(torch, dev, shape) for shape in GRAD_F32)
+    torch.cuda.empty_cache()
+    log(f"K4's backward kernels == attention_backward: {len(GRAD_UNBIASED)} unbiased bf16 shapes "
+        f"(max |diff| {worst['bf16']:.3g}), {len(biased)} biased (max |diff| "
+        f"{worst['bias_bf16']:.3g}, dbias {worst['dbias_relative']:.3g} of its largest entry), "
+        f"{len(GRAD_F32)} f32 (max |diff| {worst['f32']:.3g}); two calls bit-equal each")
+    return worst
+
+
+def _fa_module():
+    """``daliid_tpu_torch.ops.flash_attention``, the module (the package's
+    attribute of that name is the function)."""
+    import importlib
+
+    return importlib.import_module("daliid_tpu_torch.ops.flash_attention")
+
+
+def _sdpa_train_ms(torch, q, k, v, g, mask=None) -> float | None:
+    """SDPA's forward + backward on (B, H', N, D) leaves (the yardstick; the
+    port never calls it)."""
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    if mask is not None:
+        mask = mask.detach().requires_grad_()
+
+    def step():
+        for t in leaves + ([mask] if mask is not None else []):
+            t.grad = None
+        F.scaled_dot_product_attention(*leaves, attn_mask=mask).backward(g)
+
+    return _library_ms(torch, step, "F.scaled_dot_product_attention forward + backward "
+                                    f"{tuple(q.shape)}{' with a mask' if mask is not None else ''}")
+
+
+def _time_k4_grad(torch, dev) -> list:
+    """The unbiased backward at the JPM train shapes in bf16, on the qkv
+    views the model hands over: kernels, bound (q, k, v, dO read and dq, dk,
+    dv written once; five products of 2 N^2 D a row and head), the plain
+    backward, SDPA's forward + backward."""
+    fa = _fa_module()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    entries = []
+    for shape in K4_TRAIN_SHAPES:
+        b, n, h, d = shape
+        q, k, v = _qkv_views(torch, gen, dev, shape, torch.bfloat16)
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        ms = cuda_ms(torch, lambda: fa._backward(q, k, v, g), reps=20)
+        plain_ms = cuda_ms(torch, lambda: fa.attention_backward(q, k, v, g), reps=3, warmup=1)
+        lib_ms = _sdpa_train_ms(torch, *(t.transpose(1, 2) for t in (q, k, v, g)))
+        entries.append(_timing(f"B={b} N={n} H={h} D={d} bf16, q/k/v views of one qkv tensor",
+                               ms, plain_ms, lib_ms, 7 * b * n * h * d * 2,
+                               10 * b * h * n * n * d, "bf16", 0.0))
+        log(f"timing K4's backward at {shape}: {json.dumps(entries[-1])}")
+        del q, k, v, g
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _time_wattn_grad(torch, dev) -> list:
+    """The biased backward at Swin-B's four stages, batch 384, unshifted (G =
+    1) and shifted (G = windows): kernel and its dbias sum, bound (q, k, v,
+    dO, dq, dk, dv once in bf16, the bias and dbias once in f32), the plain
+    backward, and SDPA's forward + backward in the 4-d form (images, windows
+    x heads, N, D) with the bias as a mask whose gradient it takes."""
+    fa = _fa_module()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    entries = []
+    for stage in SWIN_STAGES:
+        b, nw, n, h, d = stage
+        for groups in (1, nw):
+            q, k, v, bias = _wattn_inputs(torch, gen, dev, stage, groups)
+            g = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+            ms = cuda_ms(torch, lambda: fa._backward_bias(q, k, v, g, bias), reps=10)
+            plain_ms = cuda_ms(torch, lambda: fa.attention_backward(q, k, v, g, bias), reps=3,
+                               warmup=1)
+            four = [t.reshape(b, nw, n, h, d).permute(0, 1, 3, 2, 4).reshape(b, nw * h, n, d)
+                    for t in (q, k, v, g)]
+            mask = bias.to(torch.bfloat16).expand(nw, h, n, n).reshape(1, nw * h, n, n)
+            lib_ms = _sdpa_train_ms(torch, *four[:3], four[3], mask)
+            rows = b * nw
+            entries.append(_timing(
+                f"images={b} windows={nw} N={n} H={h} D={d} G={groups} bf16", ms, plain_ms,
+                lib_ms, 7 * rows * n * h * d * 2 + 2 * groups * h * n * n * 4,
+                10 * rows * h * n * n * d, "bf16", 0.0))
+            log(f"timing the biased backward at {stage} G={groups}: {json.dumps(entries[-1])}")
+            del q, k, v, bias, g, four, mask
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _grad_entries(torch, dev, launches: dict, errs: dict) -> dict:
+    """The kernels line's entries of the backward: ``k4_grad`` timed at the
+    JPM trunk's shape (N = 53 under ``at_n53``), ``wattn_grad_mma`` at
+    Swin-B's first stage, shifted (the other forms under ``at_stages``)."""
+    k4 = _time_k4_grad(torch, dev)
+    wattn = _time_wattn_grad(torch, dev)
+    out = {"k4_grad": {"name": "k4_grad", "route": "cuda", **KERNELS["k4_grad"], **k4[0],
+                       "at_n53": k4[1], "max_abs_err": max(errs["bf16"], errs["f32"])},
+           "wattn_grad_mma": {"name": "wattn_grad_mma", "route": "cuda",
+                              **KERNELS["wattn_grad_mma"], **wattn[1],
+                              "at_stages": wattn[:1] + wattn[2:],
+                              "max_abs_err": errs["bias_bf16"]}}
+    for name, entry in out.items():
+        entry["launches"] = launches.get(name, 0)
+    return out
+
+
+def grad_main(torch) -> int:
+    """``chip_smoke.py --grad``: the build, phase 9b, the backward kernels'
+    timings, and phases 11 and 11a (the JPM's and Swin-B's epochs on the
+    main path), each counted from a fresh ``Counts``: the backward's
+    launches on the kernels line are theirs."""
+    card, dev, ptxas = phase_device(torch)
+    errs = phase_k4_grad(torch, dev)
+    root = make_train_dataset()
+    launches = {"k4_grad": phase_transformer_train(torch, dev, root, Counts())["k4_grad"],
+                "wattn_grad_mma": phase_swin_train(torch, dev, root, Counts())["wattn_grad_mma"]}
+    entries = _grad_entries(torch, dev, launches, errs)
+    for name, entry in entries.items():
+        entry["ptxas"] = {k: ptxas.get("attention_grad", {}).get(k) for k in PATH_KERNELS[name]}
+    k4, wattn = entries["k4_grad"], entries["wattn_grad_mma"]
+    stages = [wattn["at_stages"][0], wattn] + wattn["at_stages"][1:]  # stage 0 G=1, G=nW, ...
+    by_stage = [stages[2 * i:2 * i + 2] for i in range(4)]
+    per_step = {key: sum(((d + 1) // 2) * u[key] + (d // 2) * s[key]
+                         for d, (u, s) in zip((2, 2, 18, 2), by_stage))
+                for key in ("ms", "bound_ms", "plain_ms", "library_ms")
+                if all(e[key] is not None for e in stages)}
+    log(f"K4's backward in one JPM step of 384: 12 x N=211 + 4 x N=53 = "
+        f"{12 * k4['ms'] + 4 * k4['at_n53']['ms']:.3f} ms (bound "
+        f"{12 * k4['bound_ms'] + 4 * k4['at_n53']['bound_ms']:.3f} ms, plain "
+        f"{12 * k4['plain_ms'] + 4 * k4['at_n53']['plain_ms']:.3f} ms)")
+    log(f"the biased backward in one Swin-B step of 384 (each stage's unshifted and shifted "
+        f"blocks): {json.dumps(per_step)}")
+    print(json.dumps({"kernels": list(entries.values())}), flush=True)
+    print(json.dumps({"grad": {"card": card, "errors": errs, "launches": launches,
+                               "per_swin_step": per_step}}), flush=True)
     return 0
 
 
@@ -4440,6 +4728,8 @@ class Counts:
                          "fused_augment": (fused_augment, "launches"),
                          "flash_attention": (flash_attention, "launches"),
                          "wattn_bias_mma": (flash_attention, "bias_launches"),
+                         "k4_grad": (flash_attention, "grad_launches"),
+                         "wattn_grad_mma": (flash_attention, "bias_grad_launches"),
                          "conv_int8": (conv_int8, "launches")}
 
     def reset(self):
@@ -4471,6 +4761,20 @@ KERNELS = {
                        "replaces": "none: port only (Swin-B's windowed attention)",
                        "check": "bf16 one bf16 ulp (or 2e-5); backward (dbias included) "
                                 "f32 3e-5 of the largest gradient"},
+    # K4's backward: the JAX package's gradient is its custom VJP's _bwd,
+    # which XLA runs, so no Pallas kernel
+    "k4_grad": {"source": "daliid_tpu_torch/csrc/attention_grad.cu",
+                "replaces": "none: daliid_tpu/ops/flash_attention.py _bwd (XLA; no Pallas "
+                            "kernel)",
+                "check": "bf16 one bf16 ulp (or 2e-5) of attention_backward; f32 atol 3e-5; "
+                         "two calls bit-equal",
+                "library": "F.scaled_dot_product_attention forward + backward"},
+    "wattn_grad_mma": {"source": "daliid_tpu_torch/csrc/attention_grad.cu",
+                       "replaces": "none: port only (Swin-B's windowed attention's gradient)",
+                       "check": "bf16 one bf16 ulp (or 2e-5); dbias 2^-16 of the sum of |dS|; "
+                                "two calls bit-equal",
+                       "library": "F.scaled_dot_product_attention forward + backward, 4-d, "
+                                  "the bias as a mask with its gradient"},
     # a kernel of the port alone: the JAX package runs these convolutions
     # through XLA (lax.conv_general_dilated on int8), no Pallas kernel
     "conv_int8": {"source": "daliid_tpu_torch/csrc/conv_int8.cu",
@@ -4490,6 +4794,8 @@ PATH_KERNELS = {"rank_counts": ("rank_counts_kernel",),
                 "search_topk_f32": ("topk_pass1<0>", "topk_pass2"),
                 "flash_attention": ("attention_mma<64,8>", "attention_mma<64,4>"),
                 "wattn_bias_mma": ("wattn_bias_mma<32>",),
+                "k4_grad": ("k4_grad_dq<64>", "k4_grad_dkv<64>"),
+                "wattn_grad_mma": ("wattn_grad_mma<32>",),
                 # the bf16 path's kernels: the gathering implicit GEMM (1x1
                 # convolutions), the staged window (the stems and k x k), depthwise
                 "conv_int8": tuple(f"conv_wgmma<__nv_bfloat16,{bn},{staged},{nwg}>"
@@ -4516,6 +4822,8 @@ def main() -> int:
         return gang_child(torch, sys.argv[2])
     if sys.argv[1:2] == ["--swin"]:
         return swin_main(torch)
+    if sys.argv[1:2] == ["--grad"]:
+        return grad_main(torch)
     if sys.argv[1:2] == ["--compare"]:
         _, dev, _ = phase_device(torch)
         geos = {" ".join(key): geo for key, geo in conv_shapes(torch, dev).items()}
@@ -4535,6 +4843,7 @@ def main() -> int:
     k1_err = phase_k1(torch, dev)
     k4_err, k4_bwd_err = phase_k4(torch, dev)
     wattn_err, wattn_bwd = phase_wattn(torch, dev)
+    grad_errs = phase_k4_grad(torch, dev)
     shapes = conv_shapes(torch, dev)
     conv_err = phase_conv_int8(torch, dev, shapes)
     train_root = make_train_dataset()
@@ -4626,6 +4935,7 @@ def main() -> int:
     results["flash_attention"]["backward_max_abs_err"] = k4_bwd_err
     results["wattn_bias_mma"] = _wattn_entry(torch, dev, launches["wattn_bias_mma"], wattn_err,
                                              wattn_bwd)
+    results.update(_grad_entries(torch, dev, launches, grad_errs))
     for name, kernels in PATH_KERNELS.items():
         lib = Path(KERNELS[name]["source"]).stem
         results[name]["ptxas"] = {k: ptxas.get(lib, {}).get(k) for k in kernels}

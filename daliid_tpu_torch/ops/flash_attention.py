@@ -14,7 +14,8 @@ the input type. Its gradient is the JAX package's custom VJP: the forward
 saves q, k and v, not the probabilities (``_fwd`` ``:94``), and the backward
 (``_bwd`` ``:98-113``) recomputes P in plain f32 arithmetic and forms dV, dP,
 dS, dQ and dK. The JAX package runs that backward in XLA, outside any Pallas
-kernel, so here it is plain PyTorch (:func:`attention_backward`) too.
+kernel; here its plain PyTorch version is :func:`attention_backward`, and
+the card runs kernels of the port's own (below).
 
 Kernel note (``csrc/flash_attention.cu``, replaces the TPU kernel above):
 one block of 4 or 8 warps, 16 query rows each, per (batch row, head, query
@@ -51,6 +52,19 @@ biased forward is a kernel of its own (``wattn_bias_mma`` in
 ``csrc/flash_attention.cu``: bf16, D = 32, N <= 64, one block a
 window and head), so the unbiased kernel and its launches are as they were;
 its launches count in ``flash_attention.bias_launches``.
+
+The backward of both autograd Functions is hand-written CUDA too
+(``csrc/attention_grad.cu``, a library of its own; it replaces no TPU kernel:
+the JAX package's backward is XLA). On CPU tensors it is
+:func:`attention_backward`; on CUDA tensors the wrapper launches the kernels
+or raises, for every call the forward kernels take. Unbiased: ``k4_grad_dq``
+(dQ and the rows' log-sum-exp and delta, f32 scratch) then ``k4_grad_dkv``
+(dK and dV), in bf16 on the tensor cores with P and dS entering their
+products as two bf16 parts, or in f32 on the CUDA cores (checks); biased:
+``wattn_grad_mma``, whose blocks each walk a chunk of one window's images and
+write a partial sum of dS, summed here into ``dbias``. No float atomics:
+two calls give the same bits. One count a backward call:
+``flash_attention.grad_launches`` and ``flash_attention.bias_grad_launches``.
 """
 
 from __future__ import annotations
@@ -71,6 +85,16 @@ BIAS_HEAD_DIMS = (32,)
 BIAS_MAX_N = 64
 BIAS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 9 + [ctypes.c_void_p]
                  + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 2)
+# the backward's C entry points: q, k, v, dO, 12 strides, B, N, H, D, scale,
+# is_bf16, dq, dk, dv, lse, delta, stream; and with the bias: q, k, v, dO, 12
+# strides, bias, B, N, H, D, G, chunks, scale, dq, dk, dv, dbias partials, stream
+GRAD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 6)
+BIAS_GRAD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
+                      + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_void_p] * 5)
+# the biased backward's blocks a call, about: (window, head) pairs times chunks
+# of images, each chunk's dbias summed in a partial of its own
+BIAS_GRAD_BLOCKS = 1024
 
 
 def _scale(d: int) -> float:
@@ -190,6 +214,14 @@ def _launch_inputs(q, k, v, bias=None):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:  # nothing to attend: no kernel
         return out, None
+    return out, _kernel_views(q, bias, q, k, v)
+
+
+def _kernel_views(q, bias, *ts):
+    """Raise where no kernel takes the call (a device other than CUDA, a head
+    dim, or with a bias a type or shape, that has no kernel); else → (views,
+    strides): each of ``ts`` as it is or, where the kernel cannot read it, a
+    copy, and their batch, token and head strides."""
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
     if bias is None and q.shape[-1] not in HEAD_DIMS:
@@ -198,9 +230,9 @@ def _launch_inputs(q, k, v, bias=None):
         raise ValueError(f"the biased attention kernel takes bfloat16 q, k, v, head dims "
                          f"{BIAS_HEAD_DIMS} and at most {BIAS_MAX_N} tokens, got {q.dtype}, "
                          f"D = {q.shape[-1]}, N = {q.shape[1]}")
-    q, k, v = (t if _kernel_reads(t) else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
-    return out, ((q, k, v), [s for t in (q, k, v) for s in t.stride()[:3]])
+    ts = tuple(t if _kernel_reads(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in ts)
+    return ts, [s for t in ts for s in t.stride()[:3]]
 
 
 def _forward(q, k, v) -> torch.Tensor:
@@ -236,9 +268,98 @@ def _forward_bias(q, k, v, bias) -> torch.Tensor:
     return out
 
 
+def _grad_fn(name: str, argtypes: list):
+    fn = getattr(_build.load("attention_grad"), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _grad_launch_inputs(q, k, v, g, bias=None):
+    """The checks both backward wrappers share. → ``(grads, None)``: the
+    plain version's on the CPU, or empty gradients where there is nothing
+    to attend; else ``(grads, ((q, k, v, g), strides))`` for a launch into
+    the allocated contiguous (dq, dk, dv)."""
+    _check(q, k, v)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"the output's gradient must be {tuple(q.shape)} {q.dtype} on "
+                         f"{q.device} as q, got {tuple(g.shape)} {g.dtype} on {g.device}")
+    if bias is not None:
+        _check_bias(q, bias)
+    if q.device.type == "cpu":
+        return attention_backward(q, k, v, g, bias), None
+    grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    if q.numel() == 0:  # nothing attended: no kernel
+        return grads + (() if bias is None else (torch.zeros_like(bias),)), None
+    return grads, _kernel_views(q, bias, q, k, v, g)
+
+
+def _backward(q, k, v, g):
+    """→ (dq, dk, dv) of attention over (B, N, H, D) q, k, v for the output's
+    gradient ``g``: two kernel launches on the card."""
+    grads, launch = _grad_launch_inputs(q, k, v, g)
+    if launch is not None:
+        _launch_grad(*launch, grads)
+    return grads
+
+
+def _launch_grad(views, strides, grads) -> None:
+    """Launch the unbiased backward over ``views`` (q, k, v, dO) into
+    ``grads`` (dq, dk, dv) and count it."""
+    q, k, v, g = views
+    b, n, h, d = q.shape
+    stats = torch.empty((2, b, h, n), dtype=torch.float32, device=q.device)  # lse, delta
+    status = _grad_fn("attention_grad", GRAD_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), *strides, b, n, h, d,
+        _scale(d), int(q.dtype == torch.bfloat16), *(t.data_ptr() for t in grads),
+        stats[0].data_ptr(), stats[1].data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, "attention_grad")
+    flash_attention.grad_launches += 1
+
+
+def bias_grad_chunks(images: int, pairs: int) -> int:
+    """Chunks of an image set the biased backward cuts each of its ``pairs``
+    (window, head) pairs into: about ``BIAS_GRAD_BLOCKS`` blocks in all, each
+    chunk ceil(images / chunks) images and none empty."""
+    chunks = max(1, min(images, -(-BIAS_GRAD_BLOCKS // pairs)))
+    return -(-images // -(-images // chunks))
+
+
+def _backward_bias(q, k, v, g, bias):
+    """→ (dq, dk, dv, dbias) of the biased attention: one kernel launch on
+    the card, then its partials of dbias summed over the chunks."""
+    grads, launch = _grad_launch_inputs(q, k, v, g, bias)
+    if launch is None:
+        return grads
+    return grads + (_launch_bias_grad(*launch, bias, grads),)
+
+
+def _launch_bias_grad(views, strides, bias, grads) -> torch.Tensor:
+    """Launch the biased backward over ``views`` (q, k, v, dO) into
+    ``grads`` (dq, dk, dv), count it, → dbias: its partials summed."""
+    q, k, v, g = views
+    b, n, h, d = q.shape
+    groups = bias.shape[0]
+    chunks = bias_grad_chunks(b // groups, groups * h)
+    bias32 = bias.detach().to(torch.float32).contiguous()
+    partial = torch.empty((chunks, groups, h, n, n), dtype=torch.float32, device=q.device)
+    status = _grad_fn("windowed_attention_bias_grad", BIAS_GRAD_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), *strides, bias32.data_ptr(),
+        b, n, h, d, groups, chunks, _scale(d), *(t.data_ptr() for t in grads),
+        partial.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, "windowed_attention_bias_grad")
+    flash_attention.bias_grad_launches += 1
+    return partial.sum(dim=0).to(bias.dtype)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The kernel (or, on the CPU, the plain version) forward; the JAX VJP's
-    recomputing backward. Saves q, k and v, not P."""
+    """The kernel (or, on the CPU, the plain version) forward and backward;
+    the backward recomputes P, as the JAX VJP's does. Saves q, k and v, not
+    P."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -247,7 +368,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return attention_backward(*ctx.saved_tensors, g)
+        return _backward(*ctx.saved_tensors, g)
 
 
 class _FlashAttentionBias(torch.autograd.Function):
@@ -262,7 +383,7 @@ class _FlashAttentionBias(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias = ctx.saved_tensors
-        return attention_backward(q, k, v, g, bias)
+        return _backward_bias(q, k, v, g, bias)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -279,3 +400,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention.bias_launches = 0
+flash_attention.grad_launches = 0
+flash_attention.bias_grad_launches = 0
