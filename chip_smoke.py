@@ -1,17 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (``daliid_tpu_torch``) on one GPU.
+"""Drive the PyTorch/CUDA port (``daliid_tpu_torch``) on one GPU: hold every
+hand-written kernel against its plain version, drive the main path with the
+kernels' launch counters and check that they rose, and time each kernel
+beside its plain version, a library yardstick and its bound.
 
-Phases, in order; any failed check exits non-zero and prints no result:
+Run from the repository root::
+
+    python3 chip_smoke.py                        # everything below
+    python3 chip_smoke.py k4_grad wattn_grad_mma # the named KERNELS entries
+    python3 chip_smoke.py --compare <dir>        # kernel times against another tree
+
+With names, it runs the build (phase 1), the named kernels' check phases,
+the main-path phases that launch them (``KERNELS[name]["path"]``) and
+their timings; every check of those phases holds. Any failed check exits
+non-zero and prints no result. The kernels, the synthetic sets, the saved
+index and the checkpoints go under ``build/``. Phases of a full run, in
+order:
 
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
    build every ``daliid_tpu_torch/csrc/*.cu`` with nvcc (one process per
    source, in parallel) and print each kernel's registers, static shared
    memory and spills from ``-Xptxas=-v``; check that ``cuobjdump -sass`` of
    conv_int8's library shows warpgroup MMA (IGMMA) in every implicit-GEMM
-   kernel; build the native JPEG loader
-   (``g++``, libjpeg) and print which decoder the host path takes, with the
-   compiler's message if the build failed; generate the synthetic set (100
-   identities).
+   kernel; build the native JPEG loader (``g++``, libjpeg) and print which
+   decoder the host path takes, with the compiler's message if the build
+   failed; generate the synthetic set (100 identities) and the train set.
 2. K2 ``rank_counts`` against its plain version on the card: random and
    tie-fuzzed distances, ragged and odd G, the evaluate path's shape, Q=64
    G=5,000 with P=4,096 all valid (many passes of sorted keys), rows whose
@@ -20,16 +33,6 @@ Phases, in order; any failed check exits non-zero and prints no result:
 3. K3 ``search_topk`` against its plain version on the card: SQ8 bit-exact,
    f32 values within 1e-5 relative with equal index sets; k in {1, 10, 64};
    num_real < G; the serve path's shape.
-4. serve: ResNet-50 at 256x128, ``feature=both``, bf16, batch 64, seeded
-   random weights; ``cli.serve.main`` in-process with ``--index_quantize
-   int8``; enroll the gallery and search the query split by ``paths`` over
-   TCP, check a search by ``embeddings`` against the plain index on the
-   CPU, ``stats``, ``shutdown``. The SQ8 K3 counter must rise.
-5. search: ``cli.search.main`` with the default f32 index. The f32 K3
-   counter must rise.
-6. evaluate: ``cli.evaluate.main`` on the same set. The K2 counter must
-   rise; the CMC equals ``evaluate_rank_numpy`` on the same distance matrix
-   exactly and mAP within 1e-12 (float64 summation order).
 7. K1 ``fused_augment`` against its plain version on the card: random
    uint8 batches at the train shape (384, 256, 128, 3) and at (3, 32, 16)
    and (2, 37, 19), pad 10 and 4, and (2, 512, 256), whose bands overflow
@@ -37,12 +40,6 @@ Phases, in order; any failed check exits non-zero and prints no result:
    rectangles touching each border; f32 within 2e-5, bf16 within one bf16
    ulp (or 2e-5 where that ulp is finer); two launches on the same inputs
    must give the same bits.
-8. train: ``cli.train.main`` in-process: ResNet-50 at 256x128, bf16,
-   ``--kind_of_transform 1``, P16 K12 (384 images a step), 2 epochs with
-   ``--eval_freq 1`` on a synthetic set of 32 identities x 12 train images
-   with turbulence copies (4 gallery, 2 query each). The K1 counter must
-   equal the number of steps (4), the K2 counter must rise (validation), the
-   epoch losses must be finite and the checkpoints written.
 9. K4 ``flash_attention`` against its plain version on the card (f32 within
    2e-5, bf16 within one bf16 ulp, at the JPM, ViT-B and vit_small shapes
    and ragged small ones) and its backward (3e-5, f32; the kernels of 9b).
@@ -52,23 +49,16 @@ Phases, in order; any failed check exits non-zero and prints no result:
     and ragged small cases, within one bf16 ulp; its plain backward with
     ``dbias`` against autograd in f32; Swin's other route
     (``swin.window_sdpa``, one 4-d ``scaled_dot_product_attention`` call)
-    in f32, values and gradients. Its launches are counted in phase 11a
-    and it is timed later beside its bound, its plain version, the model's
-    SDPA route and the fastest single SDPA call (the backend PyTorch picks
-    logged). ``chip_smoke.py --swin`` runs the build, phases 9, 9a and 11a,
-    K4's and the biased kernel's timings and Swin-B's step under each remat
-    mode, and prints the biased kernel's entry of the kernels line.
+    in f32, values and gradients.
 9b. K4's backward kernels (``csrc/attention_grad.cu``: ``k4_grad_dq`` and
     ``k4_grad_dkv``, ``wattn_grad_mma``) against ``attention_backward``: bf16
     dq, dk, dv within one bf16 ulp at the JPM's, ViT-B's and Swin-B's four
     stages' shapes (G = 1 and G = windows), dbias within 2^-16 of the sum of
     |dS|, f32 within 3e-5, two calls bit-equal (the checks that
-    ``tests/test_torch_attention_grad_card.py`` imports). They are timed
-    beside their bounds, the plain backward and SDPA's forward + backward;
-    their launches are counted on the main path by phases 11 and 11a (one
-    backward a forward of each train step). ``chip_smoke.py --grad`` runs
-    the build, phase 9b, phases 11 and 11a and those timings.
-9b. ``conv_int8`` against its plain version on the card (``quantize_sym``,
+    ``tests/test_torch_attention_grad_card.py`` imports). Their launches are
+    counted on the main path by phases 11 and 11a (one backward a forward
+    of each train step).
+9c. ``conv_int8`` against its plain version on the card (``quantize_sym``,
     then im2col and one float64 product, or the depthwise taps summed in
     int32: exact integer sums, no cuDNN) at the zoo's convolution shapes at
     batch 512, read from the models' forwards at 256x128: ResNet-50's 7x7/2
@@ -81,17 +71,41 @@ Phases, in order; any failed check exits non-zero and prints no result:
     with exact half-way points planted) and int8 inputs; int32, f32 and bf16
     outputs, with and without bias, all bit-equal. Then the quantize alone
     on every bf16 value and every f32 bit pattern but NaN at three scales.
+4. serve: ResNet-50 at 256x128, ``feature=both``, bf16, batch 64, seeded
+   random weights; ``cli.serve.main`` in-process with ``--index_quantize
+   int8``; enroll the gallery and search the query split by ``paths`` over
+   TCP, check a search by ``embeddings`` against the plain index on the
+   CPU, ``stats``, ``shutdown``. The SQ8 K3 counter must rise.
+5. search: ``cli.search.main`` with the default f32 index. The f32 K3
+   counter must rise.
+6. evaluate: ``cli.evaluate.main`` on the same set. The K2 counter must
+   rise; the CMC equals ``evaluate_rank_numpy`` on the same distance matrix
+   exactly and mAP within 1e-12 (float64 summation order).
+8. train: ``cli.train.main`` in-process: ResNet-50 at 256x128, bf16,
+   ``--kind_of_transform 1``, P16 K12 (384 images a step), 2 epochs with
+   ``--eval_freq 1`` on a synthetic set of 32 identities x 12 train images
+   with turbulence copies (4 gallery, 2 query each). The K1 counter must
+   equal the number of steps (4), the K2 counter must rise (validation), the
+   epoch losses must be finite and the checkpoints written. The native
+   loader's decode of the first train batch against PIL's: mean |diff| <
+   1.5, 99th percentile <= 6.
 10. transformer evaluate: JPM and ViT-B through ``load_bundle(...,
     use_fused_attention=True)``, K4 16 and 12 launches a forward; the K4 and
     SDPA routes agree within 1e-3 in f32.
-11. transformer train: a JPM ``Trainer`` epoch with K4, then the train CLI
-    with ``--model_name transreid_jpm`` on SDPA.
+11. transformer train: a JPM ``Trainer`` epoch with K4 (16 forward and 16
+    backward launches a step); on its weights and first batch, one forward
+    and backward under remat ``none`` (twice), ``full`` and ``tuned`` from
+    one drop-path generator state, cuDNN's deterministic algorithms on:
+    every gradient and the generator's state after it bit-equal to
+    ``none``'s, K4 16 launches and 32 under ``full``; a ``profile_to`` trace
+    of one ``tuned`` step whose file names the ``phase`` span around it;
+    then the train CLI with ``--model_name transreid_jpm`` on SDPA.
 11a. Swin-B train as the ``swin_base.train-market`` cell runs it:
     ``build_model_pair('swin_base')`` at 384x128, bf16, remat ``none``, and
     a ``Trainer`` epoch of P16 K12 paired steps (384 images) with its mining
     at batch 512: the biased kernel (``wattn_bias_mma``, its own counter)
-    launched 24 times a forward, each step's and each mining batch's; K1
-    once a step; the unbiased K4 never.
+    launched 24 times a forward, each step's and each mining batch's, and
+    its backward 24 times a step; K1 once a step; the unbiased K4 never.
 12. evaluate-fusion: ``cli.evaluate_fusion.main`` on two ResNet-50
     checkpoints written from seeds 21 and 22 (bf16, 256x128), with the ROC
     dump: 7 rankings (concat, clean, distortion, average, magnitude under
@@ -118,7 +132,9 @@ Phases, in order; any failed check exits non-zero and prints no result:
     per training identity.
 18. ``cli.evaluate.main --rerank`` with ResNet-50: K2 once; the re-ranked
     distmat, computed on the card, equals the port's ``re_ranking`` on the
-    CPU over the same three distance matrices within 1e-5.
+    CPU over the same three distance matrices within 1e-5. Then
+    ``re_ranking`` on the card at Market-1501's protocol shape (Q=3,368,
+    G=15,913): a finite result of that shape.
 19. ``cli.search.main --rerank --rerank_depth 64 --index_quantize int8``
     (the shortlist fetched by K3 SQ8 at k = 64), and a serve batch mixing
     re-ranked requests at depths 64 and 32 with plain topk 10 and 5: three
@@ -155,28 +171,23 @@ Phases, in order; any failed check exits non-zero and prints no result:
     20b. two ranks on the one card (gloo), one gang for all of: ``evaluate
     --multihost --sharded_eval`` in bf16 and with ``--quantize int8``,
     ``search`` at k = 10 on SQ8 and on f32, the first train step's summed
-    gradient (before Adam), one ``train`` epoch of 2 steps at P16 K12 with
-    its (sharded) validation, and the timed step. Each
-    command's K1 / K2 / K3 / conv_int8 counts print on a line of their own,
-    and each must rise on both ranks. The same commands in this process at
-    half the batch (a rank's forward batch): every CMC equal, mAP within
-    1e-12, search ids equal, SQ8 scores bit-exact, embeddings within cosine
-    0.999 (int8 0.998), both ranks' answers equal; the first step's (f32)
-    gradient within ``GRAD_L2_TOL`` in relative L2 norm of one process's
-    and its BN running-statistics updates within ``BN_STEP_TOL`` of the
-    largest of each (the floor, one process against itself with native BN
-    kernels, printed beside it); after the bf16 epoch the parameters within
-    Adam's reach of two steps, the BN running statistics within
-    ``BN_EPOCH_TOL`` in relative L2 norm, Adam's step counts equal and its
-    moments' norms within ``MOMENT_NORM_FACTOR``. A third process times the
-    plain step and, after joining a 1-rank NCCL gang, holds the gang's
-    fused BN (``models/norm.py::_GangBatchNorm``) against its eager version
-    and against one process's cuDNN BN at ResNet-50's layer1 shape, forward
-    and backward, and times all three and the gang's step; the 2-rank gang
-    times
-    its step and a gradient-sized (94 MB) all-reduce on gloo (a 1-rank
-    NCCL all-reduce exchanges nothing, so NCCL's is not measurable on one
-    card).
+    gradient (before Adam) and one ``train`` epoch of 2 steps at P16 K12
+    with its (sharded) validation. Each command's K1 / K2 / K3 / conv_int8
+    counts print on a line of their own, and each must rise on both ranks.
+    The same commands in this process at half the batch (a rank's forward
+    batch): every CMC equal, mAP within 1e-12, search ids equal, SQ8 scores
+    bit-exact, embeddings within cosine 0.999 (int8 0.998), both ranks'
+    answers equal; the first step's (f32) gradient within ``GRAD_L2_TOL``
+    in relative L2 norm of one process's and its BN running-statistics
+    updates within ``BN_STEP_TOL`` of the largest of each (the floor, one
+    process against itself with native BN kernels, printed beside it);
+    after the bf16 epoch the parameters within Adam's reach of two steps,
+    the BN running statistics within ``BN_EPOCH_TOL`` in relative L2 norm,
+    Adam's step counts equal and its moments' norms within
+    ``MOMENT_NORM_FACTOR``. A third process joins a 1-rank NCCL gang and
+    holds the gang's fused BN (``models/norm.py::_GangBatchNorm``) against
+    its eager version and against one process's cuDNN BN at ResNet-50's
+    layer1 shape, forward and backward.
     20c. ``evaluate_rank_sharded`` on one process at MSMT17's protocol shape
     (Q 11,659, G 82,161, 2048-d rows of +-1 at 64 coordinates, so every
     distance is exact whatever the product's order) with ``query_chunk``
@@ -196,14 +207,7 @@ Phases, in order; any failed check exits non-zero and prints no result:
     no train step takes and ``margin_softmax_loss`` for the four heads at a
     PK batch of 384 x 2048 on the card against the same call on the CPU
     (values within 1e-5 relative, gradients within rtol 1e-4 plus 1e-6 of
-    the largest entry). The remat step itself is timed with the JPM step
-    (23): under ``none`` (twice), ``full`` and ``tuned`` on the same
-    weights, batch and drop-path generator state, every gradient and the
-    generator's state after it bit-equal to ``none``'s (cuDNN's
-    deterministic algorithms on), K4 16 launches a forward and backward and
-    32 under ``full``; then each mode's step ms, img/s and peak memory, and
-    (21e) a ``profile_to`` trace of one ``tuned`` step whose file names the
-    ``phase`` span around it.
+    the largest entry).
 22. int8 extraction, the float phases above having launched no conv_int8:
     ``cli.evaluate.main --quantize int8`` with ResNet-50 (K2 once,
     conv_int8 launched, the CMC equal to the oracle), again with
@@ -211,7 +215,9 @@ Phases, in order; any failed check exits non-zero and prints no result:
     CPU's scales: each of the card's 53 int8 convolutions equal to the plain
     version on its own input, the embeddings against the CPU's int8 path
     (cosine >= 0.998, max |diff| <= 5e-2 of the largest entry; cosines with
-    the f32 and bf16 embeddings printed); ``cli.search.main --quantize int8``
+    the f32 and bf16 embeddings printed); a ``torch.profiler`` pass over the
+    int8 ResNet-50 forward at batch 512: conv_int8 53 launches, no
+    ``aten::round`` / ``aten::clamp``; ``cli.search.main --quantize int8``
     and a serve daemon with ``--quantize int8 --index_quantize int8``
     (enroll and search by path); ``evaluate-fusion`` and
     ``evaluate-ensemble --quantize int8`` (12 and 2 calibrations, K2 7 and
@@ -220,63 +226,42 @@ Phases, in order; any failed check exits non-zero and prints no result:
     embedding, 48 ``torch._int_mm`` Dense layers a forward); ``cli.train.main
     --mining_quantize int8``, one epoch of 2 steps (K1 twice, conv_int8 in
     mining and not in the two validations, finite losses).
-23. timings with CUDA events after warm-up: K3 SQ8 and f32 at Q=64,
-    D=2048, k=10 over 2^20 gallery rows (the f32 bound is the tensor
-    cores': bytes, or 3 TF32 products a multiply-add), and at the serve
-    path's shape; K2 at the Market-1501 protocol shape (Q=3368, G=15913) at
-    P=48, at the evaluate path's P (``queried_positives_bound``) and, kernel
-    only, at ``max_positives_bound``'s P=2800, and at MSMT17's (Q=11659,
-    G=82161, a 3.83 GB distmat) at P=64 and 256 with ``ignore_camera``
-    both ways, each against its plain version (counts equal; the plain
-    version timed once on the host clock); K1 at the train shape; K4 and SDPA at the
-    JPM train shapes in bf16, with the attention backward (plain f32 torch)
-    alone; one ResNet-50 train step split into augment, forward+backward and
-    Adam+EMA, with img/s, peak device memory, the host decode time of one
-    batch (with 1, 4 and the trainer's default number of threads) and the
-    train loop's steady rate with decode on its prefetch thread
-    (``PIPELINE_BATCHES`` steps, timed after the first batch has arrived),
-    each with the native loader and with PIL
-    and a ``torch.profiler`` view of three steps (the device's busy time,
-    its share of the wall time, the largest kernels); ResNet-50 extraction
-    img/s at batch 64 and 512 in bf16; the JPM train step and extraction at
-    512 with K4 and with SDPA, the step under each remat mode (21a);
-    ``magnitude_weighted_distmat`` and the 7
-    rankings of evaluate-fusion at Market-1501's protocol shape; the four
-    zoo families' extraction img/s and peak memory at batch 512; one
-    ``densenet121`` train step (ms, img/s, peak memory); ``re_ranking`` at
-    Market-1501's shape (ms, peak memory above its inputs); the re-ranked
-    search of 200 probes over 400 SQ8 rows at depth 64; conv_int8 at each
-    shape of 9b on the bf16 input (bf16 out) against its bound, its plain
-    version, the ``quantize_sym`` + im2col + ``torch._int_mm`` route
-    (groups = 1), cuDNN's bf16 convolution and itself on the int8 input; a
-    ``torch.profiler`` pass over the int8 ResNet-50 forward at batch 512
-    (conv_int8's device time against the rest; 53 launches; no
-    ``aten::round`` / ``aten::clamp``); int8 against bf16 extraction at
-    batch 512 (ResNet-50, the four zoo families, ViT-B with K4; peak
-    memory).
+23. kernel timings with CUDA events after warm-up, each beside its plain
+    version, a library yardstick and its bound (``_timing``: the count of
+    ``KERNELS[name]["count"]``, ``benchmark.roofline``'s for every kernel
+    the benchmark counts): K2 at the Market-1501 protocol shape (Q=3368,
+    G=15913) at P=48, at the evaluate path's P (``queried_positives_bound``)
+    and, kernel only, at ``max_positives_bound``'s P=2800, and at MSMT17's
+    (Q=11659, G=82161, a 3.83 GB distmat) at P=64 and 256 with
+    ``ignore_camera`` both ways (the plain version timed once on the host
+    clock); K3 SQ8 and f32 at Q=64, D=2048, k=10 over 2^20 gallery rows
+    (the f32 bound is the tensor cores': bytes, or 3 TF32 products a
+    multiply-add), and at the serve path's shape; K1 at the train shape;
+    K4 and SDPA at the JPM train shapes in bf16, with the plain backward;
+    the biased kernel at Swin-B's four stages beside the SDPA forms; K4's
+    backward kernels at the JPM's and Swin-B's shapes beside SDPA's forward
+    + backward, with their sums over one step; conv_int8 at each shape of
+    9c on the bf16 input (bf16 out) against the ``quantize_sym`` + im2col +
+    ``torch._int_mm`` route (groups = 1), cuDNN's bf16 convolution and
+    itself on the int8 input.
 
-Then one JSON line ``{"kernels": [...]}`` and, last, the device line
-``{"ok": true, "device": {...}}``. Counts of launches are set to 0 just
-before each of the serve, search, evaluate, train, transformer evaluate,
-transformer train, Swin-B train, fusion, ensemble, multi-head, k > 64 search, zoo
-evaluate (each family), densenet train, re-ranked evaluate, re-ranked
-search, each step of the datasets phase, each int8 phase, each command
-of phase 20's processes (which print theirs) and each step of phase 21
-and read just after.
+Then one JSON line ``{"kernels": [...]}`` (each kernel's check, errors,
+times, bound, ptxas report and launches on the main path, the sum over the
+phases run) and, last, the device line ``{"ok": true, "device": {...}}``.
+Each main-path phase sets the launch counters to 0 before each of its CLI
+runs or steps and reads them after; phase 20's processes print theirs.
 
-Run from the repository root: ``python3 chip_smoke.py``. The kernels,
-the synthetic sets, the saved index and the checkpoints go under ``build/``.
-``python3 chip_smoke.py --compare <dir>`` instead times K2 (Market-like
-table, P = 48, the evaluate path's P, ``max_positives_bound``'s P), K1
-(the train shape, bf16), ``_QuantConv(conv, absmax)(x)`` on a bf16 batch
-of 512 at each conv shape of 9b and the int8 ResNet-50 forward at batch 512
-of this tree and of the tree unpacked at ``<dir>`` (for example the parent
-commit's ``git archive``) on one card, in turns: parent, this, this,
-parent.
+``--compare <dir>`` instead times K2 (Market-like table, P = 48, the
+evaluate path's P, ``max_positives_bound``'s P), K1 (the train shape,
+bf16), ``_QuantConv(conv, absmax)(x)`` on a bf16 batch of 512 at each conv
+shape of 9c and the int8 ResNet-50 forward at batch 512 of this tree and of
+the tree unpacked at ``<dir>`` (for example the parent commit's ``git
+archive``) on one card, in turns: parent, this, this, parent.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -286,6 +271,17 @@ import sys
 import threading
 import time
 from pathlib import Path
+
+from benchmark.roofline import (
+    HBM_BYTES_PER_S,
+    k1_augment,
+    k2_rank_counts,
+    k3_sq8,
+    k4_attention,
+    least_seconds,
+)
+from benchmark.roofline.attention_grad import k4_grad, wattn_grad
+from benchmark.roofline.window_attention import wattn_bias
 
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
@@ -299,14 +295,10 @@ COMPUTE_DTYPE = "bfloat16"
 # 2 batches an epoch, 2 epochs
 TRAIN_IDS, TRAIN_IMGS, P, K, EPOCHS = 32, 12, 16, 12, 2
 TRAIN_STEPS = EPOCHS * (TRAIN_IDS // P)
-# batches through the prefetching train loop for its steady rate (even: two an epoch)
-PIPELINE_BATCHES = 10
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12,
-            # K3's f32 mode on the tensor cores: three TF32 products a multiply-add
-            # at 495 TFLOP/s (as much as its six bf16 piece products at 989)
-            "tf32x3": 495e12 / 3}
+# K3's f32 mode on the tensor cores: three TF32 products a multiply-add at
+# 495 TFLOP/s (as much as its six bf16 piece products at 989); the benchmark
+# times no f32 search, so benchmark.roofline has no such peak
+TF32X3_OPS_PER_S = 495e12 / 3
 # K4 against its plain version: TransReID-JPM's train shapes (the trunk and
 # b1 at 211 tokens, the shared b2 at 1 + 52), ViT-B/16's 129 tokens at the
 # extraction batch, vit_small's 96-wide heads, and ragged small cases
@@ -318,6 +310,8 @@ K4_TRAIN_SHAPES = K4_SHAPES[:2]
 # unshifted block (G = 1) and a shifted one (G = windows)
 SWIN_STAGES = [(384, 70, 49, 4, 32), (384, 21, 49, 8, 32), (384, 8, 49, 16, 32),
                (384, 2, 49, 32, 32)]
+# Swin-B's blocks a stage, unshifted and shifted in turn
+SWIN_DEPTHS = (2, 2, 18, 2)
 # K4 launches per forward: JPM's 11 trunk blocks, b1 and 4 x b2; ViT-B's 12 blocks
 K4_PER_FORWARD = {"transreid_jpm": 16, "vit": 12}
 # Swin-B as the swin_base.train-market cell runs it: its input, its remat mode
@@ -507,7 +501,8 @@ def _k2_inputs(torch, gen, dev, n_q, n_g, n_p, ties, n_ids=7, n_cams=3, keep=0.8
     return dist, p_dist, p_idx, q_pids, q_cams, g_pids, g_cams
 
 
-def phase_k2(torch, dev, path_shape):
+def phase_k2(torch, dev, path_shape) -> dict:
+    """K2 against its plain version; → the kernels line's error fields."""
     from daliid_tpu_torch.ops.rank_counts import positive_rank_counts, rank_counts_plain
 
     gen = torch.Generator(device=dev)
@@ -535,6 +530,7 @@ def phase_k2(torch, dev, path_shape):
                   f"ignore_camera={ignore}")
     log(f"K2 rank_counts == plain on {2 * len(cases)} cases (exact), "
         f"the evaluate path's (Q, G, P) = {path_shape} among them")
+    return {"rank_counts": {"max_abs_err": 0.0}}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -569,7 +565,9 @@ def k3_compare(torch, kernel_out, plain_out, quantized: bool, what: str) -> floa
     return float((v - vp)[real].abs().max())
 
 
-def phase_k3(torch, dev, path_shape):
+def phase_k3(torch, dev, serve_shape) -> dict:
+    """K3 against its plain version, the serve path's (Q, index capacity,
+    rows) among the cases; → the kernels line's error fields."""
     from daliid_tpu_torch.ops.search_topk import (
         f32_search_topk,
         search_topk_plain,
@@ -578,10 +576,11 @@ def phase_k3(torch, dev, path_shape):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
+    n_q, capacity, n_g = serve_shape
     cases = [  # Q, G, D, num_real, duplicate rows
         (1, 64, 32, 64, False), (5, 1000, 99, 777, True), (64, 70000, 2048, 65537, True),
         (130, 4096, 2048, 4000, False), (3, 50, 16, 40, False), (7, 3000, 2, 2999, True),
-        (*path_shape, True),
+        (n_q, capacity, 2048, n_g, True),
     ]
     worst = 0.0
     for n_q, n_g, d, nr, dup in cases:
@@ -595,8 +594,8 @@ def phase_k3(torch, dev, path_shape):
                 search_topk_plain(qf, gf, nr, k),
                 False, what))
     log(f"K3 search_topk == plain on {len(cases) * 3} cases (SQ8 bit-exact, f32 max |diff| "
-        f"{worst:.3g}), the serve path's (Q, G, D, num_real) = {path_shape} among them")
-    return worst
+        f"{worst:.3g}), the serve path's (Q, G, D, num_real) = {cases[-1][:4]} among them")
+    return {"search_topk_sq8": {"max_abs_err": 0.0}, "search_topk_f32": {"max_abs_err": worst}}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -647,18 +646,13 @@ def phase_serve(torch, splits, counts):
          "--compute_dtype", COMPUTE_DTYPE, "--batch_size", "64", *_img_flags()])
     counts.reset()
     thread = threading.Thread(target=serve.main, args=(args,), daemon=True)
-    t0 = time.time()
     thread.start()
     c = Client(port)
-    log(f"serve: daemon listening after {time.time() - t0:.1f} s")
     check(c.request({"op": "stats"})["num_gallery"] == 0, "fresh daemon has a gallery")
-    t1 = time.time()
     r = c.request({"op": "enroll", "paths": [str(p) for p in gallery.paths],
                    "pids": gallery.pids.tolist()})
     check(r["num_gallery"] == len(gallery), f"enrolled {r['num_gallery']} of {len(gallery)}")
-    t2 = time.time()
     r = c.request({"op": "search", "paths": [str(p) for p in query.paths], "topk": 10})
-    t3 = time.time()
     sims, idx, pids = (np.asarray(r[key]) for key in ("sims", "indices", "pids"))
     check(sims.shape == (len(query), 10) and np.isfinite(sims).all(),
           f"search by paths gave sims {sims.shape}")
@@ -694,12 +688,12 @@ def phase_serve(torch, splits, counts):
     check(not thread.is_alive(), "the daemon did not shut down")
     launched = counts.read()
     check(launched["search_topk_sq8"] > 0, "the serve path did not launch K3 (SQ8)")
-    log(f"serve: enroll {len(gallery)} paths {t2 - t1:.2f} s, search {len(query)} paths "
-        f"{t3 - t2:.2f} s, top-1 identity accuracy {top1:.4f} (random weights), "
+    log(f"serve: enroll {len(gallery)} paths, search {len(query)} paths, top-1 identity "
+        f"accuracy {top1:.4f} (random weights), "
         f"busy_ms {stats['busy_ms']}, requests {stats['requests']}, "
         f"search dispatches {stats['search_dispatches']}, plain-index check |diff| {err:.3g}, "
         f"launches {launched}")
-    return launched, top1
+    return launched
 
 
 # ---------------------------------------------------------------- phase 5
@@ -784,7 +778,8 @@ def k1_edge_scalars(torch, table, h: int, w: int, pad: int):
     return t
 
 
-def phase_k1(torch, dev):
+def phase_k1(torch, dev) -> dict:
+    """K1 against its plain version; → the kernels line's error fields."""
     from daliid_tpu_torch.ops.fused_augment import draw_scalars, fused_augment, fused_augment_plain
 
     gen = torch.Generator().manual_seed(1)
@@ -812,7 +807,7 @@ def phase_k1(torch, dev):
         f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}), the train path's "
         f"(384, 256, 128, 3) and the two-stage (2, 512, 256, 3) among them; two launches "
         f"give the same bits")
-    return max(worst.values())
+    return {"fused_augment": {"max_abs_err": max(worst.values())}}
 
 
 # ---------------------------------------------------------------- phase 8
@@ -842,9 +837,7 @@ def phase_train(torch, counts, root):
          "--path_to_save_models", str(ckpt), "--path_to_save_metrics", str(metrics),
          *_img_flags()])
     counts.reset()
-    t0 = time.time()
     best_r1, best_iter = train.main(args)
-    seconds = time.time() - t0
     launched = counts.read()
     check(launched["fused_augment"] == TRAIN_STEPS,
           f"the train path launched K1 {launched['fused_augment']} times for {TRAIN_STEPS} steps")
@@ -857,12 +850,39 @@ def phase_train(torch, counts, root):
     for name in ("model_online_resnet50_v0.pt", "model_momentum_resnet50_v0.pt",
                  "latest/index.json"):
         check((ckpt / name).exists(), f"the train run wrote no {name}")
-    log(f"train: {TRAIN_STEPS} steps of {2 * P * K} images in {EPOCHS} epochs, "
-        f"{seconds:.1f} s with mining and validation; losses "
+    log(f"train: {TRAIN_STEPS} steps of {2 * P * K} images in {EPOCHS} epochs with mining and "
+        f"validation; losses "
         f"{[round(r['loss'], 5) for r in progress]}, rank-1 online "
         f"{[r['rank1'] for r in progress]} momentum {[r['rank1_momentum'] for r in progress]} "
         f"(random init), best {best_r1} @ {best_iter}; launches {launched}")
+    check_native_decoder(root)
     return launched
+
+
+def check_native_decoder(root) -> None:
+    """The native loader's decode of the first P16 K12 train batch (paths
+    and their turbulence copies, resized to 256x128) held against PIL's:
+    mean |diff| < 1.5, 99th percentile <= 6. Nothing to hold where the
+    loader did not build (the path then decodes with PIL)."""
+    import numpy as np
+
+    from daliid_tpu_torch.augment.preprocess import decode_images, decode_resize
+    from daliid_tpu_torch.data import load_dataset, native_loader
+    from daliid_tpu_torch.train.sampler import PKBatchSampler
+
+    if not native_loader.native_loader_available():
+        log("native decoder not built: the train path decodes with PIL")
+        return
+    table = load_dataset("Synthetic", root=str(root))["train"]
+    paths = [str(p) for p in next(iter(PKBatchSampler(
+        table, table.pids, P=P, K=K, kind_of_transform=1,
+        turbulence_dir=str(root / "Synthetic" / "turbulence"), seed=12).epoch())).paths]
+    native = decode_images(paths, *IMG, 16).astype(np.int32)
+    diff = np.abs(native - np.stack([decode_resize(p, *IMG) for p in paths]).astype(np.int32))
+    check(diff.mean() < 1.5 and np.percentile(diff, 99) <= 6,
+          f"the native loader differs from PIL: mean |diff| {diff.mean():.3f}")
+    log(f"native decoder against PIL on a train batch of {len(paths)}: mean |diff| "
+        f"{diff.mean():.3f}, 99th percentile {np.percentile(diff, 99):.0f}")
 
 
 # ---------------------------------------------------------------- phase 9: K4
@@ -893,12 +913,12 @@ def k4_compare(torch, got, want, dtype, what: str) -> float:
     return float(diff.max())
 
 
-def phase_k4(torch, dev):
+def phase_k4(torch, dev) -> dict:
     """K4 against its plain version, forward in f32 and bf16 at every shape of
     ``K4_SHAPES``; the backward (the f32 kernels of ``csrc/attention_grad.cu``,
     through the autograd Function) against autograd through the plain
-    version at the JPM trunk's train shape in f32, within 3e-5. → (max
-    |diff| forward, backward)."""
+    version at the JPM trunk's train shape in f32, within 3e-5. → the
+    kernels line's error fields."""
     from daliid_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
     gen = torch.Generator(device=dev)
@@ -927,7 +947,7 @@ def phase_k4(torch, dev):
     log(f"K4 flash_attention == plain on {2 * len(K4_SHAPES)} cases (max |diff| f32 "
         f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}), the JPM train shapes "
         f"among them; backward at {shape} f32 max |diff| {bwd:.3g}")
-    return max(worst.values()), bwd
+    return {"flash_attention": {"max_abs_err": max(worst.values()), "backward_max_abs_err": bwd}}
 
 
 def _wattn_inputs(torch, gen, dev, stage, g: int, dtype=None):
@@ -944,15 +964,15 @@ def _wattn_inputs(torch, gen, dev, stage, g: int, dtype=None):
     return q, k, v, bias
 
 
-def phase_wattn(torch, dev):
+def phase_wattn(torch, dev) -> dict:
     """The biased windowed-attention kernel (``flash_attention`` with a
     bias) against its plain version in bf16 at Swin-B's four stage shapes,
     unshifted and shifted, and ragged small cases; its backward (the plain
     recomputing one, ``dbias`` included) against autograd through the plain
     version in f32 at the last stage's shape, within 3e-5 relative to the
     largest gradient; and the model's SDPA route (``swin.window_sdpa``) in
-    f32 there, values and gradients, within 1e-4. → (max |diff| forward,
-    max relative |diff| backward)."""
+    f32 there, values and gradients, within 1e-4. → the kernels line's
+    error fields (the backward's relative to its largest gradient)."""
     from daliid_tpu_torch.models.swin import window_sdpa
     from daliid_tpu_torch.ops.flash_attention import (
         attention_backward,
@@ -1004,7 +1024,7 @@ def phase_wattn(torch, dev):
         f"{worst:.3g}), Swin-B's four stages among them; backward at {SWIN_STAGES[-1]} f32 "
         f"max relative |diff| {bwd:.3g}; the SDPA route (swin.window_sdpa) in f32 within "
         f"{sdpa:.3g}, gradients included")
-    return worst, bwd
+    return {"wattn_bias_mma": {"max_abs_err": worst, "backward_max_abs_err": bwd}}
 
 
 def phase_swin_train(torch, dev, root, counts):
@@ -1030,10 +1050,8 @@ def phase_swin_train(torch, dev, root, counts):
     trainer = Trainer(online, momentum, sampler, img_size=SWIN_IMG, tau=0.05, lambda_proxy=0.4,
                       compute_dtype=torch.bfloat16, extractor_batch=EXTRACT_BATCH)
     counts.reset()
-    t0 = time.time()
     means = trainer.train_epoch(1, verbose=True)
     torch.cuda.synchronize()
-    seconds = time.time() - t0
     launched = counts.read()
     steps, mined = sampler.batches_per_epoch(), _forwards(table)
     check(launched["fused_augment"] == steps,
@@ -1049,7 +1067,7 @@ def phase_swin_train(torch, dev, root, counts):
     for key in ("loss", "center_loss", "proxy_loss"):
         check(np.isfinite(means[key]), f"Swin-B epoch {key} = {means[key]}")
     log(f"Swin-B train (bf16, remat {SWIN_REMAT}, {SWIN_IMG[0]}x{SWIN_IMG[1]}): {steps} steps of "
-        f"{2 * P * K} images and {mined} mining batches of {EXTRACT_BATCH} in {seconds:.1f} s; "
+        f"{2 * P * K} images and {mined} mining batches of {EXTRACT_BATCH}; "
         f"loss {means['loss']:.5f} center {means['center_loss']:.5f} proxy "
         f"{means['proxy_loss']:.5f}; launches {launched}")
     del trainer, online, momentum
@@ -1092,11 +1110,9 @@ def phase_transformer_evaluate(torch, dev, splits, counts):
         bundle = load_bundle(name, None, IMG, torch.bfloat16, dev, use_fused_attention=True)
         extractor = FeatureExtractor(bundle, img_size=IMG, batch_size=EXTRACT_BATCH, device=dev)
         counts.reset()
-        t0 = time.time()
         q_fvs, g_fvs = extractor.extract(queries), extractor.extract(gallery)
         distmat = validator.distance_matrix(q_fvs, g_fvs)
         cmc, mAP = validator.rank(distmat, queries, gallery)
-        seconds = time.time() - t0
         launched = counts.read()
         forwards = _forwards(queries, gallery)
         check(launched["flash_attention"] == per_forward * forwards,
@@ -1124,7 +1140,7 @@ def phase_transformer_evaluate(torch, dev, splits, counts):
         check(rel <= 1e-3, f"{name}: K4 and SDPA routes differ by {rel:.3g} of the largest "
                            f"embedding entry in f32")
         log(f"transformer evaluate {name}: {len(queries)} query, {len(gallery)} gallery images, "
-            f"{seconds:.2f} s, R1 {cmc[0]:.4f} mAP {mAP:.6f} (random weights; oracle R1 "
+            f"R1 {cmc[0]:.4f} mAP {mAP:.6f} (random weights; oracle R1 "
             f"{cmc_n[0]:.4f}), launches {launched}; f32 K4 vs SDPA route max |diff| "
             f"{rel:.3g} of the largest entry")
         del f32, ex
@@ -1136,7 +1152,8 @@ def phase_transformer_train(torch, dev, root, counts):
     """``build_model_pair('transreid_jpm', num_classes=<train ids>,
     use_fused_attention=True)`` in bf16 and the port's Trainer at the JAX
     CLI's defaults (P16 K12 paired, tau 0.05, lambda_proxy 0.4): one epoch
-    of 2 steps with mining, then a validation; then ``cli.train.main`` with
+    of 2 steps with mining, then a validation, then :func:`check_remat_grads` on
+    the same trainer (uncounted); then ``cli.train.main`` with
     ``--model_name transreid_jpm --num_classes -1`` for one epoch on the
     default attention (SDPA)."""
     import numpy as np
@@ -1159,11 +1176,9 @@ def phase_transformer_train(torch, dev, root, counts):
                       compute_dtype=torch.bfloat16, extractor_batch=EXTRACT_BATCH)
     validator = get_validator("Synthetic", img_size=IMG, batch_size=EXTRACT_BATCH, device=dev)
     counts.reset()
-    t0 = time.time()
     means = trainer.train_epoch(1, verbose=True)
     trainer.extractor.update_variables(trainer.online.state_dict())
     cmc, mAP, _ = validator.validate(queries, gallery, trainer.extractor, verbose=False)
-    seconds = time.time() - t0
     launched = counts.read()
     steps = sampler.batches_per_epoch()
     forwards = steps + _forwards(table, queries, gallery)
@@ -1178,9 +1193,10 @@ def phase_transformer_train(torch, dev, root, counts):
     for key in ("loss", "center_loss", "proxy_loss"):
         check(np.isfinite(means[key]), f"JPM epoch {key} = {means[key]}")
     log(f"transformer train (JPM bf16, K4): {steps} steps of {2 * P * K} images with mining "
-        f"and a validation in {seconds:.1f} s; loss {means['loss']:.5f} center "
+        f"and a validation; loss {means['loss']:.5f} center "
         f"{means['center_loss']:.5f} proxy {means['proxy_loss']:.5f}, R1 {cmc[0]:.4f} (random "
         f"init); launches {launched}")
+    check_remat_grads(torch, dev, trainer)
     del trainer, online, momentum
 
     ckpt, metrics = WORK / "jpm_ckpt", WORK / "jpm_metrics"
@@ -1191,18 +1207,88 @@ def phase_transformer_train(torch, dev, root, counts):
          "--skip_initial_eval", "--path_to_save_models", str(ckpt),
          "--path_to_save_metrics", str(metrics), *_img_flags()])
     counts.reset()
-    t0 = time.time()
     train.main(args)
-    seconds = time.time() - t0
     cli = counts.read()
     check(cli["fused_augment"] == steps and cli["rank_counts"] > 0,
           f"the JPM train CLI launched {cli}")
     progress = json.loads((metrics / "progress_transreid_jpm_v0.json").read_text())
     check(len(progress) == 1 and all(np.isfinite(progress[0][k]) for k in ("loss", "rank1")),
           f"JPM train CLI progress {progress}")
-    log(f"transformer train CLI (JPM bf16, SDPA): 1 epoch of {steps} steps in {seconds:.1f} s, "
+    log(f"transformer train CLI (JPM bf16, SDPA): 1 epoch of {steps} steps, "
         f"loss {progress[0]['loss']:.5f}; launches {cli}")
     return {k: launched[k] + cli[k] for k in launched}
+
+
+def set_remat(module, mode: str) -> None:
+    """Checkpoint every transformer block of ``module`` per ``mode``."""
+    from daliid_tpu_torch.models.vit import Block, check_remat
+
+    for m in module.modules():
+        if isinstance(m, Block):
+            m.remat = check_remat(mode)
+
+
+def check_remat_grads(torch, dev, trainer) -> None:
+    """The JPM step with K4 under each remat mode on the trainer's weights
+    and first batch: one forward and backward from one drop-path generator
+    state under ``none`` twice, ``full`` and ``tuned`` (cuDNN's
+    deterministic algorithms, so that the patch embedding's weight gradient
+    sums in one order): every gradient and the generator's state after it
+    bit-equal to ``none``'s, K4 launched 16 times a forward plus 16 in
+    ``full``'s recompute. Then a ``profile_to`` trace of one ``tuned`` train
+    step around a ``phase`` span, which the trace must name."""
+    from daliid_tpu_torch.ops.flash_attention import flash_attention
+    from daliid_tpu_torch.utils import phase, profile_to
+
+    pset = trainer.mine_proxies()
+    put = lambda a: torch.as_tensor(a, device=dev)
+    images_u8, labels, distortions, mask, camids = (
+        t.to(dev) for t in trainer._stage(next(iter(trainer.sampler.epoch()))))
+    rest = (labels, distortions, mask, put(pset.centers), put(pset.proxies),
+            put(pset.proxy_labels).long(), 1)
+    images = trainer.augment(images_u8)
+    model = trainer.online
+    params = [p for p in model.parameters() if p.requires_grad]
+    start = trainer._drop_gen.get_state()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for run in ("none", "none_again", "full", "tuned"):
+            set_remat(model, run.split("_")[0])
+            trainer._drop_gen.set_state(start)
+            before = flash_attention.launches
+            trainer.forward_backward(images, *rest, camids)
+            torch.cuda.synchronize(dev)
+            runs[run] = ([p.grad.clone() for p in params], trainer._drop_gen.get_state(),
+                         flash_attention.launches - before)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    base_grads, base_state, _ = runs["none"]
+    for run, (grads, state, k4) in runs.items():
+        recompute = K4_PER_FORWARD["transreid_jpm"] if run == "full" else 0
+        check(k4 == K4_PER_FORWARD["transreid_jpm"] + recompute,
+              f"remat {run}: K4 launched {k4} times in a forward and backward")
+        rel = max(float((g - b).norm() / b.norm().clamp_min(1e-30))
+                  for g, b in zip(grads, base_grads))
+        check(all(torch.equal(g, b) for g, b in zip(grads, base_grads))
+              and torch.equal(state, base_state),
+              f"remat {run}: the gradient (largest relative L2 {rel:.3g}) or the drop-path "
+              f"generator's state differs from none's")
+    del runs
+    trace_dir = WORK / "profile_remat"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    set_remat(model, "tuned")
+    with profile_to(str(trace_dir)):
+        with phase("remat_tuned_train_step", block_on=images):
+            trainer.train_step(images_u8, *rest, camids)
+    trace = trace_dir / "trace.json"
+    check(trace.exists() and "remat_tuned_train_step" in trace.read_text(),
+          f"profile_to wrote no trace naming the phase span under {trace_dir}")
+    set_remat(model, "none")
+    log(f"remat (JPM bf16, K4, {images.shape[0]} images): none, full and tuned gradients and "
+        f"drop-path state bit-equal, K4 16 launches a forward (32 under full); the tuned step's "
+        f"trace names its phase span")
 
 
 # ---------------------------------------------------------------- phases 12-15
@@ -1278,13 +1364,11 @@ def phase_fusion(torch, counts, extra=()):
     cwd = os.getcwd()
     os.chdir(WORK)  # the ROC files go to the working directory
     counts.reset()
-    t0 = time.time()
     try:
         with RankRecorder() as rec:
             results = evaluate_fusion.main(args)
     finally:
         os.chdir(cwd)
-    seconds = time.time() - t0
     launched = counts.read()
     tags = ["concat", "clean", "distortion", "average", "magnitude_gap", "magnitude_gmp",
             "magnitude_both"]
@@ -1298,11 +1382,11 @@ def phase_fusion(torch, counts, extra=()):
     tpr = np.load(WORK / "TPR_chip_smoke.npy")
     check(fpr[0] == tpr[0] == 0 and fpr[-1] == tpr[-1] == 1 and (np.diff(fpr) >= 0).all(),
           "the ROC dump is not a curve from (0, 0) to (1, 1)")
-    log(f"evaluate-fusion{''.join(' ' + e for e in extra)}: {seconds:.2f} s, "
+    log(f"evaluate-fusion{''.join(' ' + e for e in extra)}: "
         + ", ".join(f"{t} R1 {r['rank1']:.4f} mAP {r['mAP']:.6f}" for t, r in results.items())
         + f"; every CMC equal to the numpy oracle (|mAP diff| <= {err:.3g}); ROC {fpr.size} "
           f"points; launches {launched}")
-    return launched, seconds
+    return launched
 
 
 def phase_ensemble(torch, counts, extra=()):
@@ -1315,20 +1399,17 @@ def phase_ensemble(torch, counts, extra=()):
          write_checkpoint(torch, "resnet50", 21), "--model_name02", "resnet50IBN",
          *_eval_flags(), *extra])
     counts.reset()
-    t0 = time.time()
     with RankRecorder() as rec:
         results = evaluate_ensemble.main(args)
-    seconds = time.time() - t0
     launched = counts.read()
     check(list(results) == ["model01", "model02", "ensemble"],
           f"evaluate-ensemble reported {list(results)}")
     check(launched["rank_counts"] == 3, f"evaluate-ensemble launched K2 {launched}")
     err = rec.check_oracle("evaluate-ensemble")
     log(f"evaluate-ensemble (resnet50 + resnet50IBN){''.join(' ' + e for e in extra)}: "
-        f"{seconds:.2f} s, "
         + ", ".join(f"{t} R1 {r['rank1']:.4f} mAP {r['mAP']:.6f}" for t, r in results.items())
         + f"; CMC equal to the numpy oracle (|mAP diff| <= {err:.3g}); launches {launched}")
-    return launched, seconds
+    return launched
 
 
 def phase_multihead(torch, counts):
@@ -1343,10 +1424,8 @@ def phase_multihead(torch, counts):
         ["--targets", "Synthetic", "--model_name", "multipart_resnet50", "--multiple_output",
          "--mrfuse", *_eval_flags()])
     counts.reset()
-    t0 = time.time()
     with RankRecorder() as rec:
         results = evaluate.main(args)
-    seconds = time.time() - t0
     launched = counts.read()
     check(list(results) == ["Synthetic", "Synthetic:mrfuse"], f"evaluate reported {list(results)}")
     check(launched["rank_counts"] == 6,
@@ -1354,11 +1433,11 @@ def phase_multihead(torch, counts):
           f"not 6 (4 heads, the ensemble, mrfuse)")
     err = rec.check_oracle("evaluate --multiple_output --mrfuse")
     check(all(np.isfinite(cmc).all() for _, _, _, (cmc, _) in rec.calls), "non-finite CMC")
-    log(f"evaluate multipart_resnet50 --multiple_output --mrfuse: {seconds:.2f} s, "
+    log(f"evaluate multipart_resnet50 --multiple_output --mrfuse: "
         + ", ".join(f"R1 {cmc[0]:.4f} mAP {mAP:.6f}" for _, _, _, (cmc, mAP) in rec.calls)
         + f" (heads 0-3, ensemble, mrfuse); CMC equal to the numpy oracle (|mAP diff| <= "
           f"{err:.3g}); launches {launched}")
-    return launched, seconds
+    return launched
 
 
 def phase_search_k100(torch, dev, counts):
@@ -1432,25 +1511,23 @@ def phase_zoo_evaluate(torch, counts):
 
     from daliid_tpu_torch.cli import evaluate
 
-    total, walls = {}, {}
+    total = {}
     for name in ZOO:
         args = evaluate.build_argparser().parse_args(
             ["--targets", "Synthetic", "--model_name", name, *_eval_flags()])
         counts.reset()
-        t0 = time.time()
         with RankRecorder() as rec:
             cmc, mAP = evaluate.main(args)["Synthetic"]
-        walls[name] = time.time() - t0
         launched = counts.read()
         check(launched["rank_counts"] == 1, f"evaluate {name} launched K2 {launched}")
         err = rec.check_oracle(f"evaluate {name}")
         check(np.isfinite(cmc).all() and len(rec.calls) == 1, f"evaluate {name}: CMC {cmc}")
-        log(f"evaluate {name}: {walls[name]:.2f} s, R1 {cmc[0]:.4f} mAP {mAP:.6f} (random "
+        log(f"evaluate {name}: R1 {cmc[0]:.4f} mAP {mAP:.6f} (random "
             f"weights), distmat {rec.calls[0][0].shape}, CMC equal to the numpy oracle (|mAP "
             f"diff| {err:.3g}), launches {launched}")
         for k, n in launched.items():
             total[k] = total.get(k, 0) + n
-    return total, walls
+    return total
 
 
 def phase_densenet_train(torch, counts, root):
@@ -1472,9 +1549,7 @@ def phase_densenet_train(torch, counts, root):
          "--skip_initial_eval", "--path_to_save_models", str(ckpt),
          "--path_to_save_metrics", str(metrics), *_img_flags()])
     counts.reset()
-    t0 = time.time()
     train.main(args)
-    seconds = time.time() - t0
     launched = counts.read()
     steps = TRAIN_IDS // P
     check(launched["fused_augment"] == steps,
@@ -1489,23 +1564,26 @@ def phase_densenet_train(torch, counts, root):
     check(tuple(head["classification.weight"].shape) == (TRAIN_IDS, ZOO["densenet121"]),
           "the densenet121 checkpoint has no head of one class per training identity")
     log(f"train densenet121 --num_classes -1 (bf16, classifier branch): 1 epoch of {steps} "
-        f"steps of {2 * P * K} images and a validation in {seconds:.1f} s, loss "
+        f"steps of {2 * P * K} images and a validation, loss "
         f"{progress[0]['loss']:.5f} center {progress[0]['center_loss']:.5f} proxy "
         f"{progress[0]['proxy_loss']:.5f} R1 {progress[0]['rank1']:.4f} (random init); "
         f"launches {launched}")
-    return launched, seconds
+    return launched
 
 
-def phase_rerank_evaluate(torch, counts):
+def phase_rerank_evaluate(torch, dev, counts):
     """``cli.evaluate.main --rerank`` with ResNet-50: K2 once; the re-ranked
     distmat was computed on the card and equals the port's ``re_ranking``
     on the CPU over the same three distance matrices within 1e-5; the CMC
-    equals the numpy oracle's."""
+    equals the numpy oracle's. Then ``re_ranking`` on the card at
+    Market-1501's protocol shape (Q=3,368, G=15,913: N = 19,281) on cosine
+    distances of random unit 2048-d embeddings: a finite (Q, G) result."""
     import numpy as np
 
     from daliid_tpu_torch.cli import evaluate
     from daliid_tpu_torch.eval import validate
     from daliid_tpu_torch.eval.rerank import re_ranking
+    from daliid_tpu_torch.metrics.ranking import cosine_distance_matrix
 
     args = evaluate.build_argparser().parse_args(
         ["--targets", "Synthetic", "--model_name", "resnet50", "--rerank", *_eval_flags()])
@@ -1518,13 +1596,11 @@ def phase_rerank_evaluate(torch, counts):
 
     validate.re_ranking = recording
     counts.reset()
-    t0 = time.time()
     try:
         with RankRecorder() as rec:
             cmc, mAP = evaluate.main(args)["Synthetic"]
     finally:
         validate.re_ranking = reranking
-    seconds = time.time() - t0
     launched = counts.read()
     check(launched["rank_counts"] == 1, f"evaluate --rerank launched K2 {launched}")
     check(len(seen) == 1 and seen[0][1] == "cuda", "evaluate --rerank did not re-rank on the card")
@@ -1534,11 +1610,21 @@ def phase_rerank_evaluate(torch, counts):
     map_err = rec.check_oracle("evaluate --rerank")
     check(np.array_equal(on_card.numpy(), rec.calls[0][0]),
           "evaluate --rerank ranked another distmat than the re-ranked one")
-    log(f"evaluate --rerank (resnet50): {seconds:.2f} s, R1 {cmc[0]:.4f} mAP {mAP:.6f}; the "
+    log(f"evaluate --rerank (resnet50): R1 {cmc[0]:.4f} mAP {mAP:.6f}; the "
         f"card's re-ranked distmat {tuple(on_card.shape)} against the CPU's max |diff| "
         f"{err:.3g}; CMC equal to the numpy oracle (|mAP diff| {map_err:.3g}); launches "
         f"{launched}")
-    return launched, seconds
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    q, g = (torch.nn.functional.normalize(torch.randn(n, 2048, device=dev, generator=gen), dim=1)
+            for n in (3368, 15913))
+    market = re_ranking(*(cosine_distance_matrix(a, b) for a, b in ((q, g), (q, q), (g, g))))
+    check(market.shape == (3368, 15913) and bool(torch.isfinite(market).all()),
+          f"re_ranking at Market-1501's shape gave {tuple(market.shape)}, not all finite")
+    log("re_ranking at Market-1501's shape (3368, 15913) on the card: finite")
+    del q, g, market
+    torch.cuda.empty_cache()
+    return launched
 
 
 def phase_search_rerank(torch, dev, counts):
@@ -1667,14 +1753,12 @@ def phase_datasets(torch, counts):
     trio = ["--train_file_path", manifests["train"], "--queries_file_path",
             manifests["queries"], "--gallery_file_path", manifests["gallery"]]
     flags = ["--data_root", str(root), "--compute_dtype", COMPUTE_DTYPE, *_img_flags()]
-    total, walls = {}, {}
+    total = {}
 
     def step(name, run, k2=None):
         counts.reset()
-        t0 = time.time()
         with RankRecorder() as rec:
             out = run()
-        walls[name] = time.time() - t0
         launched = counts.read()
         if k2 is not None:
             check(launched["rank_counts"] == k2,
@@ -1716,9 +1800,8 @@ def phase_datasets(torch, counts):
     check(all(np.isfinite(progress[0][k]) for k in ("loss", "center_loss", "proxy_loss")),
           f"train --dataset MSMT17 losses {progress}")
     log(f"train --dataset MSMT17 --kind_of_transform 1: {steps} steps of {2 * P * K} images on "
-        f"the pid-prefixed turbulence copies and a validation in "
-        f"{walls['train --dataset MSMT17']:.1f} s, loss {progress[0]['loss']:.5f}, balanced "
-        f"accuracy on val {accuracies[0]:.4f} (random init); launches {launched}")
+        f"the pid-prefixed turbulence copies and a validation, loss {progress[0]['loss']:.5f}, "
+        f"balanced accuracy on val {accuracies[0]:.4f} (random init); launches {launched}")
 
     args = evaluate.build_argparser().parse_args(
         ["--targets", "MSMT17", "--turbulence_dir_path", turb, "--turbulence_strength", "3",
@@ -1770,7 +1853,7 @@ def phase_datasets(torch, counts):
           and [ln.split()[0] for ln in lines[2:]]
           == ["MSMT17"] + [f"PRCC:g{i}" for i in range(10)] + [f"PRCC:q{i}" for i in range(3)],
           f"stats printed:\n{table}")
-    return total, {f"datasets: {k}": v for k, v in walls.items()}
+    return total
 
 
 # ---------------------------------------------------------------- int8 extraction
@@ -1916,14 +1999,15 @@ def _check_quantize_exhaustive(torch, dev) -> None:
         f"bit patterns but NaN, at s_in {[float(torch.tensor(s)) for s in QUANT_SCALES]}")
 
 
-def phase_conv_int8(torch, dev, shapes) -> float:
+def phase_conv_int8(torch, dev, shapes) -> dict:
     """conv_int8 against its plain version at each of ``CONV_LAYERS``' shapes
     at batch 512 and at ``RAGGED_CONVS``, on bf16 and f32 inputs (the
     kernel's quantize against ``quantize_sym``, half-way points planted) and
     on int8 inputs: the int32 sum and the f32 and bf16 outputs, with and
     without bias, equal bit for bit. The plain sum is im2col and a float64
     product (or, depthwise, int32 taps), so every partial sum is an exact
-    integer. Then the quantize alone, exhaustively."""
+    integer. Then the quantize alone, exhaustively. → the kernels line's
+    error fields."""
     from daliid_tpu_torch.ops.conv_int8 import (
         conv_int8,
         conv_int32_plain,
@@ -1955,7 +2039,7 @@ def phase_conv_int8(torch, dev, shapes) -> float:
         log(f"conv_int8 {_geo_str(key, geo)} ({plan}): bf16, f32 and int8 in; int32, f32 and "
             f"bf16 out (bias on and off) equal to quantize_sym + the plain version")
     _check_quantize_exhaustive(torch, dev)
-    return 0.0
+    return {"conv_int8": {"max_abs_err": 0.0}}
 
 
 def _int8_counts(counts) -> dict:
@@ -1994,22 +2078,20 @@ def phase_evaluate_int8(torch, dev, splits, counts):
     from daliid_tpu_torch.ops import quantize as q8
     from daliid_tpu_torch.ops.conv_int8 import conv_int8_plain
 
-    total, walls = {}, {}
+    total = {}
     for extra in (["--quantize", "int8"],
                   ["--quantize", "int8", "--calib_batches", "2", "--batch_size", "128"]):
         args = evaluate.build_argparser().parse_args(
             ["--targets", "Synthetic", "--model_name", "resnet50", *_eval_flags(), *extra])
         _reset_int8(counts)
-        t0 = time.time()
         with RankRecorder() as rec:
             cmc, mAP = evaluate.main(args)["Synthetic"]
         tag = "evaluate " + " ".join(extra)
-        walls[tag] = time.time() - t0
         launched = _int8_counts(counts)
         check(launched["rank_counts"] == 1, f"{tag} launched K2 {launched}")
         check(launched["conv_int8"] > 0, f"{tag} launched no conv_int8")
         err = rec.check_oracle(tag)
-        log(f"{tag} (resnet50): {walls[tag]:.2f} s, R1 {cmc[0]:.4f} mAP {mAP:.6f} (random "
+        log(f"{tag} (resnet50): R1 {cmc[0]:.4f} mAP {mAP:.6f} (random "
             f"weights), CMC equal to the numpy oracle (|mAP diff| {err:.3g}), launches "
             f"{launched}")
         for k, n in counts.read().items():
@@ -2066,7 +2148,8 @@ def phase_evaluate_int8(torch, dev, splits, counts):
         f"on the CPU {float(cpu_fp.min()):.7f}; against the card's bf16 embeddings "
         f"(information) min {float(cos_bf16.min()):.6f} mean {float(cos_bf16.mean()):.6f}")
     del cpu, card
-    return total, walls
+    check_int8_resnet_forward(torch, dev)
+    return total
 
 
 def phase_search_serve_int8(torch, splits, counts):
@@ -2137,9 +2220,9 @@ def phase_fusion_ensemble_int8(torch, counts):
 
     FeatureExtractor._finalize_calibration = counting
     try:
-        fusion, fusion_s = phase_fusion(torch, counts, ["--quantize", "int8"])
+        fusion = phase_fusion(torch, counts, ["--quantize", "int8"])
         n_fusion = len(finals)
-        ensemble, ensemble_s = phase_ensemble(torch, counts, ["--quantize", "int8"])
+        ensemble = phase_ensemble(torch, counts, ["--quantize", "int8"])
     finally:
         FeatureExtractor._finalize_calibration = finalize
     check(n_fusion == 12 and len(finals) == 14,
@@ -2149,9 +2232,7 @@ def phase_fusion_ensemble_int8(torch, counts):
         check(launched["conv_int8"] > 0, f"{tag} --quantize int8 launched no conv_int8")
     log(f"int8 calibrations: evaluate-fusion {n_fusion} (per model, pooling and split), "
         f"evaluate-ensemble {len(finals) - n_fusion} (per model)")
-    return ({k: fusion[k] + ensemble[k] for k in fusion},
-            {"evaluate-fusion --quantize int8": fusion_s,
-             "evaluate-ensemble --quantize int8": ensemble_s})
+    return {k: fusion[k] + ensemble[k] for k in fusion}
 
 
 def phase_vit_int8(torch, dev, splits, counts):
@@ -2173,11 +2254,9 @@ def phase_vit_int8(torch, dev, splits, counts):
     extractor = FeatureExtractor(bundle, img_size=IMG, batch_size=EXTRACT_BATCH, device=dev,
                                  quantize="int8")
     _reset_int8(counts)
-    t0 = time.time()
     with RankRecorder() as rec:
         q_fvs, g_fvs = extractor.extract(queries), extractor.extract(gallery)
         cmc, mAP = validator.rank(validator.distance_matrix(q_fvs, g_fvs), queries, gallery)
-    seconds = time.time() - t0
     launched = _int8_counts(counts)
     forwards = _forwards(queries, gallery)
     # the calibration forward (float) runs the attention too
@@ -2191,11 +2270,11 @@ def phase_vit_int8(torch, dev, splits, counts):
     check(launched["rank_counts"] == 1, f"vit int8: K2 {launched}")
     check(np.isfinite(q_fvs).all() and np.isfinite(g_fvs).all(), "vit int8: embeddings")
     err = rec.check_oracle("vit int8")
-    log(f"evaluate vit --quantize int8 (K4 on): {seconds:.2f} s, R1 {cmc[0]:.4f} mAP "
+    log(f"evaluate vit --quantize int8 (K4 on): R1 {cmc[0]:.4f} mAP "
         f"{mAP:.6f} (random weights), CMC equal to the numpy oracle (|mAP diff| {err:.3g}), "
         f"{len(extractor.quant_scales)} calibrated layers, launches {launched}")
     del extractor, bundle
-    return counts.read(), seconds
+    return counts.read()
 
 
 def phase_train_int8(torch, counts, root):
@@ -2228,12 +2307,10 @@ def phase_train_int8(torch, counts, root):
 
     validate.Validator.validate = counted
     counts.reset()
-    t0 = time.time()
     try:
         train.main(args)
     finally:
         validate.Validator.validate = validate_fn
-    seconds = time.time() - t0
     launched = counts.read()
     steps = TRAIN_IDS // P
     check(launched["fused_augment"] == steps,
@@ -2246,10 +2323,10 @@ def phase_train_int8(torch, counts, root):
     progress = json.loads((metrics / "progress_resnet50_v0.json").read_text())
     for key in ("loss", "center_loss", "proxy_loss", "rank1"):
         check(np.isfinite(progress[0][key]), f"int8 mining: {key} = {progress[0][key]}")
-    log(f"train --mining_quantize int8: {steps} steps in {seconds:.1f} s with int8 mining and "
+    log(f"train --mining_quantize int8: {steps} steps with int8 mining and "
         f"two float validations (online, momentum; conv_int8 {in_validation}); loss "
         f"{progress[0]['loss']:.5f}; launches {launched}")
-    return launched, seconds
+    return launched
 
 
 def loader_status() -> dict:
@@ -2271,39 +2348,19 @@ def loader_status() -> dict:
     return status
 
 
-def _time_fusion_at_market(torch, dev):
-    """``magnitude_weighted_distmat`` (CUDA events) and the 7 rankings of
-    evaluate-fusion (host clock, each ending in its CMC on the host) at
-    Market-1501's protocol shape."""
-    from daliid_tpu_torch.eval.fusion import magnitude_weighted_distmat
-    from daliid_tpu_torch.metrics.ranking import evaluate_rank
-
-    dist_a, q_pids, g_pids, q_cams, g_cams = market_like(torch, dev, seed=5)
-    dist_b = market_like(torch, dev, seed=6)[0]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(11)
-    n_q, n_g = dist_a.shape
-    mags = [torch.rand((n, 1), generator=gen, device=dev) + 0.5 for n in (n_q, n_g, n_q, n_g)]
-    fused = magnitude_weighted_distmat(dist_a, dist_b, *mags)
-    ms = cuda_ms(torch, lambda: magnitude_weighted_distmat(dist_a, dist_b, *mags), reps=20)
-    bytes_ = 3 * 4 * n_q * n_g + 8 * (n_q + n_g)
-    ids = (q_pids, g_pids, q_cams, g_cams)
-    evaluate_rank(fused, *ids)  # warm
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for d in (dist_a, dist_b, fused, dist_a, fused, dist_b, fused):
-        evaluate_rank(d, *ids)
-    rank_s = (time.time() - t0) / 7
-    out = {"shape": f"Q={n_q} G={n_g}", "magnitude_weighted_distmat_ms": ms,
-           "magnitude_bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
-           "ranking_ms_each": rank_s * 1e3, "seven_rankings_ms": 7 * rank_s * 1e3}
-    log(f"fusion at Market-1501's shape (CUDA events; rankings host clock): {json.dumps(out)}")
-    del dist_a, dist_b, fused
+# ---------------------------------------------------------------- kernel timings
+def _time_k3(torch, dev, serve_shape) -> dict:
+    """K3 SQ8 and f32 over 2^20 rows at Q=64, and at the serve path's
+    (probes, index capacity, rows) under ``at_path_shape``; → {kernel name:
+    entry}."""
+    out = _time_k3_at(torch, dev, 64, 1 << 20, 1 << 20, reps=20, plain_reps=3)
+    for name, entry in _time_k3_at(torch, dev, *serve_shape, reps=200, plain_reps=20).items():
+        out[name]["at_path_shape"] = entry
+        log(f"timing {name} at the path's shape: {json.dumps(entry)}")
     return out
 
 
-# ---------------------------------------------------------------- phase 12
-def _time_k3(torch, dev, n_q: int, n_g: int, num_real: int, reps: int, plain_reps: int):
+def _time_k3_at(torch, dev, n_q: int, n_g: int, num_real: int, reps: int, plain_reps: int):
     """Time K3 SQ8 and f32 at (Q, G, D=2048, num_real, k=10) against the plain
     version and a library yardstick; → {kernel name: timing}."""
     from daliid_tpu_torch.ops.search_topk import (
@@ -2319,7 +2376,6 @@ def _time_k3(torch, dev, n_q: int, n_g: int, num_real: int, reps: int, plain_rep
     g8 = torch.randint(-127, 128, (n_g, d), generator=gen, device=dev, dtype=torch.int8)
     gs = (torch.rand((n_g,), generator=gen, device=dev) + 0.5) / 127.0
     shape = f"Q={n_q} G={n_g} num_real={num_real} D={d} k={k}"
-    ops = 2 * n_q * num_real * d
     timings = {}
 
     out = sq8_search_topk(q8, g8, gs, num_real, k)
@@ -2330,8 +2386,8 @@ def _time_k3(torch, dev, n_q: int, n_g: int, num_real: int, reps: int, plain_rep
     lib_ms = _library_ms(torch, lambda: torch.topk(
         torch._int_mm(q8, g8[:num_real].T).float() * gs[:num_real], k, dim=1),
         "torch.topk(torch._int_mm(q8, g8.T).float() * g_scale)")
-    bytes_ = num_real * d + 4 * num_real + n_q * d + 8 * n_q * k
-    timings["search_topk_sq8"] = _timing(shape, ms, plain_ms, lib_ms, bytes_, ops, "int8", err)
+    timings["search_topk_sq8"] = _timing("search_topk_sq8", (n_q, num_real, d, k), shape, ms,
+                                         plain_ms, lib_ms, err)
     del g8, gs
 
     qf = torch.nn.functional.normalize(torch.randn((n_q, d), generator=gen, device=dev), dim=1)
@@ -2343,8 +2399,8 @@ def _time_k3(torch, dev, n_q: int, n_g: int, num_real: int, reps: int, plain_rep
                        reps=plain_reps, warmup=1)
     lib_ms = _library_ms(torch, lambda: torch.topk(qf @ gf[:num_real].T, k, dim=1),
                          "torch.topk(q @ g.T)")
-    bytes_ = 4 * num_real * d + 4 * n_q * d + 8 * n_q * k
-    timings["search_topk_f32"] = _timing(shape, ms, plain_ms, lib_ms, bytes_, ops, "tf32x3", err)
+    timings["search_topk_f32"] = _timing("search_topk_f32", (n_q, num_real, d, k), shape, ms,
+                                         plain_ms, lib_ms, err)
     del gf
     return timings
 
@@ -2360,12 +2416,32 @@ def _library_ms(torch, fn, what: str):
     return ms
 
 
-def _timing(shape, ms, plain_ms, lib_ms, bytes_, ops, op_type, err):
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[op_type] * 1e3
+def _timing(kernel: str, sizes: tuple, shape: str, ms, plain_ms, lib_ms, err) -> dict:
+    """A timed call of ``kernel``: its ms beside its plain version's and a
+    library's, and its bound from ``KERNELS[kernel]["count"](*sizes)``
+    (operations, bytes, op type) through ``benchmark.roofline``."""
+    ops, bytes_, op_type = KERNELS[kernel]["count"](*sizes)
+    t_bytes = bytes_ / HBM_BYTES_PER_S
+    bound = (max(t_bytes, ops / TF32X3_OPS_PER_S) if op_type == "tf32x3"
+             else least_seconds(ops, bytes_, op_type))
     return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound * 1e3, "bound_by": "bytes" if t_bytes >= bound else "operations",
             "bytes": bytes_, "ops": ops, "max_abs_err": err}
+
+
+# the counts of the two kernels no cell of the benchmark times, so that
+# benchmark.roofline has none for them
+def k3_f32_count(q: int, rows: int, d: int, k: int) -> tuple:
+    """K3's f32 search of Q probes over ``rows`` f32 rows of width D, top-k
+    (value, index) out: (ops, bytes, op type)."""
+    return 2 * q * rows * d, 4 * rows * d + 4 * q * d + 8 * q * k, "tf32x3"
+
+
+def conv_int8_count(x_bytes: int, w_bytes: int, m: int, o: int, k: int) -> tuple:
+    """conv_int8 over M output pixels of O channels, K = kh kw C / groups:
+    the input, the int8 weights, the f32 scales and the bf16 output once
+    each; 2 M O K int8 operations."""
+    return 2 * m * o * k, x_bytes + w_bytes + 4 * o + 2 * m * o, "int8"
 
 
 def market_ids(seed: int = 5):
@@ -2394,7 +2470,10 @@ def market_like(torch, dev, seed: int = 5):
     return dist, q_pids, g_pids, q_cams, g_cams
 
 
-def _time_k2(torch, dev, results):
+def _time_k2(torch, dev) -> dict:
+    """K2 on the Market-like table at P = 48 (the entry's own times), at the
+    evaluate path's P and, kernel only, at ``max_positives_bound``'s P; at
+    MSMT17's protocol shape under ``at_msmt17_protocol``."""
     from daliid_tpu_torch.metrics.ranking import (
         _positive_prologue,
         max_positives_bound,
@@ -2410,7 +2489,7 @@ def _time_k2(torch, dev, results):
     path_p = queried_positives_bound(q_pids, g_pids)
     log(f"K2 Market-like table: max_positives_bound = {bound_p} (distractor pid 0 kept), "
         f"the evaluate path's queried_positives_bound = {path_p}")
-    # the P=48 row is the kernel's main entry, as in earlier runs
+    out = {}
     for role, n_p, with_plain in (("main", 48, True), ("at_path_p", path_p, True),
                                   ("at_max_positives_bound", bound_p, False)):
         q_cols = torch.as_tensor(positive_columns(q_pids, g_pids, n_p), device=dev)
@@ -2425,17 +2504,18 @@ def _time_k2(torch, dev, results):
             plain_ms = cuda_ms(torch, lambda: rank_counts_plain(*args), reps=2, warmup=1)
         ms = cuda_ms(torch, lambda: positive_rank_counts(*args), reps=20)
         valid = int(posmask.sum())
-        bytes_ = 4 * n_q * n_g + 8 * n_q * n_p + 8 * (n_q + n_g) + 4 * n_q * n_p
-        entry = _timing(f"Q={n_q} G={n_g} P={n_p} valid positives {valid}", ms, plain_ms, None,
-                        bytes_, n_g * valid, "f32", err)
+        entry = _timing("rank_counts", (n_q, n_g, n_p, valid),
+                        f"Q={n_q} G={n_g} P={n_p} valid positives {valid}", ms, plain_ms, None, err)
         if role == "main":
-            results["rank_counts"].update(entry)
+            out.update(entry)
         else:
             if not with_plain:
                 entry["plain"] = "skipped at this P"
-            results["rank_counts"][role] = entry
+            out[role] = entry
         log(f"K2 at P={n_p}: {json.dumps(entry)}")
     del dist
+    out["at_msmt17_protocol"] = _time_k2_msmt17(torch, dev)
+    return {"rank_counts": out}
 
 
 def msmt17_ids(seed: int = 6):
@@ -2480,9 +2560,9 @@ def _time_k2_msmt17(torch, dev) -> list:
             ms = cuda_ms(torch, lambda: positive_rank_counts(*args, ignore_camera=ignore),
                          reps=10)
             valid = int(posmask.sum())
-            bytes_ = 4 * n_q * n_g + 8 * n_q * n_p + 8 * (n_q + n_g) + 4 * n_q * n_p
-            entry = _timing(f"Q={n_q} G={n_g} P={n_p} ignore_camera={ignore} valid positives "
-                            f"{valid}", ms, plain_ms, None, bytes_, n_g * valid, "f32", 0.0)
+            entry = _timing("rank_counts", (n_q, n_g, n_p, valid),
+                            f"Q={n_q} G={n_g} P={n_p} ignore_camera={ignore} valid positives "
+                            f"{valid}", ms, plain_ms, None, 0.0)
             log(f"K2 at MSMT17's protocol shape: {json.dumps(entry)}")
             out.append(entry)
             del want, got
@@ -2505,12 +2585,9 @@ def _time_k1(torch, dev):
     ms = cuda_ms(torch, lambda: fused_augment(images, scal, pad, torch.bfloat16), reps=50)
     plain_ms = cuda_ms(torch, lambda: fused_augment_plain(images, scal, pad, torch.bfloat16),
                        reps=5, warmup=1)
-    # each uint8 input byte read once, each bf16 output written once, the table read once
-    bytes_ = b * h * w * 3 * (1 + 2) + b * 16 * 4
-    # about 30 f32 operations a pixel (crop, jitter, gray, erase, normalize)
-    ops = 30 * b * h * w
-    return _timing(f"B={b} H={h} W={w} pad={pad} bf16 out", ms, plain_ms, None, bytes_, ops,
-                   "f32", err)
+    return {"fused_augment": _timing("fused_augment", (b, h, w),
+                                     f"B={b} H={h} W={w} pad={pad} bf16 out", ms, plain_ms, None,
+                                     err)}
 
 
 def kernel_times(torch, root: str, ps, conv_geos) -> dict:
@@ -2584,10 +2661,11 @@ def compare(parent_root: str, conv_geos: dict) -> dict:
     return runs
 
 
-def _time_k4(torch, dev):
+def _time_k4(torch, dev) -> dict:
     """K4 at the JPM train shapes in bf16: kernel, plain version, and
-    ``scaled_dot_product_attention`` on the same tensors as the yardstick;
-    → one timing per shape."""
+    ``scaled_dot_product_attention`` on the same tensors as the yardstick,
+    with the plain backward beside them; → the entry, timed at N = 211 (N =
+    53 under ``at_n53``)."""
     import torch.nn.functional as F
 
     from daliid_tpu_torch.ops.flash_attention import (
@@ -2610,9 +2688,7 @@ def _time_k4(torch, dev):
         lib_ms = _library_ms(torch, lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
             "F.scaled_dot_product_attention on the same bf16 views")
-        # q, k, v read once and the output written once, 2 bytes each; QK^T and PV
-        entries.append(_timing(what, ms, plain_ms, lib_ms, 4 * b * n * h * d * 2,
-                               4 * b * h * n * n * d, "bf16", err))
+        entries.append(_timing("flash_attention", shape, what, ms, plain_ms, lib_ms, err))
         # the plain backward (the CPU's route; the card's kernels are timed
         # in _time_k4_grad) on the saved bf16 views
         g_out = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -2620,7 +2696,11 @@ def _time_k4(torch, dev):
                                              reps=5, warmup=1)
         log(f"timing K4 at {shape}: {json.dumps(entries[-1])}")
         del q, k, v, g_out
-    return entries
+    log(f"K4 in one JPM forward of {K4_TRAIN_SHAPES[0][0]}: 12 x N=211 + 4 x N=53 = "
+        + ", ".join(f"{key} {12 * entries[0][key] + 4 * entries[1][key]:.3f} ms"
+                    for key in ("ms", "bound_ms", "backward_ms")))
+    return {"flash_attention": {**entries[0], "at_n53": entries[1],
+                                "max_abs_err": max(e["max_abs_err"] for e in entries)}}
 
 
 def _device_kernels(torch, fn) -> list:
@@ -2692,16 +2772,15 @@ def _time_sdpa(torch, q, k, v, bias, what: str) -> dict:
     return {"library_ms": timed.get(best), "library_form": best, "forms": forms}
 
 
-def _time_wattn(torch, dev):
+def _time_wattn(torch, dev) -> dict:
     """The biased kernel at Swin-B's four stages in the shifted blocks' form
     (G = windows), batch 384, bf16: kernel, plain version, the plain
     backward, the model's SDPA route (``swin.window_sdpa``, its layout
     copies included), and as the yardstick the fastest single
     ``scaled_dot_product_attention`` call on inputs laid out for it
     (``_sdpa_forms``, on PyTorch's choice of backend, logged, or on one
-    backend forced); the bound counts
-    q, k, v and the output once in bf16 and the bias once in f32; → one
-    timing per stage."""
+    backend forced); → the entry, timed at the first stage (the others
+    under ``at_stages``)."""
     from daliid_tpu_torch.models.swin import window_sdpa
     from daliid_tpu_torch.ops.flash_attention import (
         attention_backward,
@@ -2722,9 +2801,8 @@ def _time_wattn(torch, dev):
         ms = cuda_ms(torch, lambda: flash_attention(q, k, v, bias), reps=20)
         plain_ms = cuda_ms(torch, lambda: attention_plain(q, k, v, bias), reps=3, warmup=1)
         sdpa = _time_sdpa(torch, q, k, v, bias, what)
-        entries.append(_timing(what, ms, plain_ms, sdpa["library_ms"],
-                               4 * b * nw * n * h * d * 2 + nw * h * n * n * 4,
-                               4 * b * nw * h * n * n * d, "bf16", err))
+        entries.append(_timing("wattn_bias_mma", (b, nw, n, h, d, nw), what, ms, plain_ms,
+                               sdpa["library_ms"], err))
         entries[-1]["library"] = (f"F.scaled_dot_product_attention, {sdpa['library_form']} "
                                   f"(_sdpa_forms; default: PyTorch's choice of backend)")
         entries[-1]["sdpa_forms"] = sdpa["forms"]
@@ -2744,80 +2822,13 @@ def _time_wattn(torch, dev):
         log(f"timing biased attention at {stage}: {json.dumps(entries[-1])}")
         del q, k, v, bias, g_out
         torch.cuda.empty_cache()
-    return entries
-
-
-def _wattn_entry(torch, dev, launches: int, err: float, bwd_err: float) -> dict:
-    """The kernels line's entry of ``wattn_bias_mma``: timed at Swin-B's
-    first stage, its other stages under ``at_stages``."""
-    times = _time_wattn(torch, dev)
-    entry = {"name": "wattn_bias_mma", "route": "cuda", **KERNELS["wattn_bias_mma"], **times[0],
-             "at_stages": times[1:], "launches": launches,
-             "max_abs_err": max([err] + [t["max_abs_err"] for t in times]),
-             "backward_max_abs_err": bwd_err}
-    check(launches > 0, "wattn_bias_mma was not launched on the main path")
-    return entry
-
-
-def _time_swin_steps(torch, dev, batch: int = 384) -> dict:
-    """One Swin-B forward and backward at 384x128, bf16 (so the biased
-    kernel), under each remat mode on the same weights and batch: ms a step (3 after
-    one warm-up), peak memory above the model, or the error that stopped it."""
-    from daliid_tpu_torch.models.factory import get_model
-
-    out = {}
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(19)
-    x = torch.randn((batch, 3, 384, 128), generator=gen, device=dev).to(torch.bfloat16)
-    for mode in ("none", "tuned", "full"):
-        model = get_model("swin_base", img_size=SWIN_IMG, dtype=torch.bfloat16, device=dev,
-                          remat=mode).module.train()
-        drop = torch.Generator(device=dev)
-
-        def step():
-            model.zero_grad(set_to_none=True)
-            model(x, generator=drop).float().square().mean().backward()
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        try:
-            ms = cuda_ms(torch, step, reps=3, warmup=1)
-            out[mode] = {"step_ms": ms, "img_per_s": 1e3 * batch / ms,
-                         "peak_gb_above_model": (torch.cuda.max_memory_allocated() - base) / 1e9}
-        except torch.cuda.OutOfMemoryError as exc:
-            out[mode] = {"error": f"OutOfMemoryError: {str(exc).splitlines()[0]}"}
-        log(f"Swin-B step at {batch}, remat {mode}: {json.dumps(out[mode])}")
-        del model
-        torch.cuda.empty_cache()
-    return out
-
-
-def swin_main(torch) -> int:
-    """``chip_smoke.py --swin``: the build, K4 and the biased kernel against
-    their plain versions, Swin-B's epoch on the main path with its launches
-    counted, K4's time at the JPM trunk's shape, the biased kernel's timings
-    beside the SDPA forms, and Swin-B's step under each remat mode."""
-    card, dev, _ = phase_device(torch)
-    k4_err, _ = phase_k4(torch, dev)
-    wattn_err, wattn_bwd = phase_wattn(torch, dev)
-    launched = phase_swin_train(torch, dev, make_train_dataset(), Counts())
-    k4 = _time_k4(torch, dev)[0]
-    wattn = _wattn_entry(torch, dev, launched["wattn_bias_mma"], wattn_err, wattn_bwd)
-    steps = _time_swin_steps(torch, dev)
-    stages = [wattn] + wattn["at_stages"]
-    log(f"K4 (unbiased) at (384, 211, 12, 64) bf16: {k4['ms']:.4f} ms (bound "
-        f"{k4['bound_ms']:.4f} ms)")
-    log(f"biased kernel, one Swin-B forward of 384 (each stage's blocks, shifted form): "
-        f"{sum(n * e['ms'] for n, e in zip((2, 2, 18, 2), stages)):.3f} ms, bound "
-        f"{sum(n * e['bound_ms'] for n, e in zip((2, 2, 18, 2), stages)):.3f} ms, fastest "
-        f"single SDPA call {sum(n * e['library_ms'] for n, e in zip((2, 2, 18, 2), stages)):.3f}"
-        f" ms, the model's SDPA route "
-        f"{sum(n * e['model_sdpa_route_ms'] for n, e in zip((2, 2, 18, 2), stages)):.3f} ms")
-    print(json.dumps({"kernels": [wattn]}), flush=True)
-    print(json.dumps({"swin": {"card": card, "k4_ms": k4["ms"], "k4_max_abs_err": k4_err,
-                               "launches": launched, "steps": steps}}), flush=True)
-    return 0
+    log(f"the biased kernel in one Swin-B forward of {SWIN_STAGES[0][0]} (each stage's blocks, "
+        f"shifted form): " + ", ".join(
+            f"{key} {sum(n * e[key] for n, e in zip(SWIN_DEPTHS, entries)):.3f} ms"
+            for key in ("ms", "bound_ms", "library_ms", "model_sdpa_route_ms")
+            if all(e[key] is not None for e in entries)))
+    return {"wattn_bias_mma": {**entries[0], "at_stages": entries[1:],
+                               "max_abs_err": max(e["max_abs_err"] for e in entries)}}
 
 
 # ---------------------------------------------------------------- phase 9b: K4's backward
@@ -2945,7 +2956,7 @@ def check_f32(torch, dev, shape, seed: int = 21) -> float:
 
 def phase_k4_grad(torch, dev) -> dict:
     """9b: the backward kernels against ``attention_backward`` at every shape
-    above. → the largest differences."""
+    above. → the kernels line's error fields."""
     worst = {"bf16": max(check_unbiased(torch, dev, shape) for shape in GRAD_UNBIASED)}
     biased = [check_biased(torch, dev, stage, g) for stage, g in GRAD_BIASED]
     worst["bias_bf16"] = max(b[0] for b in biased)
@@ -2956,7 +2967,8 @@ def phase_k4_grad(torch, dev) -> dict:
         f"(max |diff| {worst['bf16']:.3g}), {len(biased)} biased (max |diff| "
         f"{worst['bias_bf16']:.3g}, dbias {worst['dbias_relative']:.3g} of its largest entry), "
         f"{len(GRAD_F32)} f32 (max |diff| {worst['f32']:.3g}); two calls bit-equal each")
-    return worst
+    return {"k4_grad": {"max_abs_err": max(worst["bf16"], worst["f32"])},
+            "wattn_grad_mma": {"max_abs_err": worst["bias_bf16"]}}
 
 
 def _fa_module():
@@ -2985,11 +2997,11 @@ def _sdpa_train_ms(torch, q, k, v, g, mask=None) -> float | None:
                                     f"{tuple(q.shape)}{' with a mask' if mask is not None else ''}")
 
 
-def _time_k4_grad(torch, dev) -> list:
+def _time_k4_grad(torch, dev) -> dict:
     """The unbiased backward at the JPM train shapes in bf16, on the qkv
-    views the model hands over: kernels, bound (q, k, v, dO read and dq, dk,
-    dv written once; five products of 2 N^2 D a row and head), the plain
-    backward, SDPA's forward + backward."""
+    views the model hands over: kernels, bound, the plain backward, SDPA's
+    forward + backward; → the entry, timed at N = 211 (N = 53 under
+    ``at_n53``)."""
     fa = _fa_module()
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
@@ -3001,21 +3013,25 @@ def _time_k4_grad(torch, dev) -> list:
         ms = cuda_ms(torch, lambda: fa._backward(q, k, v, g), reps=20)
         plain_ms = cuda_ms(torch, lambda: fa.attention_backward(q, k, v, g), reps=3, warmup=1)
         lib_ms = _sdpa_train_ms(torch, *(t.transpose(1, 2) for t in (q, k, v, g)))
-        entries.append(_timing(f"B={b} N={n} H={h} D={d} bf16, q/k/v views of one qkv tensor",
-                               ms, plain_ms, lib_ms, 7 * b * n * h * d * 2,
-                               10 * b * h * n * n * d, "bf16", 0.0))
+        entries.append(_timing("k4_grad", shape,
+                               f"B={b} N={n} H={h} D={d} bf16, q/k/v views of one qkv tensor",
+                               ms, plain_ms, lib_ms, 0.0))
         log(f"timing K4's backward at {shape}: {json.dumps(entries[-1])}")
         del q, k, v, g
     torch.cuda.empty_cache()
-    return entries
+    log(f"K4's backward in one JPM step of {K4_TRAIN_SHAPES[0][0]}: 12 x N=211 + 4 x N=53 = "
+        + ", ".join(f"{key} {12 * entries[0][key] + 4 * entries[1][key]:.3f} ms"
+                    for key in ("ms", "bound_ms", "plain_ms")))
+    return {"k4_grad": {**entries[0], "at_n53": entries[1]}}
 
 
-def _time_wattn_grad(torch, dev) -> list:
+def _time_wattn_grad(torch, dev) -> dict:
     """The biased backward at Swin-B's four stages, batch 384, unshifted (G =
-    1) and shifted (G = windows): kernel and its dbias sum, bound (q, k, v,
-    dO, dq, dk, dv once in bf16, the bias and dbias once in f32), the plain
+    1) and shifted (G = windows): kernel and its dbias sum, bound, the plain
     backward, and SDPA's forward + backward in the 4-d form (images, windows
-    x heads, N, D) with the bias as a mask whose gradient it takes."""
+    x heads, N, D) with the bias as a mask whose gradient it takes; → the
+    entry, timed at the first stage shifted (the other forms under
+    ``at_stages``)."""
     fa = _fa_module()
     gen = torch.Generator(device=dev)
     gen.manual_seed(24)
@@ -3032,447 +3048,20 @@ def _time_wattn_grad(torch, dev) -> list:
                     for t in (q, k, v, g)]
             mask = bias.to(torch.bfloat16).expand(nw, h, n, n).reshape(1, nw * h, n, n)
             lib_ms = _sdpa_train_ms(torch, *four[:3], four[3], mask)
-            rows = b * nw
             entries.append(_timing(
+                "wattn_grad_mma", (b, nw, n, h, d, groups),
                 f"images={b} windows={nw} N={n} H={h} D={d} G={groups} bf16", ms, plain_ms,
-                lib_ms, 7 * rows * n * h * d * 2 + 2 * groups * h * n * n * 4,
-                10 * rows * h * n * n * d, "bf16", 0.0))
+                lib_ms, 0.0))
             log(f"timing the biased backward at {stage} G={groups}: {json.dumps(entries[-1])}")
             del q, k, v, bias, g, four, mask
     torch.cuda.empty_cache()
-    return entries
-
-
-def _grad_entries(torch, dev, launches: dict, errs: dict) -> dict:
-    """The kernels line's entries of the backward: ``k4_grad`` timed at the
-    JPM trunk's shape (N = 53 under ``at_n53``), ``wattn_grad_mma`` at
-    Swin-B's first stage, shifted (the other forms under ``at_stages``)."""
-    k4 = _time_k4_grad(torch, dev)
-    wattn = _time_wattn_grad(torch, dev)
-    out = {"k4_grad": {"name": "k4_grad", "route": "cuda", **KERNELS["k4_grad"], **k4[0],
-                       "at_n53": k4[1], "max_abs_err": max(errs["bf16"], errs["f32"])},
-           "wattn_grad_mma": {"name": "wattn_grad_mma", "route": "cuda",
-                              **KERNELS["wattn_grad_mma"], **wattn[1],
-                              "at_stages": wattn[:1] + wattn[2:],
-                              "max_abs_err": errs["bias_bf16"]}}
-    for name, entry in out.items():
-        entry["launches"] = launches.get(name, 0)
-    return out
-
-
-def grad_main(torch) -> int:
-    """``chip_smoke.py --grad``: the build, phase 9b, the backward kernels'
-    timings, and phases 11 and 11a (the JPM's and Swin-B's epochs on the
-    main path), each counted from a fresh ``Counts``: the backward's
-    launches on the kernels line are theirs."""
-    card, dev, ptxas = phase_device(torch)
-    errs = phase_k4_grad(torch, dev)
-    root = make_train_dataset()
-    launches = {"k4_grad": phase_transformer_train(torch, dev, root, Counts())["k4_grad"],
-                "wattn_grad_mma": phase_swin_train(torch, dev, root, Counts())["wattn_grad_mma"]}
-    entries = _grad_entries(torch, dev, launches, errs)
-    for name, entry in entries.items():
-        entry["ptxas"] = {k: ptxas.get("attention_grad", {}).get(k) for k in PATH_KERNELS[name]}
-    k4, wattn = entries["k4_grad"], entries["wattn_grad_mma"]
-    stages = [wattn["at_stages"][0], wattn] + wattn["at_stages"][1:]  # stage 0 G=1, G=nW, ...
-    by_stage = [stages[2 * i:2 * i + 2] for i in range(4)]
-    per_step = {key: sum(((d + 1) // 2) * u[key] + (d // 2) * s[key]
-                         for d, (u, s) in zip((2, 2, 18, 2), by_stage))
-                for key in ("ms", "bound_ms", "plain_ms", "library_ms")
-                if all(e[key] is not None for e in stages)}
-    log(f"K4's backward in one JPM step of 384: 12 x N=211 + 4 x N=53 = "
-        f"{12 * k4['ms'] + 4 * k4['at_n53']['ms']:.3f} ms (bound "
-        f"{12 * k4['bound_ms'] + 4 * k4['at_n53']['bound_ms']:.3f} ms, plain "
-        f"{12 * k4['plain_ms'] + 4 * k4['at_n53']['plain_ms']:.3f} ms)")
-    log(f"the biased backward in one Swin-B step of 384 (each stage's unshifted and shifted "
-        f"blocks): {json.dumps(per_step)}")
-    print(json.dumps({"kernels": list(entries.values())}), flush=True)
-    print(json.dumps({"grad": {"card": card, "errors": errs, "launches": launches,
-                               "per_swin_step": per_step}}), flush=True)
-    return 0
-
-
-def _time_remat(torch, dev, trainer, images_u8, images, rest, camids) -> dict:
-    """21a and 21e: the JPM step with K4 under each remat mode on the same
-    weights and batch. First the gradient of one forward and backward from
-    one drop-path generator state, under ``none`` twice, ``full`` and
-    ``tuned`` (cuDNN's deterministic algorithms, so that the patch
-    embedding's weight gradient sums in one order): every gradient and the
-    generator's state after it must be bit-equal to ``none``'s, and K4
-    launch 16 times a forward plus 16 in ``full``'s recompute. Then each
-    mode's step time, img/s and peak memory, and a ``profile_to`` trace of
-    one ``tuned`` step around a ``phase`` span, which the trace must name."""
-    from daliid_tpu_torch.ops.flash_attention import flash_attention
-    from daliid_tpu_torch.utils import phase, profile_to
-
-    model = trainer.online
-    set_fused_attention(model, True)
-    params = [p for p in model.parameters() if p.requires_grad]
-    start = trainer._drop_gen.get_state()
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    runs = {}
-    try:
-        for run in ("none", "none_again", "full", "tuned"):
-            mode = run.split("_")[0]
-            set_remat(model, mode)
-            trainer._drop_gen.set_state(start)
-            before = flash_attention.launches
-            trainer.forward_backward(images, *rest, camids)
-            torch.cuda.synchronize(dev)
-            runs[run] = ([p.grad.clone() for p in params], trainer._drop_gen.get_state(),
-                         flash_attention.launches - before)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-    base_grads, base_state, _ = runs["none"]
-    report = {}
-    for run, (grads, state, k4) in runs.items():
-        recompute = K4_PER_FORWARD["transreid_jpm"] if run == "full" else 0
-        check(k4 == K4_PER_FORWARD["transreid_jpm"] + recompute,
-              f"remat {run}: K4 launched {k4} times in a forward and backward")
-        rel = max(float((g - b).norm() / b.norm().clamp_min(1e-30))
-                  for g, b in zip(grads, base_grads))
-        equal = all(torch.equal(g, b) for g, b in zip(grads, base_grads))
-        check(equal and torch.equal(state, base_state),
-              f"remat {run}: the gradient (largest relative L2 {rel:.3g}) or the drop-path "
-              f"generator's state differs from none's")
-        report[run] = {"k4_launches": k4, "grads_bit_equal_to_none": equal}
-    del runs
-    for mode in ("none", "full", "tuned"):
-        set_remat(model, mode)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        step_ms = cuda_ms(torch, lambda: trainer.train_step(images_u8, *rest, camids),
-                          reps=5, warmup=2)
-        report[mode].update({"step_ms": step_ms, "img_per_s": images.shape[0] / step_ms * 1e3,
-                             "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
-    trace_dir = WORK / "profile_remat"
-    shutil.rmtree(trace_dir, ignore_errors=True)
-    with profile_to(str(trace_dir)):
-        with phase("remat_tuned_train_step", block_on=images) as elapsed:
-            m = trainer.train_step(images_u8, *rest, camids)
-    trace = trace_dir / "trace.json"
-    check(trace.exists() and "remat_tuned_train_step" in trace.read_text(),
-          f"profile_to wrote no trace naming the phase span under {trace_dir}")
-    report["profiled_tuned_step"] = {"phase_s": elapsed(), "trace_mb": trace.stat().st_size / 1e6,
-                                     "loss": float(m[0])}
-    set_remat(model, "none")
-    log(f"21a JPM train step with K4 under remat (bf16, {images.shape[0]} images, CUDA events; "
-        f"gradients bit-equal to none's): {json.dumps(report)}")
-    return report
-
-
-def _time_jpm(torch, dev, root):
-    """One TransReID-JPM train step at 384 images (bf16), split with CUDA
-    events into K1, forward+backward and Adam+EMA, with peak device memory,
-    once with K4 and once with SDPA on the same weights; the step with K4
-    under each remat mode (``_time_remat``); then JPM extraction img/s at
-    batch 512 both ways."""
-    from daliid_tpu_torch.augment.preprocess import normalize_images
-    from daliid_tpu_torch.data import load_dataset
-    from daliid_tpu_torch.models import build_model_pair
-    from daliid_tpu_torch.train.sampler import PKBatchSampler
-    from daliid_tpu_torch.train.trainer import Trainer
-
-    table = load_dataset("Synthetic", root=str(root))["train"]
-    online, momentum = build_model_pair(
-        "transreid_jpm", torch.Generator().manual_seed(12), img_size=IMG, dtype=torch.bfloat16,
-        device=dev, num_classes=table.num_ids, use_fused_attention=True)
-    sampler = PKBatchSampler(table, table.pids, P=P, K=K, kind_of_transform=1,
-                             turbulence_dir=str(root / "Synthetic" / "turbulence"), seed=12)
-    trainer = Trainer(online, momentum, sampler, img_size=IMG, tau=0.05, lambda_proxy=0.4,
-                      compute_dtype=torch.bfloat16, extractor_batch=EXTRACT_BATCH)
-    pset = trainer.mine_proxies()
-    put = lambda a: torch.as_tensor(a, device=dev)
-    rest = (put(pset.centers), put(pset.proxies), put(pset.proxy_labels).long(), 1)
-    batch = next(iter(sampler.epoch()))
-    images_u8, labels, distortions, mask, camids = (t.to(dev) for t in trainer._stage(batch))
-    rest = (labels, distortions, mask) + rest
-    images = trainer.augment(images_u8)
-    out = {"batch": images_u8.shape[0]}
-    for route in ("k4", "sdpa"):
-        set_fused_attention(trainer.online, route == "k4")
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        step_ms = cuda_ms(torch, lambda: trainer.train_step(images_u8, *rest, camids),
-                          reps=5, warmup=2)
-        peak = torch.cuda.max_memory_allocated(dev)
-        fb_ms = cuda_ms(torch, lambda: trainer.forward_backward(images, *rest, camids), reps=5)
-        out[route] = {"step_ms": step_ms, "img_per_s": out["batch"] / step_ms * 1e3,
-                      "augment_ms": cuda_ms(torch, lambda: trainer.augment(images_u8), reps=20),
-                      "forward_backward_ms": fb_ms,
-                      "adam_ema_ms": cuda_ms(torch, trainer.apply_update, reps=5),
-                      "peak_memory_gb": peak / 1e9}
-    out["remat"] = _time_remat(torch, dev, trainer, images_u8, images, rest, camids)
-    model = trainer.extractor.bundle.module
-    x = torch.randint(0, 256, (EXTRACT_BATCH, *IMG, 3), dtype=torch.uint8, device=dev)
-
-    def fwd():
-        with torch.inference_mode():
-            return model(normalize_images(x, dtype=torch.bfloat16)).float()
-
-    for route in ("k4", "sdpa"):
-        set_fused_attention(model, route == "k4")
-        ms = cuda_ms(torch, fwd, reps=5, warmup=2)
-        out[route]["extract_ms_at_512"] = ms
-        out[route]["extract_img_per_s_at_512"] = EXTRACT_BATCH / ms * 1e3
-    log(f"JPM (bf16, 256x128, {out['batch']} images a step, CUDA events): {json.dumps(out)}")
-    del trainer, online, momentum, images, x
-    return out
-
-
-def _profile_steps(torch, step, steps: int) -> dict:
-    """``torch.profiler`` over ``steps`` calls of ``step``: the device's busy
-    time a step (the union of its kernels' spans), the share of the wall
-    time it is busy, and the kernels that take most of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    # kernels and copies on the device; user ranges (such as the optimizer's
-    # step annotation) span them and would count their gaps as busy
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    check(len(spans) > 0, "the profiler saw no kernel on the device")
-    busy, end, by_name = 0.0, float("-inf"), {}
-    for s, e, name in spans:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    bn = sum(t for name, t in by_name.items() if "batch_norm" in name)
-    return {"profiled_device_busy_ms_per_step": busy / 1e3 / steps,
-            "profiled_busy_share": busy / 1e6 / wall,
-            "kernels_per_step": len(spans) / steps,
-            "batch_norm_kernels_ms_per_step": bn / 1e3 / steps,
-            "top_kernels_ms_per_step": {name[:80]: t / 1e3 / steps for name, t in top}}
-
-
-def _time_train_step(torch, dev, root):
-    """One train step at the path's shape, split with CUDA events into K1
-    augment, forward+backward and Adam+EMA; the whole step's img/s and peak
-    device memory; the host decode time of one batch and the prefetching
-    loop's steady rate with the native loader and with PIL (the native
-    loader's batch held against PIL's, mean |diff| < 1.5, p99 <= 6)."""
-    import numpy as np
-
-    from daliid_tpu_torch.data import load_dataset, native_loader
-    from daliid_tpu_torch.models import build_model_pair
-    from daliid_tpu_torch.train.sampler import PKBatchSampler
-    from daliid_tpu_torch.train.trainer import Trainer
-
-    table = load_dataset("Synthetic", root=str(root))["train"]
-    online, momentum = build_model_pair("resnet50", torch.Generator().manual_seed(12),
-                                        dtype=torch.bfloat16, device=dev)
-    sampler = PKBatchSampler(table, table.pids, P=P, K=K, kind_of_transform=1,
-                             turbulence_dir=str(root / "Synthetic" / "turbulence"), seed=12)
-    trainer = Trainer(online, momentum, sampler, img_size=IMG, tau=0.05, lambda_proxy=0.4,
-                      compute_dtype=torch.bfloat16, extractor_batch=512)
-    pset = trainer.mine_proxies()
-    put = lambda a: torch.as_tensor(a, device=dev)
-    centers, proxies, proxy_labels = put(pset.centers), put(pset.proxies), \
-        put(pset.proxy_labels).long()
-    batch = next(iter(sampler.epoch()))
-    rest = (centers, proxies, proxy_labels, 1)
-    batches = [b for _ in range(PIPELINE_BATCHES // 2) for b in sampler.epoch()]
-    default_workers = trainer.decode_workers
-    decoders = {"pil": False}
-    if native_loader.native_loader_available():
-        decoders = {"native": True, "pil": False}
-        native = trainer._decode_batch(batch.paths)
-    host = {}
-    available = native_loader.native_loader_available
-    try:
-        for decoder, on in decoders.items():
-            # PIL takes over the same decode calls while the loader is switched off
-            native_loader.native_loader_available = available if on else (lambda: False)
-            decoded = trainer._decode_batch(batch.paths)  # warm the decode path
-            if decoder == "pil" and "native" in decoders:
-                diff = np.abs(native.astype(np.int32) - decoded.astype(np.int32))
-                check(diff.mean() < 1.5 and np.percentile(diff, 99) <= 6,
-                      f"the native loader differs from PIL: mean |diff| {diff.mean():.3f}")
-                host["native_vs_pil_mean_abs_diff"] = float(diff.mean())
-            decode_ms = {}
-            for workers in sorted({1, 4, default_workers}):
-                trainer.decode_workers = workers
-                t0 = time.time()
-                for _ in range(2):
-                    trainer._decode_batch(batch.paths)
-                decode_ms[workers] = (time.time() - t0) / 2 * 1e3
-            trainer.decode_workers = default_workers
-            # the train loop as it runs: decode on the prefetch thread, steps on
-            # the card; timed from the second batch's arrival, after the fill
-            arrivals = []
-            for images_u8, labels, distortions, mask, _ in trainer.staged_batches(batches):
-                arrivals.append(time.time())
-                trainer.train_step(images_u8, labels, distortions, mask, *rest)
-            torch.cuda.synchronize(dev)
-            pipeline_ms = (time.time() - arrivals[1]) / (len(batches) - 1) * 1e3
-            host[decoder] = {"host_decode_ms_per_batch": decode_ms[default_workers],
-                             "host_decode_ms_by_threads": decode_ms,
-                             "pipeline_ms_per_step": pipeline_ms,
-                             "pipeline_img_per_s": len(batch.paths) / pipeline_ms * 1e3}
-    finally:
-        native_loader.native_loader_available = available
-    path = host["native" if "native" in decoders else "pil"]
-    images_u8, labels, distortions, mask, _ = (t.to(dev) for t in trainer._stage(batch))
-    rest = (labels, distortions, mask) + rest
-    images = trainer.augment(images_u8)
-    torch.cuda.reset_peak_memory_stats(dev)
-    step_ms = cuda_ms(torch, lambda: trainer.train_step(images_u8, *rest), reps=10, warmup=3)
-    peak = torch.cuda.max_memory_allocated(dev)
-    aug_ms = cuda_ms(torch, lambda: trainer.augment(images_u8), reps=20)
-    fb_ms = cuda_ms(torch, lambda: trainer.forward_backward(images, *rest), reps=10)
-    upd_ms = cuda_ms(torch, trainer.apply_update, reps=10)
-    b = images_u8.shape[0]
-    split = {"batch": b, "step_ms": step_ms, "img_per_s": b / step_ms * 1e3,
-             "augment_ms": aug_ms, "forward_backward_ms": fb_ms, "adam_ema_ms": upd_ms,
-             "peak_memory_gb": peak / 1e9, **path, "host_by_decoder": host,
-             "host_cpus": os.cpu_count(), "pipeline_steps": len(batches) - 1,
-             **_profile_steps(torch, lambda: trainer.train_step(images_u8, *rest), steps=3)}
-    log(f"train step (ResNet-50 bf16, {b} images of 256x128, CUDA events): {json.dumps(split)}")
-    del trainer, online, momentum, images
-    return split
-
-
-def _time_extraction(torch, dev):
-    from daliid_tpu_torch.augment.preprocess import normalize_images
-    from daliid_tpu_torch.models import get_model
-
-    bundle = get_model("resnet50", torch.Generator().manual_seed(12), dtype=torch.bfloat16,
-                       device=dev)
-    rates = {}
-    for batch in (64, 512):
-        x = torch.randint(0, 256, (batch, 256, 128, 3), dtype=torch.uint8, device=dev)
-
-        def fwd():
-            with torch.inference_mode():
-                return bundle.module(normalize_images(x, dtype=torch.bfloat16)).float()
-
-        ms = cuda_ms(torch, fwd, reps=10, warmup=3)
-        rates[batch] = batch / ms * 1e3
-        log(f"ResNet-50 bf16 256x128 forward (normalize included) at batch {batch}: "
-            f"{ms:.3f} ms, {rates[batch]:.1f} img/s")
-    return rates
-
-
-def _time_zoo_extraction(torch, dev) -> dict:
-    """Each zoo family's bf16 forward at batch 512 (normalize included):
-    ms, img/s and peak device memory."""
-    from daliid_tpu_torch.augment.preprocess import normalize_images
-    from daliid_tpu_torch.models import get_model
-
-    x = torch.randint(0, 256, (EXTRACT_BATCH, *IMG, 3), dtype=torch.uint8, device=dev)
-    out = {}
-    for name in ZOO:
-        bundle = get_model(name, torch.Generator().manual_seed(12), dtype=torch.bfloat16,
-                           device=dev)
-
-        def fwd():
-            with torch.inference_mode():
-                return bundle.module(normalize_images(x, dtype=torch.bfloat16)).float()
-
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        ms = cuda_ms(torch, fwd, reps=10, warmup=3)
-        out[name] = {"ms": ms, "img_per_s": EXTRACT_BATCH / ms * 1e3,
-                     "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-        log(f"{name} bf16 256x128 forward at batch {EXTRACT_BATCH}: {json.dumps(out[name])}")
-        del bundle
-    return out
-
-
-def _time_densenet_train_step(torch, dev, root) -> dict:
-    """One ``densenet121`` train step (classifier head of one class per
-    training identity, bf16, 384 images) with CUDA events: ms, img/s, peak
-    device memory."""
-    from daliid_tpu_torch.data import load_dataset
-    from daliid_tpu_torch.models import build_model_pair
-    from daliid_tpu_torch.train.sampler import PKBatchSampler
-    from daliid_tpu_torch.train.trainer import Trainer
-
-    table = load_dataset("Synthetic", root=str(root))["train"]
-    online, momentum = build_model_pair("densenet121", torch.Generator().manual_seed(12),
-                                        dtype=torch.bfloat16, device=dev,
-                                        num_classes=table.num_ids)
-    sampler = PKBatchSampler(table, table.pids, P=P, K=K, kind_of_transform=1,
-                             turbulence_dir=str(root / "Synthetic" / "turbulence"), seed=12)
-    trainer = Trainer(online, momentum, sampler, img_size=IMG, tau=0.05, lambda_proxy=0.4,
-                      compute_dtype=torch.bfloat16, extractor_batch=EXTRACT_BATCH)
-    pset = trainer.mine_proxies()
-    put = lambda a: torch.as_tensor(a, device=dev)
-    rest = (put(pset.centers), put(pset.proxies), put(pset.proxy_labels).long(), 1)
-    images_u8, labels, distortions, mask, _ = (t.to(dev) for t in trainer._stage(
-        next(iter(sampler.epoch()))))
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    ms = cuda_ms(torch, lambda: trainer.train_step(images_u8, labels, distortions, mask, *rest),
-                 reps=5, warmup=2)
-    b = images_u8.shape[0]
-    out = {"batch": b, "step_ms": ms, "img_per_s": b / ms * 1e3,
-           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-    log(f"densenet121 train step (bf16, {b} images of 256x128, CUDA events): {json.dumps(out)}")
-    del trainer, online, momentum
-    return out
-
-
-def _time_rerank(torch, dev) -> dict:
-    """``re_ranking`` at Market-1501's protocol shape (Q=3,368, G=15,913:
-    N = 19,281) on cosine distances of random unit 2048-d embeddings: ms
-    and the peak device memory above its three input matrices; and the
-    re-ranked search of 200 probes over a 400-row SQ8 index at depth 64
-    (host clock, the call returns numpy), with its device re-ranking alone
-    (CUDA events)."""
-    import numpy as np
-
-    from daliid_tpu_torch.eval.matcher import GalleryIndex
-    from daliid_tpu_torch.eval.rerank import re_ranking, rerank_shortlists
-    from daliid_tpu_torch.metrics.ranking import cosine_distance_matrix
-
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    unit = lambda n: torch.nn.functional.normalize(
-        torch.randn(n, 2048, device=dev, generator=gen), dim=1)
-    q, g = unit(3368), unit(15913)
-    mats = [cosine_distance_matrix(a, b) for a, b in ((q, g), (q, q), (g, g))]
-    del q, g
-    torch.cuda.synchronize(dev)
-    base = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    first = re_ranking(*mats)
-    torch.cuda.synchronize(dev)
-    peak = torch.cuda.max_memory_allocated(dev) - base
-    check(bool(torch.isfinite(first).all()) and first.shape == (3368, 15913),
-          "re_ranking at Market's shape is not finite")
-    del first
-    ms = cuda_ms(torch, lambda: re_ranking(*mats), reps=3, warmup=1)
-    del mats
-    out = {"market_ms": ms, "market_peak_memory_gb": peak / 1e9}
-
-    rng = np.random.default_rng(7)
-    rows = rng.normal(size=(400, 2048)).astype(np.float32)
-    probes = rows[rng.integers(0, 400, 200)] + 0.3 * rng.normal(size=(200, 2048)).astype(
-        np.float32)
-    index = GalleryIndex(rows, np.arange(400), quantize="int8", device=dev)
-    search = lambda: index.search(probes, k=10, rerank=True, rerank_depth=64)
-    search()
-    t0 = time.time()
-    for _ in range(5):
-        search()
-    out["search_q200_g400_depth64_ms"] = (time.time() - t0) / 5 * 1e3
-    fulls = torch.rand(200, 65, 65, device=dev, generator=gen)
-    fulls = (fulls + fulls.transpose(1, 2)) / 2
-    out["shortlists_q200_depth64_device_ms"] = cuda_ms(
-        torch, lambda: rerank_shortlists(fulls, 20, 6, 0.3), reps=10)
-    log(f"re-ranking timings: {json.dumps(out)}")
-    return out
+    # each stage's unshifted (G = 1) and shifted blocks, in turn from the unshifted
+    by_stage = [entries[2 * i:2 * i + 2] for i in range(len(SWIN_STAGES))]
+    log(f"the biased backward in one Swin-B step of {SWIN_STAGES[0][0]}: " + ", ".join(
+        f"{key} {sum(((d + 1) // 2) * u[key] + (d // 2) * s[key] for d, (u, s) in zip(SWIN_DEPTHS, by_stage)):.3f} ms"
+        for key in ("ms", "bound_ms", "plain_ms", "library_ms")
+        if all(e[key] is not None for e in entries)))
+    return {"wattn_grad_mma": {**entries[1], "at_stages": entries[:1] + entries[2:]}}
 
 
 def _time_conv_int8(torch, dev, shapes) -> dict:
@@ -3484,7 +3073,8 @@ def _time_conv_int8(torch, dev, shapes) -> dict:
     sum), the route of PyTorch calls ``quantize_sym`` + im2col +
     ``torch._int_mm`` (groups = 1; its int32 held equal to the kernel's),
     cuDNN's bf16 convolution of the same shape (context), and the kernel on
-    the input already quantized to int8; → {(model, layer): timing}."""
+    the input already quantized to int8; → the entry, timed at
+    ``CONV_MAIN`` (every shape under ``at_shapes``)."""
     import torch.nn.functional as F
 
     from daliid_tpu_torch.ops.conv_int8 import (
@@ -3534,9 +3124,8 @@ def _time_conv_int8(torch, dev, shapes) -> dict:
             memory_format=torch.channels_last)
         cudnn_ms = cuda_ms(torch, lambda: F.conv2d(x, w_bf, None, geo["stride"],
                                                    geo["padding"], 1, geo["groups"]), reps=20)
-        m = n_b * ho * wo
-        bytes_ = x.numel() * x.element_size() + wq.numel() + 4 * o + 2 * m * o
-        t = _timing(_geo_str(key, geo), ms, plain_ms, None, bytes_, 2 * m * o * k, "int8", 0.0)
+        t = _timing("conv_int8", (x.numel() * x.element_size(), wq.numel(), n_b * ho * wo, o, k),
+                    _geo_str(key, geo), ms, plain_ms, None, 0.0)
         t.update({"plan": kernel_plan(x.shape, wq.shape, *args),
                   "im2col_int_mm_ms": lib_ms, "cudnn_bf16_ms": cudnn_ms,
                   "int8_input_ms": int8_in_ms})
@@ -3546,7 +3135,10 @@ def _time_conv_int8(torch, dev, shapes) -> dict:
             f"{plain_ms:.3f} ms, quantize_sym + im2col + _int_mm {lib_ms} ms (int32 equal: "
             f"{lib_equal}), cuDNN bf16 {cudnn_ms:.4f} ms")
         del x, xq, wq, w_bf, y
-    return out
+    return {"conv_int8": {**out[CONV_MAIN], "at_shapes": [
+        {k: t[k] for k in ("shape", "plan", "ms", "bound_ms", "bound_by", "plain_ms",
+                           "im2col_int_mm_ms", "cudnn_bf16_ms", "int8_input_ms")}
+        for t in out.values()]}}
 
 
 def _resnet50_int8(torch, dev, root_module=None):
@@ -3567,13 +3159,10 @@ def _resnet50_int8(torch, dev, root_module=None):
     return module, x, plan, q8
 
 
-def _profile_int8_resnet(torch, dev) -> dict:
-    """One ``torch.profiler`` pass over the int8 ResNet-50 forward at batch
-    512 (the normalized batch made before it): the device time of
-    conv_int8's kernels against everything else, that no quantize pass
-    (``aten::round`` / ``aten::clamp``) runs, and that conv_int8 launched
-    once for each of the 53 convolutions."""
-    from torch.autograd import DeviceType
+def check_int8_resnet_forward(torch, dev) -> None:
+    """The int8 ResNet-50 forward at batch 512 under ``torch.profiler``:
+    conv_int8 launched once for each of its 53 convolutions, and no quantize
+    pass (``aten::round`` / ``aten::clamp``) run beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     from daliid_tpu_torch.ops.conv_int8 import conv_int8
@@ -3591,67 +3180,18 @@ def _profile_int8_resnet(torch, dev) -> dict:
         fwd()
         torch.cuda.synchronize(dev)
     launched = conv_int8.launches - before
-    ops = {e.key for e in prof.key_averages()}
-    kernels = [e for e in prof.events()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    check(len(kernels) > 0, "the profiler saw no kernel on the device")
-    conv_us = sum(e.time_range.elapsed_us() for e in kernels
-                  if "conv_wgmma" in e.name or "conv_dw" in e.name)
-    total_us = sum(e.time_range.elapsed_us() for e in kernels)
-    quantize_ops = sorted(op for op in ops if op in ("aten::round", "aten::clamp"))
+    quantize_ops = sorted({e.key for e in prof.key_averages()} & {"aten::round", "aten::clamp"})
     check(launched == 53, f"the int8 ResNet-50 forward launched conv_int8 {launched} times, "
                           f"not once for each of its 53 convolutions")
     check(not quantize_ops, f"the int8 ResNet-50 forward ran quantize passes {quantize_ops}")
-    top = {}
-    for e in kernels:
-        top[e.name[:80]] = top.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
-    out = {"conv_int8_launches": launched, "conv_int8_device_ms": conv_us / 1e3,
-           "other_device_ms": (total_us - conv_us) / 1e3, "kernels": len(kernels),
-           "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:8])}
-    log(f"profiled int8 ResNet-50 forward at batch {EXTRACT_BATCH}: {json.dumps(out)}; no "
+    log(f"int8 ResNet-50 forward at batch {EXTRACT_BATCH} (profiled): conv_int8 53 launches, no "
         f"aten::round / aten::clamp")
     del module, x, plan
-    return out
-
-
-def _time_int8_extraction(torch, dev) -> dict:
-    """Each model's int8 forward at batch 512 (normalize included, scales
-    calibrated on the batch) against its bf16 forward in the same call:
-    ms, img/s, the int8 run's peak device memory. ViT-B with K4."""
-    from daliid_tpu_torch.augment.preprocess import normalize_images
-    from daliid_tpu_torch.models import get_model
-    from daliid_tpu_torch.ops import quantize as q8
-
-    x = torch.randint(0, 256, (EXTRACT_BATCH, *IMG, 3), dtype=torch.uint8, device=dev)
-    out = {}
-    for name in ("resnet50", *ZOO, "vit"):
-        kw = {"use_fused_attention": True} if name == "vit" else {}
-        module = get_model(name, torch.Generator().manual_seed(12), img_size=IMG,
-                           dtype=torch.bfloat16, device=dev, **kw).module
-        plan = q8.prepare(module, q8.calibrate(module, normalize_images(x, dtype=torch.bfloat16)))
-
-        def fwd(plan):
-            with torch.inference_mode(), q8.quantized(module, plan):
-                return module(normalize_images(x, dtype=torch.bfloat16)).float()
-
-        bf16_ms = cuda_ms(torch, lambda: fwd({}), reps=10, warmup=3)
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        int8_ms = cuda_ms(torch, lambda: fwd(plan), reps=10, warmup=3)
-        peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        out[name] = {"int8_ms": int8_ms, "int8_img_per_s": EXTRACT_BATCH / int8_ms * 1e3,
-                     "bf16_ms": bf16_ms, "bf16_img_per_s": EXTRACT_BATCH / bf16_ms * 1e3,
-                     "int8_peak_memory_gb": peak, "int8_layers": len(plan)}
-        log(f"{name} int8 256x128 forward at batch {EXTRACT_BATCH}: {json.dumps(out[name])}")
-        del module, plan
-    return out
 
 
 # ---------------------------------------------------------------- phase 20: multi-process
 # the crash drill's runs: 3 epochs of 2 steps over the 32-identity train set
 DRILL_EPOCHS = 3
-# the gang's train step, timed over this many steps after 2 of warm-up
-GANG_STEPS = 5
 # the bounded-memory ranking's query chunk (MSMT17's 11,659 queries: 23 chunks)
 RANK_CHUNK = 512
 # how far two runs whose gradients differ in their last bits may part in a
@@ -3808,13 +3348,12 @@ def _drill_trainer(torch, dev, root, dtype_name: str = COMPUTE_DTYPE):
                    compute_dtype=dtype, extractor_batch=512)
 
 
-def phase_drill(torch, dev, root) -> dict:
+def phase_drill(torch, dev, root) -> None:
     """20a: the crash drill on one rank, on NCCL, and on one plain process."""
     import numpy as np
 
     from daliid_tpu_torch.train.checkpoint import CheckpointManager
 
-    t0 = time.time()
     # the clean gang run and the single-process drill at once (they share
     # nothing but the card)
     clean, single = _run_children(
@@ -3828,7 +3367,6 @@ def phase_drill(torch, dev, root) -> dict:
                  "training completed after 2 attempt(s)"):
         check(line in single, f"the single-process drill printed no {line!r}")
     check("multihost:" not in single, "supervise --multihost 0 started a gang")
-    t1 = time.time()
     snap = WORK / "drill_restore" / "1.pt"
     shutil.rmtree(snap.parent, ignore_errors=True)
 
@@ -3846,7 +3384,6 @@ def phase_drill(torch, dev, root) -> dict:
         check(line in fault, f"the NCCL drill printed no {line!r}")
     check(all(i["backend"] == "nccl" for i in _multihost_infos(fault)),
           "the drill's gang did not run on NCCL")
-    t2 = time.time()
     # what the resumed run restored: the epoch-1 checkpoint through the
     # Trainer and back, bit for bit
     check(snap.exists(), "no epoch-1 checkpoint when the trainer died")
@@ -3870,15 +3407,11 @@ def phase_drill(torch, dev, root) -> dict:
     exact = all(g["bit_equal"] == g["leaves"] for g in stitched.values())
     check(rng_equal, "the stitched run's RNG streams differ from the clean run's")
     check(exact, f"the stitched state is not the clean one bit for bit: {stitched}")
-    info = {"clean_and_single_s": t1 - t0, "fault_s": t2 - t1, "stitched_bit_exact": exact,
-            "stitched_vs_clean": stitched, "restored_bit_exact": True}
     log(f"20a crash drill (ResNet-50 {COMPUTE_DTYPE}, P{P} K{K} paired, {DRILL_EPOCHS} epochs "
         f"of {TRAIN_IDS // P} steps): supervise --multihost 1 on NCCL clean, beside supervise "
-        f"--multihost 0 (the process raises after epoch 2, resumes from 1) "
-        f"{info['clean_and_single_s']:.1f} s; SIGKILL of rank 0 after epoch 2 and resume from "
-        f"epoch 1 {info['fault_s']:.1f} s (restored state equal to the epoch-1 checkpoint bit "
-        f"for bit); stitched against clean: bit-exact {json.dumps(stitched)}")
-    return info
+        f"--multihost 0 (the process raises after epoch 2, resumes from 1); SIGKILL of rank 0 "
+        f"after epoch 2 and resume from epoch 1 (restored state equal to the epoch-1 checkpoint "
+        f"bit for bit); stitched against clean: bit-exact {json.dumps(stitched)}")
 
 
 def _to_cpu(torch, tree):
@@ -3947,6 +3480,7 @@ class _NativeBatchNorm:
     def __exit__(self, *exc):
         self.cls.forward = self.original
 
+
 def _first_step(torch, root, dtype_name: str) -> dict:
     """The drill's Trainer's first step up to Adam in ``dtype_name`` (this
     rank's block of the batch in a gang) → its flat gradient, summed over
@@ -3984,8 +3518,7 @@ def _gang_bn_check(torch) -> dict:
     ResNet-50's layer1 shape (384 x 256 x 64 x 32, channels-last,
     per-channel scales and shifts): the output, the input's and the
     affine's gradients and the running statistics, each's largest
-    |difference| over its largest |entry|; the forward + backward time of
-    all three."""
+    |difference| over its largest |entry|."""
     import copy
 
     from daliid_tpu_torch.models.norm import TorchBatchNorm
@@ -4027,50 +3560,7 @@ def _gang_bn_check(torch) -> dict:
         for k, tol in (("y", 2 ** -7), ("grad_x", 2 ** -7), ("grad_weight", 1e-3),
                        ("grad_bias", 1e-3), ("running_mean", 1e-4), ("running_var", 1e-4)):
             check(rel[ref][k] <= tol, f"the gang BN's fused {k} is off the {ref} BN: {rel}")
-    xi = x.detach().clone().requires_grad_(True)
-    times = {}
-    for name, fwd in routes.items():
-        bn = copy.deepcopy(base)
-        times[f"{name}_ms"] = cuda_ms(torch, lambda: fwd(bn, xi).backward(dy), reps=10, warmup=3)
-    return {"shape": list(x.shape), "fused_max_rel_err_against": rel, "forward_backward": times}
-
-
-def _gang_step(torch, root, steps: int) -> dict:
-    """The ResNet-50 train step at the path's batch (this rank's block of it
-    in a gang), host clock around synchronized steps, and, in a gang of more
-    than one rank, one all-reduce of a gradient's bytes (f32, every
-    parameter); a 1-rank all-reduce exchanges nothing."""
-    from daliid_tpu_torch.parallel import mesh
-
-    dev = torch.device("cuda")
-    trainer = _drill_trainer(torch, dev, root)
-    pset = trainer.mine_proxies()
-    put = lambda a: torch.as_tensor(a, device=dev)
-    rest = (put(pset.centers), put(pset.proxies), put(pset.proxy_labels).long(), 1)
-    images_u8, labels, dist, mask, _ = (t.to(dev) for t in trainer._stage(
-        next(iter(trainer.sampler.epoch()))))
-    step = lambda: trainer.train_step(images_u8, labels, dist, mask, *rest)
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(steps):
-        step()
-    torch.cuda.synchronize()
-    out = {"ranks": mesh.world(), "gang": mesh.active(), "rows_per_rank": images_u8.shape[0],
-           "step_ms": (time.time() - t0) / steps * 1e3}
-    if mesh.world() > 1:
-        grad = torch.ones(sum(p.numel() for p in trainer._params), device=dev)
-        mesh.all_reduce_(grad)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for _ in range(5):
-            mesh.all_reduce_(grad)
-        torch.cuda.synchronize()
-        out["all_reduce_mb"] = grad.numel() * 4 / 1e6
-        out["all_reduce_ms"] = (time.time() - t0) / 5 * 1e3
-    del trainer
-    return out
+    return {"shape": list(x.shape), "fused_max_rel_err_against": rel}
 
 
 def gang_child(torch, spec_path: str) -> int:
@@ -4087,18 +3577,8 @@ def gang_child(torch, spec_path: str) -> int:
     spec = json.loads(Path(spec_path).read_text())
     out = Path(spec["out"])
     counts = Counts()
-    init = distributed.initialize_multihost
-
-    def timed_init(*a, **kw):  # the CLIs' --multihost goes through here
-        t0 = time.time()
-        info = init(*a, **kw)
-        info["bootstrap_s"] = time.time() - t0
-        return info
-
-    distributed.initialize_multihost = timed_init
     for cmd in spec["commands"]:
         counts.reset()
-        t0 = time.time()
         arrays = {}
         with _RecordExtract() as rec:
             if cmd["kind"] == "cli":
@@ -4110,18 +3590,15 @@ def gang_child(torch, spec_path: str) -> int:
                 print(f"multihost: {info}", flush=True)
             elif cmd["kind"] == "grad":
                 arrays = _first_step(torch, Path(cmd["root"]), cmd["dtype"])
-            elif cmd["kind"] == "bn":
-                print(f"[bn] {json.dumps(_gang_bn_check(torch))}", flush=True)
             else:
-                print(f"[timing] {json.dumps({'tag': cmd['tag'], **_gang_step(torch, Path(cmd['root']), GANG_STEPS)})}",
-                      flush=True)
+                print(f"[bn] {json.dumps(_gang_bn_check(torch))}", flush=True)
         torch.cuda.synchronize()
         launched = counts.read()
         arrays.update({f"extract{i}": np.asarray(e) for i, e in enumerate(rec.out)
                        if not isinstance(e, tuple)})
         np.savez(out / f"{cmd['tag']}_rank{mesh.rank()}.npz", **arrays)
-        print("[counts] " + json.dumps({"tag": cmd["tag"], "rank": mesh.rank(),
-                                        "seconds": time.time() - t0, **launched}), flush=True)
+        print("[counts] " + json.dumps({"tag": cmd["tag"], "rank": mesh.rank(), **launched}),
+              flush=True)
     distributed.shutdown_multihost()
     return 0
 
@@ -4184,10 +3661,9 @@ def _cosines(a, b):
     return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1) + 1e-12)
 
 
-def phase_gang(torch, dev, root, counts) -> tuple:
+def phase_gang(torch, dev, root, counts) -> dict:
     """20b: two ranks on the one card (gloo) against one process, and the
-    timing processes: the plain step and the 1-rank NCCL gang in one
-    process, the 2-rank gloo step in the gang."""
+    gang BN in a 1-rank NCCL gang. → launches."""
     import numpy as np
 
     from daliid_tpu_torch.cli import evaluate, search, train
@@ -4201,13 +3677,10 @@ def phase_gang(torch, dev, root, counts) -> tuple:
         commands = _gang_commands(root, 512, WORK / "gang_train")
         commands[0]["argv"] += ["--multihost", "--coordinator_address", addr,
                                 "--num_processes", "2", "--process_id", str(r)]
-        commands.append({"kind": "timing", "tag": "timing_gloo", "root": str(root)})
         spec = out / f"rank{r}.json"
         spec.write_text(json.dumps({"out": str(out), "commands": commands}))
         cmds.append(_child_cmd(spec))
-    t0 = time.time()
     texts = _run_children(cmds, "gang", 900)
-    gang_s = time.time() - t0
     launched = {name: 0 for name in KERNELS}
     for r, text in enumerate(texts):
         info = _multihost_info(text)
@@ -4222,10 +3695,6 @@ def phase_gang(torch, dev, root, counts) -> tuple:
         for row in rows.values():
             for name in launched:
                 launched[name] += row[name]
-    bootstrap = _multihost_info(texts[0])["bootstrap_s"]
-    timing_gloo = _parse_lines(texts[0], "[timing] ")[0]
-    per_tag = {r: {row["tag"]: row for row in _parse_lines(t, "[counts] ")}
-               for r, t in enumerate(texts)}
 
     # the same commands as one process, here, at half the batch: each rank's
     # forward batch, so both sides convolve the same images together
@@ -4250,9 +3719,7 @@ def phase_gang(torch, dev, root, counts) -> tuple:
         for name, n in counts.read().items():
             launched[name] += n
         np.savez(one / f"{cmd['tag']}.npz", **arrays)
-    report = {"gang_s": gang_s, "bootstrap_gloo_s": bootstrap, "timing_gloo": timing_gloo,
-              "seconds": {tag: [per_tag[r][tag]["seconds"] for r in range(2)]
-                          for tag in per_tag[0]}}
+    report = {}
     for tag in ("evaluate_bf16", "evaluate_int8", "search_sq8", "search_f32"):
         ranks = [np.load(out / f"{tag}_rank{r}.npz") for r in range(2)]
         want = np.load(one / f"{tag}.npz")
@@ -4306,23 +3773,18 @@ def phase_gang(torch, dev, root, counts) -> tuple:
           f"the gang's trained state is off one process's: {trained}")
     report["train_vs_one_process"] = trained
 
-    # the plain single-process step and the 1-rank NCCL gang, one process
-    spec = out / "timing.json"
+    # the gang BN in a 1-rank NCCL gang, a process of its own
+    spec = out / "bn.json"
     spec.write_text(json.dumps({"out": str(out), "commands": [
-        {"kind": "timing", "tag": "timing_plain", "root": str(root)},
         {"kind": "join", "tag": "join", "address": f"127.0.0.1:{_free_port()}", "ranks": 1},
-        {"kind": "bn", "tag": "bn"},
-        {"kind": "timing", "tag": "timing_nccl", "root": str(root)}]}))
-    text = _run_children([_child_cmd(spec)], "timing", 600)[0]
+        {"kind": "bn", "tag": "bn"}]}))
+    text = _run_children([_child_cmd(spec)], "bn", 600)[0]
     info = _multihost_info(text)
-    check(info["backend"] == "nccl", f"the 1-rank timing gang did not run on NCCL: {info}")
-    timings = {row["tag"]: row for row in _parse_lines(text, "[timing] ")}
-    report["timing_plain"], report["timing_nccl"] = timings["timing_plain"], timings["timing_nccl"]
+    check(info["backend"] == "nccl", f"the 1-rank BN gang did not run on NCCL: {info}")
     report["gang_bn"] = _parse_lines(text, "[bn] ")[0]
-    report["bootstrap_nccl_s"] = info["bootstrap_s"]
     log(f"20b two ranks on one card (gloo) against one process: {json.dumps(report)}")
     log(f"20b gang launches (both ranks) and the one-process runs: {launched}")
-    return launched, report
+    return launched
 
 
 def _exact_embeddings(torch, gen, dev, n_ids: int, *pid_sets, d: int = 2048, nnz: int = 64,
@@ -4355,7 +3817,7 @@ def _exact_embeddings(torch, gen, dev, n_ids: int, *pid_sets, d: int = 2048, nnz
     return sets
 
 
-def phase_bounded_ranking(torch, dev, counts) -> tuple:
+def phase_bounded_ranking(torch, dev, counts) -> dict:
     """20c: ``evaluate_rank_sharded`` on one process at MSMT17's protocol
     shape, query_chunk 512, against the replicated ``evaluate_rank`` on the
     whole distmat; K2 at the chunk shape against its plain version."""
@@ -4423,7 +3885,7 @@ def phase_bounded_ranking(torch, dev, counts) -> tuple:
         f"version at ({RANK_CHUNK}, {len(g_pids)}) P {n_p}")
     del q, g, dist
     torch.cuda.empty_cache()
-    return launched, report
+    return launched
 
 
 # ---------------------------------------------------------------- phase 21
@@ -4433,15 +3895,6 @@ REMAT_CLI = (("transreid_jpm", "full"), ("vit", "tuned"))
 # limits of tests/test_torch_losses.py); the card's f32 products sum in
 # another order than the CPU's
 LOSS_RTOL = 1e-5
-
-
-def set_remat(module, mode: str) -> None:
-    """Checkpoint every transformer block of ``module`` per ``mode``."""
-    from daliid_tpu_torch.models.vit import Block, check_remat
-
-    for m in module.modules():
-        if isinstance(m, Block):
-            m.remat = check_remat(mode)
 
 
 def _remat_cli(torch, root, counts) -> dict:
@@ -4464,9 +3917,7 @@ def _remat_cli(torch, root, counts) -> dict:
              "--skip_initial_eval", "--path_to_save_models", str(ckpt),
              "--path_to_save_metrics", str(metrics), *_img_flags()])
         counts.reset()
-        t0 = time.time()
         train.main(args)
-        seconds = time.time() - t0
         launched = counts.read()
         check(launched["fused_augment"] == steps and launched["rank_counts"] > 0,
               f"train --model_name {name} --remat {mode} launched {launched}")
@@ -4474,7 +3925,7 @@ def _remat_cli(torch, root, counts) -> dict:
         check(len(progress) == 1 and all(np.isfinite(progress[0][k]) for k in ("loss", "rank1")),
               f"train --remat {mode} ({name}) progress {progress}")
         log(f"21a train CLI --model_name {name} --remat {mode} (bf16, SDPA): 1 epoch of {steps} "
-            f"steps and its validation in {seconds:.1f} s, loss {progress[0]['loss']:.5f}; "
+            f"steps and its validation, loss {progress[0]['loss']:.5f}; "
             f"launches {launched}")
         for k, n in launched.items():
             total[k] = total.get(k, 0) + n
@@ -4499,25 +3950,22 @@ def _export_args(name: str, src: str, dst: str, *extra):
 
 def _export_round_trip(torch, name: str, pt: Path, *extra) -> dict:
     """21b: ``pt`` → ``export`` → .npz → ``export`` → .pth, bit-equal to
-    ``pt`` over its keys; → the two directions' seconds and the paths."""
+    ``pt`` over its keys; → its tensors, megabytes and the .npz's path."""
     from daliid_tpu_torch.cli import export
     from daliid_tpu_torch.models.torch_port import load_torch_checkpoint
 
     npz, pth = WORK / f"export_{name}.npz", WORK / f"export_{name}.pth"
-    t0 = time.time()
     export.main(_export_args(name, str(pt), str(npz), *extra))
-    t1 = time.time()
     export.main(_export_args(name, str(npz), str(pth), *extra))
-    t2 = time.time()
     src, out = load_torch_checkpoint(str(pt)), torch.load(pth, weights_only=True)
     check(set(out) == set(src), f"export {name}: keys differ: {sorted(set(out) ^ set(src))[:6]}")
     bad = [k for k in src if not torch.equal(out[k], src[k].float())]
     check(not bad, f"export {name}: tensors differ after the round trip: {bad[:6]}")
-    return {"to_npz_s": t1 - t0, "to_torch_s": t2 - t1, "keys": len(src),
-            "mb": sum(v.numel() * 4 for v in src.values()) / 1e6, "npz": str(npz)}
+    return {"keys": len(src), "mb": sum(v.numel() * 4 for v in src.values()) / 1e6,
+            "npz": str(npz)}
 
 
-def _export_phase(torch, counts) -> tuple:
+def _export_phase(torch, counts) -> dict:
     """21b: the export round trips of the ResNet-50 and JPM checkpoints that
     phases 8 and 11 wrote; ``evaluate`` on the ResNet-50 .npz gives the .pt's
     CMC and mAP; ``multipart_resnet50`` to a torch pickle is refused."""
@@ -4556,10 +4004,10 @@ def _export_phase(torch, counts) -> tuple:
     log(f"21b export round trips (.pt -> .npz -> .pth, bit-equal): {json.dumps(report)}; "
         f"evaluate on the .npz: R1 {cmc_npz[0]:.4f} mAP {map_npz:.6f}, equal to the .pt's; "
         f"multipart_resnet50 -> .pth refused")
-    return total, report
+    return total
 
 
-def _subset_phase(torch, dev, root, counts) -> tuple:
+def _subset_phase(torch, dev, root, counts) -> dict:
     """21c: ``mine_subset`` of the train set's first row with two extractors,
     ResNet-50 and JPM on K4 (bf16, the checkpoints of phases 8 and 11): the
     row itself first, K4 launched as often as the JPM extraction's forwards
@@ -4580,9 +4028,7 @@ def _subset_phase(torch, dev, root, counts) -> tuple:
              {"use_fused_attention": True}))]
     top_k = len(table) // 4
     counts.reset()
-    t0 = time.time()
     sel, rest = mine_subset(table[np.arange(1)], table, extractors, top_k=top_k)
-    seconds = time.time() - t0
     launched = counts.read()
     forwards = 1 + _forwards(table)
     check(launched["flash_attention"] == K4_PER_FORWARD["transreid_jpm"] * forwards,
@@ -4594,10 +4040,10 @@ def _subset_phase(torch, dev, root, counts) -> tuple:
     check(sel[0] == 0, f"mine_subset ranked row {sel[0]} before the selected row 0")
     same_id = float(np.mean(table.pids[sel[1:]] == table.pids[0]))
     log(f"21c mine_subset (ResNet-50 + JPM on K4, bf16) of row 0 over {len(table)} train rows: "
-        f"top {top_k} in {seconds:.2f} s, the row itself first, {100 * same_id:.1f}% of the rest "
+        f"top {top_k}, the row itself first, {100 * same_id:.1f}% of the rest "
         f"of the top its identity's; launches {launched}")
     del extractors
-    return launched, {"seconds": seconds, "top_k": top_k, "same_identity_share": same_id}
+    return launched
 
 
 def _loss_cases(torch, L, M, proxies_mod, dev):
@@ -4660,7 +4106,7 @@ def _loss_cases(torch, L, M, proxies_mod, dev):
     return fvs, cases
 
 
-def _losses_phase(torch, dev) -> dict:
+def _losses_phase(torch, dev) -> None:
     """21d: each loss of the library that no train step takes, and
     ``margin_softmax_loss`` for the four heads, on the card against the same
     call on the CPU: values within ``LOSS_RTOL``, gradients within rtol 1e-4
@@ -4691,23 +4137,20 @@ def _losses_phase(torch, dev) -> dict:
                        "grad_err_of_limit": g_err}
     log(f"21d losses at a PK batch of {2 * P * K} x 2048 on the card against the CPU (value "
         f"rtol {LOSS_RTOL}; gradient rtol 1e-4 + 1e-6 of the largest): {json.dumps(worst)}")
-    return worst
 
 
-def phase_remainder(torch, dev, root, counts) -> tuple:
+def phase_remainder(torch, dev, root, counts) -> dict:
     """Phase 21: the train CLI under ``--remat`` (21a), ``export`` (21b),
     ``mine_subset`` (21c) and the losses on the card (21d); the remat step's
-    times, gradients and trace (21a, 21e) are in ``_time_jpm``."""
+    gradients and trace are phase 11's (:func:`check_remat_grads`). It reads
+    the checkpoints of phases 8 and 11. → launches."""
     launched = _remat_cli(torch, root, counts)
-    exported, export_report = _export_phase(torch, counts)
-    mined, subset_report = _subset_phase(torch, dev, root, counts)
-    for got in (exported, mined):
+    for got in (_export_phase(torch, counts), _subset_phase(torch, dev, root, counts)):
         for k, n in got.items():
             launched[k] = launched.get(k, 0) + n
-    report = {"export": export_report, "subset": subset_report,
-              "losses": _losses_phase(torch, dev)}
+    _losses_phase(torch, dev)
     torch.cuda.empty_cache()
-    return launched, report
+    return launched
 
 
 # ---------------------------------------------------------------- counts
@@ -4740,27 +4183,45 @@ class Counts:
         return {name: getattr(w, attr) for name, (w, attr) in self.counters.items()}
 
 
+# Each kernel: its source, the JAX kernel it replaces and its check (printed
+# on the kernels line), and for main: the phase that holds it against its
+# plain version (``checked_by``), its timing (``timed_by``), the main-path
+# phases that launch it when it is named alone (``path``), and the count of
+# its operations and bytes that ``_timing`` bounds it by (``count``).
 KERNELS = {
     "rank_counts": {"source": "daliid_tpu_torch/csrc/rank_counts.cu",
-                    "replaces": "daliid_tpu/ops/rank_counts.py:104", "check": "exact counts"},
+                    "replaces": "daliid_tpu/ops/rank_counts.py:104", "check": "exact counts",
+                    "checked_by": "phase_k2", "timed_by": "_time_k2",
+                    "path": ("phase_evaluate",), "count": k2_rank_counts},
     "search_topk_sq8": {"source": "daliid_tpu_torch/csrc/search_topk.cu",
-                        "replaces": "daliid_tpu/ops/search_topk.py:119", "check": "bit-exact"},
+                        "replaces": "daliid_tpu/ops/search_topk.py:119", "check": "bit-exact",
+                        "checked_by": "phase_k3", "timed_by": "_time_k3",
+                        "path": ("phase_serve",), "count": k3_sq8},
     "search_topk_f32": {"source": "daliid_tpu_torch/csrc/search_topk.cu",
                         "replaces": "daliid_tpu/ops/search_topk.py:119",
-                        "check": "vals rtol 1e-5, equal index sets"},
+                        "check": "vals rtol 1e-5, equal index sets",
+                        "checked_by": "phase_k3", "timed_by": "_time_k3",
+                        "path": ("phase_search",), "count": k3_f32_count},
     "fused_augment": {"source": "daliid_tpu_torch/csrc/fused_augment.cu",
                       "replaces": "daliid_tpu/ops/fused_augment.py:153",
-                      "check": "f32 atol 2e-5; bf16 one bf16 ulp (or 2e-5)"},
+                      "check": "f32 atol 2e-5; bf16 one bf16 ulp (or 2e-5)",
+                      "checked_by": "phase_k1", "timed_by": "_time_k1",
+                      "path": ("phase_train",), "count": k1_augment},
     "flash_attention": {"source": "daliid_tpu_torch/csrc/flash_attention.cu",
                         "replaces": "daliid_tpu/ops/flash_attention.py:55",
                         "check": "f32 atol 2e-5; bf16 one bf16 ulp (or 2e-5); "
-                                 "backward f32 atol 3e-5"},
+                                 "backward f32 atol 3e-5",
+                        "checked_by": "phase_k4", "timed_by": "_time_k4",
+                        "path": ("phase_transformer_evaluate", "phase_transformer_train"),
+                        "count": k4_attention},
     # K4 with an additive bias, for Swin-B's windows: the JAX package has no
     # such model, so no Pallas kernel
     "wattn_bias_mma": {"source": "daliid_tpu_torch/csrc/flash_attention.cu",
                        "replaces": "none: port only (Swin-B's windowed attention)",
                        "check": "bf16 one bf16 ulp (or 2e-5); backward (dbias included) "
-                                "f32 3e-5 of the largest gradient"},
+                                "f32 3e-5 of the largest gradient",
+                       "checked_by": "phase_wattn", "timed_by": "_time_wattn",
+                       "path": ("phase_swin_train",), "count": wattn_bias},
     # K4's backward: the JAX package's gradient is its custom VJP's _bwd,
     # which XLA runs, so no Pallas kernel
     "k4_grad": {"source": "daliid_tpu_torch/csrc/attention_grad.cu",
@@ -4768,13 +4229,17 @@ KERNELS = {
                             "kernel)",
                 "check": "bf16 one bf16 ulp (or 2e-5) of attention_backward; f32 atol 3e-5; "
                          "two calls bit-equal",
-                "library": "F.scaled_dot_product_attention forward + backward"},
+                "library": "F.scaled_dot_product_attention forward + backward",
+                "checked_by": "phase_k4_grad", "timed_by": "_time_k4_grad",
+                "path": ("phase_transformer_train",), "count": k4_grad},
     "wattn_grad_mma": {"source": "daliid_tpu_torch/csrc/attention_grad.cu",
                        "replaces": "none: port only (Swin-B's windowed attention's gradient)",
                        "check": "bf16 one bf16 ulp (or 2e-5); dbias 2^-16 of the sum of |dS|; "
                                 "two calls bit-equal",
                        "library": "F.scaled_dot_product_attention forward + backward, 4-d, "
-                                  "the bias as a mask with its gradient"},
+                                  "the bias as a mask with its gradient",
+                       "checked_by": "phase_k4_grad", "timed_by": "_time_wattn_grad",
+                       "path": ("phase_swin_train",), "count": wattn_grad},
     # a kernel of the port alone: the JAX package runs these convolutions
     # through XLA (lax.conv_general_dilated on int8), no Pallas kernel
     "conv_int8": {"source": "daliid_tpu_torch/csrc/conv_int8.cu",
@@ -4782,7 +4247,9 @@ KERNELS = {
                               "Pallas kernel)",
                   "check": "bit-exact (int32, f32 and bf16 out)",
                   "library": "none: no one PyTorch call computes it (quantize_sym + "
-                             "F.unfold + torch._int_mm, groups = 1, in im2col_int_mm_ms)"},
+                             "F.unfold + torch._int_mm, groups = 1, in im2col_int_mm_ms)",
+                  "checked_by": "phase_conv_int8", "timed_by": "_time_conv_int8",
+                  "path": ("phase_evaluate_int8",), "count": conv_int8_count},
 }
 
 
@@ -4804,7 +4271,105 @@ PATH_KERNELS = {"rank_counts": ("rank_counts_kernel",),
                 + tuple(f"conv_dw<__nv_bfloat16,{k},{k},{s}>" for k in (3, 5) for s in (1, 2))}
 
 
-def main() -> int:
+class Run:
+    """What main's phases share: the card, the launch counters, the two
+    synthetic sets and the path shapes read from them, and the conv shapes
+    (read from the models on first use)."""
+
+    def __init__(self, torch, dev):
+        from daliid_tpu_torch.metrics.ranking import queried_positives_bound
+
+        self.torch, self.dev, self.counts = torch, dev, Counts()
+        self.splits, self.train_root = make_dataset(), make_train_dataset()
+        query, gallery = self.splits["query"], self.splits["gallery"]
+        n_q, n_g = len(query), len(gallery)
+        # the evaluate path's (Q, G, P); the serve path's (probes, index capacity, rows)
+        self.evaluate_shape = (n_q, n_g, queried_positives_bound(query.pids, gallery.pids))
+        self.serve_shape = (n_q, 1 << (n_g - 1).bit_length(), n_g)
+
+    @functools.cached_property
+    def shapes(self) -> dict:
+        return conv_shapes(self.torch, self.dev)
+
+
+# how main calls each check phase and timing that KERNELS names: → {kernel:
+# fields of its kernels line}
+CHECKS = {"phase_k2": lambda r: phase_k2(r.torch, r.dev, r.evaluate_shape),
+          "phase_k3": lambda r: phase_k3(r.torch, r.dev, r.serve_shape),
+          "phase_k1": lambda r: phase_k1(r.torch, r.dev),
+          "phase_k4": lambda r: phase_k4(r.torch, r.dev),
+          "phase_wattn": lambda r: phase_wattn(r.torch, r.dev),
+          "phase_k4_grad": lambda r: phase_k4_grad(r.torch, r.dev),
+          "phase_conv_int8": lambda r: phase_conv_int8(r.torch, r.dev, r.shapes)}
+TIMINGS = {"_time_k2": lambda r: _time_k2(r.torch, r.dev),
+           "_time_k3": lambda r: _time_k3(r.torch, r.dev, r.serve_shape),
+           "_time_k1": lambda r: _time_k1(r.torch, r.dev),
+           "_time_k4": lambda r: _time_k4(r.torch, r.dev),
+           "_time_wattn": lambda r: _time_wattn(r.torch, r.dev),
+           "_time_k4_grad": lambda r: _time_k4_grad(r.torch, r.dev),
+           "_time_wattn_grad": lambda r: _time_wattn_grad(r.torch, r.dev),
+           "_time_conv_int8": lambda r: _time_conv_int8(r.torch, r.dev, r.shapes)}
+# the main-path phases in the order of a full run, each with whether it must
+# launch conv_int8 (None: either) and how main calls it (→ launches)
+PATH = {
+    "phase_serve": (False, lambda r: phase_serve(r.torch, r.splits, r.counts)),
+    "phase_search": (False, lambda r: phase_search(r.torch, r.counts)),
+    "phase_evaluate": (False, lambda r: phase_evaluate(r.torch, r.counts)),
+    "phase_train": (False, lambda r: phase_train(r.torch, r.counts, r.train_root)),
+    "phase_transformer_evaluate": (False, lambda r: phase_transformer_evaluate(
+        r.torch, r.dev, r.splits, r.counts)),
+    "phase_transformer_train": (False, lambda r: phase_transformer_train(
+        r.torch, r.dev, r.train_root, r.counts)),
+    "phase_swin_train": (False, lambda r: phase_swin_train(r.torch, r.dev, r.train_root,
+                                                           r.counts)),
+    "phase_fusion": (False, lambda r: phase_fusion(r.torch, r.counts)),
+    "phase_ensemble": (False, lambda r: phase_ensemble(r.torch, r.counts)),
+    "phase_multihead": (False, lambda r: phase_multihead(r.torch, r.counts)),
+    "phase_search_k100": (False, lambda r: phase_search_k100(r.torch, r.dev, r.counts)),
+    "phase_zoo_evaluate": (False, lambda r: phase_zoo_evaluate(r.torch, r.counts)),
+    "phase_densenet_train": (False, lambda r: phase_densenet_train(r.torch, r.counts,
+                                                                   r.train_root)),
+    "phase_rerank_evaluate": (False, lambda r: phase_rerank_evaluate(r.torch, r.dev, r.counts)),
+    "phase_search_rerank": (False, lambda r: phase_search_rerank(r.torch, r.dev, r.counts)),
+    "phase_datasets": (False, lambda r: phase_datasets(r.torch, r.counts)),
+    # phase 20's drill runs in processes of its own, uncounted; the gang
+    # runs int8 evaluation among its commands
+    "phase_drill": (None, lambda r: phase_drill(r.torch, r.dev, r.train_root) or {}),
+    "phase_gang": (None, lambda r: phase_gang(r.torch, r.dev, r.train_root, r.counts)),
+    "phase_bounded_ranking": (None, lambda r: phase_bounded_ranking(r.torch, r.dev, r.counts)),
+    "phase_remainder": (False, lambda r: phase_remainder(r.torch, r.dev, r.train_root,
+                                                         r.counts)),
+    "phase_evaluate_int8": (True, lambda r: phase_evaluate_int8(r.torch, r.dev, r.splits,
+                                                                r.counts)),
+    "phase_search_serve_int8": (True, lambda r: phase_search_serve_int8(r.torch, r.splits,
+                                                                        r.counts)),
+    "phase_fusion_ensemble_int8": (True, lambda r: phase_fusion_ensemble_int8(r.torch,
+                                                                              r.counts)),
+    "phase_vit_int8": (True, lambda r: phase_vit_int8(r.torch, r.dev, r.splits, r.counts)),
+    "phase_train_int8": (True, lambda r: phase_train_int8(r.torch, r.counts, r.train_root)),
+}
+
+
+def plan(names) -> tuple:
+    """The kernels ``names`` select (all of ``KERNELS`` if none) → (check
+    phases, main-path phases, timings), each once, in the order main runs
+    them: every phase of ``PATH`` with no names."""
+    names = list(names)
+    path = {p for n in names for p in KERNELS[n]["path"]} if names else set(PATH)
+    names = names or list(KERNELS)
+    return (list(dict.fromkeys(KERNELS[n]["checked_by"] for n in names)),
+            [p for p in PATH if p in path],
+            list(dict.fromkeys(KERNELS[n]["timed_by"] for n in names)))
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    mode = argv[0] if argv and argv[0].startswith("--") else None
+    unknown = [] if mode else [n for n in argv if n not in KERNELS]
+    if mode not in (None, "--kernel-times", "--gang-child", "--compare") or unknown:
+        print(f"[chip_smoke] usage: chip_smoke.py [KERNEL ...] | --compare DIR; kernels: "
+              f"{' '.join(KERNELS)}; not known: {' '.join(unknown) or mode}", flush=True)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -4813,239 +4378,76 @@ def main() -> int:
     if not (REPO / "daliid_tpu_torch" / "__init__.py").exists():
         print("[chip_smoke] daliid_tpu_torch not found beside chip_smoke.py", flush=True)
         return 2
-    if sys.argv[1:2] == ["--kernel-times"]:
-        root, ps = sys.argv[2], [int(x) for x in sys.argv[3].split(",")]
-        print(json.dumps(kernel_times(torch, root, ps, json.loads(sys.argv[4]))), flush=True)
+    if mode == "--kernel-times":
+        root, ps = argv[1], [int(x) for x in argv[2].split(",")]
+        print(json.dumps(kernel_times(torch, root, ps, json.loads(argv[3]))), flush=True)
         return 0
     sys.path.insert(0, str(REPO))
-    if sys.argv[1:2] == ["--gang-child"]:
-        return gang_child(torch, sys.argv[2])
-    if sys.argv[1:2] == ["--swin"]:
-        return swin_main(torch)
-    if sys.argv[1:2] == ["--grad"]:
-        return grad_main(torch)
-    if sys.argv[1:2] == ["--compare"]:
+    if mode == "--gang-child":
+        return gang_child(torch, argv[1])
+    if mode == "--compare":
         _, dev, _ = phase_device(torch)
         geos = {" ".join(key): geo for key, geo in conv_shapes(torch, dev).items()}
-        print(json.dumps({"compare": compare(sys.argv[2], geos)}), flush=True)
+        print(json.dumps({"compare": compare(argv[1], geos)}), flush=True)
         return 0
     t_start = time.time()
+    checks, path, timings = plan(argv)
+    selected = argv or list(KERNELS)
     card, dev, ptxas = phase_device(torch)
     decoder = loader_status()
-    splits = make_dataset()
-    n_g, n_q = len(splits["gallery"]), len(splits["query"])
-    capacity = 1 << (n_g - 1).bit_length()
-    from daliid_tpu_torch.metrics.ranking import queried_positives_bound
+    r = Run(torch, dev)
+    results = {name: {"name": name, "route": "cuda", **KERNELS[name]} for name in selected}
+    errors = {}
+    for name in checks:
+        for kernel, fields in CHECKS[name](r).items():
+            errors.setdefault(kernel, {}).update(fields)
 
-    phase_k2(torch, dev, (n_q, n_g, queried_positives_bound(splits["query"].pids,
-                                                            splits["gallery"].pids)))
-    f32_err = phase_k3(torch, dev, (n_q, capacity, 2048, n_g))
-    k1_err = phase_k1(torch, dev)
-    k4_err, k4_bwd_err = phase_k4(torch, dev)
-    wattn_err, wattn_bwd = phase_wattn(torch, dev)
-    grad_errs = phase_k4_grad(torch, dev)
-    shapes = conv_shapes(torch, dev)
-    conv_err = phase_conv_int8(torch, dev, shapes)
-    train_root = make_train_dataset()
-
-    counts = Counts()
     launches = {name: 0 for name in KERNELS}
-    walls = {}
+    for name in path:
+        int8, call = PATH[name]
+        launched = call(r)
+        if int8 is True:
+            check(launched["conv_int8"] > 0, f"an int8 phase, {name}, launched no conv_int8: "
+                                             f"{launched}")
+        elif int8 is False:
+            check(launched["conv_int8"] == 0, f"a float phase, {name}, launched conv_int8: "
+                                              f"{launched}")
+        for kernel, n in launched.items():
+            launches[kernel] += n
+        torch.cuda.empty_cache()
+    r.counts.reset()
 
-    def timed(name, phase):
-        launched, walls[name] = phase()
-        return launched
-
-    def walled(phase):
-        launched, phase_walls = phase()
-        walls.update(phase_walls)
-        return launched
-
-    fp_phases = (lambda: phase_serve(torch, splits, counts)[0],
-                  lambda: phase_search(torch, counts),
-                  lambda: phase_evaluate(torch, counts),
-                  lambda: phase_train(torch, counts, train_root),
-                  lambda: phase_transformer_evaluate(torch, dev, splits, counts),
-                  lambda: phase_transformer_train(torch, dev, train_root, counts),
-                  lambda: phase_swin_train(torch, dev, train_root, counts),
-                  lambda: timed("evaluate-fusion", lambda: phase_fusion(torch, counts)),
-                  lambda: timed("evaluate-ensemble", lambda: phase_ensemble(torch, counts)),
-                  lambda: timed("evaluate multipart --multiple_output --mrfuse",
-                                lambda: phase_multihead(torch, counts)),
-                  lambda: phase_search_k100(torch, dev, counts),
-                  lambda: timed("evaluate zoo", lambda: phase_zoo_evaluate(torch, counts)),
-                  lambda: timed("train densenet121",
-                                lambda: phase_densenet_train(torch, counts, train_root)),
-                  lambda: timed("evaluate --rerank", lambda: phase_rerank_evaluate(torch, counts)),
-                  lambda: phase_search_rerank(torch, dev, counts),
-                  lambda: walled(lambda: phase_datasets(torch, counts)))
-    int8_phases = (lambda: walled(lambda: phase_evaluate_int8(torch, dev, splits, counts)),
-                   lambda: phase_search_serve_int8(torch, splits, counts),
-                   lambda: walled(lambda: phase_fusion_ensemble_int8(torch, counts)),
-                   lambda: timed("evaluate vit --quantize int8",
-                                 lambda: phase_vit_int8(torch, dev, splits, counts)),
-                   lambda: timed("train --mining_quantize int8",
-                                 lambda: phase_train_int8(torch, counts, train_root)))
-    for phase in fp_phases:
-        launched = phase()
-        check(launched["conv_int8"] == 0, f"a float phase launched conv_int8: {launched}")
-        for name, n in launched.items():
-            launches[name] += n
-    counts.reset()
-    torch.cuda.empty_cache()
-    t_multi = time.time()
-    drill = phase_drill(torch, dev, train_root)
-    gang_launched, gang = phase_gang(torch, dev, train_root, counts)
-    ranked_launched, bounded = phase_bounded_ranking(torch, dev, counts)
-    for launched in (gang_launched, ranked_launched):
-        for name, n in launched.items():
-            launches[name] += n
-    walls["multi-process (phase 20)"] = time.time() - t_multi
-    t_rest = time.time()
-    rest_launched, remainder = phase_remainder(torch, dev, train_root, counts)
-    check(rest_launched["conv_int8"] == 0, f"phase 21 launched conv_int8: {rest_launched}")
-    for name, n in rest_launched.items():
-        launches[name] += n
-    walls["remat CLIs, export, mine_subset, losses (phase 21)"] = time.time() - t_rest
-    for phase in int8_phases:
-        launched = phase()
-        check(launched["conv_int8"] > 0, f"an int8 phase launched no conv_int8: {launched}")
-        for name, n in launched.items():
-            launches[name] += n
-    counts.reset()
-
-    results = {name: {"name": name, "route": "cuda", **KERNELS[name]} for name in KERNELS}
-    for name, entry in _time_k3(torch, dev, 64, 1 << 20, 1 << 20, reps=20, plain_reps=3).items():
-        results[name].update(entry)
-    # the serve path's shape: its 200 probes over its 512-row index of 400 images
-    for name, entry in _time_k3(torch, dev, n_q, capacity, n_g, reps=200, plain_reps=20).items():
-        results[name]["at_path_shape"] = entry
-        log(f"timing {name} at the path's shape: {json.dumps(entry)}")
-    _time_k2(torch, dev, results)
-    results["rank_counts"]["at_msmt17_protocol"] = _time_k2_msmt17(torch, dev)
-    results["search_topk_f32"]["max_abs_err"] = max(results["search_topk_f32"]["max_abs_err"],
-                                                    f32_err)
-    results["fused_augment"].update(_time_k1(torch, dev))
-    results["fused_augment"]["max_abs_err"] = max(results["fused_augment"]["max_abs_err"], k1_err)
-    k4_times = _time_k4(torch, dev)
-    results["flash_attention"].update(k4_times[0])
-    results["flash_attention"]["at_n53"] = k4_times[1]
-    results["flash_attention"]["max_abs_err"] = max(k4_times[0]["max_abs_err"],
-                                                    k4_times[1]["max_abs_err"], k4_err)
-    results["flash_attention"]["backward_max_abs_err"] = k4_bwd_err
-    results["wattn_bias_mma"] = _wattn_entry(torch, dev, launches["wattn_bias_mma"], wattn_err,
-                                             wattn_bwd)
-    results.update(_grad_entries(torch, dev, launches, grad_errs))
-    for name, kernels in PATH_KERNELS.items():
-        lib = Path(KERNELS[name]["source"]).stem
-        results[name]["ptxas"] = {k: ptxas.get(lib, {}).get(k) for k in kernels}
-    step = _time_train_step(torch, dev, train_root)
-    fusion_times = _time_fusion_at_market(torch, dev)
-    rates = _time_extraction(torch, dev)
-    jpm = _time_jpm(torch, dev, train_root)
-    zoo_rates = _time_zoo_extraction(torch, dev)
-    dense_step = _time_densenet_train_step(torch, dev, train_root)
-    rerank_times = _time_rerank(torch, dev)
-    conv_times = _time_conv_int8(torch, dev, shapes)
-    results["conv_int8"].update(conv_times[CONV_MAIN])
-    results["conv_int8"]["max_abs_err"] = conv_err
-    results["conv_int8"]["at_shapes"] = [
-        {k: t[k] for k in ("shape", "plan", "ms", "bound_ms", "bound_by", "plain_ms",
-                           "im2col_int_mm_ms", "cudnn_bf16_ms", "int8_input_ms")}
-        for t in conv_times.values()]
-    results["conv_int8"]["profiled_resnet50_int8"] = _profile_int8_resnet(torch, dev)
-    int8_rates = _time_int8_extraction(torch, dev)
-    for name, r in results.items():
-        r["launches"] = launches[name]
-        check(r["launches"] > 0, f"{name} was not launched on the main path")
-        log(f"timing {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']} ms, "
-            f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"launches on the path {r['launches']}")
-    log(f"extraction img/s (bf16, 256x128): {json.dumps({str(b): v for b, v in rates.items()})}")
-    log(f"train step: {step['step_ms']:.3f} ms, {step['img_per_s']:.1f} img/s "
-        f"(K1 {step['augment_ms']:.4f} ms, forward+backward {step['forward_backward_ms']:.3f} ms, "
-        f"Adam+EMA {step['adam_ema_ms']:.3f} ms), peak {step['peak_memory_gb']:.2f} GB, "
-        f"host decode {step['host_decode_ms_per_batch']:.1f} ms a batch; with decode prefetched "
-        f"{step['pipeline_ms_per_step']:.1f} ms a step, {step['pipeline_img_per_s']:.1f} img/s "
-        f"over {step['pipeline_steps']} steps after the fill; profiled: device busy "
-        f"{step['profiled_device_busy_ms_per_step']:.3f} ms a step "
-        f"({100 * step['profiled_busy_share']:.1f}% of the wall time), BN kernels "
-        f"{step['batch_norm_kernels_ms_per_step']:.3f} ms a step")
-    for name, h in step["host_by_decoder"].items():
-        if isinstance(h, dict):
-            log(f"host decode ({name}): {h['host_decode_ms_per_batch']:.1f} ms a batch of "
-                f"{step['batch']} (by threads {json.dumps(h['host_decode_ms_by_threads'])}); "
-                f"the loop with decode prefetched {h['pipeline_ms_per_step']:.1f} ms a step, "
-                f"{h['pipeline_img_per_s']:.1f} img/s")
+    for name in timings:
+        for kernel, entry in TIMINGS[name](r).items():
+            if kernel in results:
+                results[kernel].update(entry)
+    for name, entry in results.items():
+        check(name in errors, f"{name}'s check phase {entry['checked_by']} reported nothing of it")
+        check("ms" in entry and "bound_ms" in entry,
+              f"{name}'s timing {entry['timed_by']} gave no entry of it")
+        for field, err in errors[name].items():
+            entry[field] = max(err, entry.get(field, err))
+        entry["ptxas"] = {k: ptxas.get(Path(entry["source"]).stem, {}).get(k)
+                          for k in PATH_KERNELS[name]}
+        entry["launches"] = launches[name]
+        check(entry["launches"] > 0, f"{name} was not launched on the main path")
+        log(f"timing {name}: {entry['shape']}: kernel {entry['ms']:.4f} ms, plain "
+            f"{entry['plain_ms']} ms, library {entry['library_ms']} ms, bound "
+            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), launches on the path "
+            f"{entry['launches']}")
     log(f"host decoder on the main path: "
         f"{'native C++ loader, ' + decoder['linked_libjpeg'] + ' libjpeg' if decoder['native_loader'] else 'PIL'}")
-    log("evaluation and train CLI wall times (bf16, 256x128, seconds): " + json.dumps(walls))
-    log(f"fusion at Market-1501's shape: magnitude_weighted_distmat "
-        f"{fusion_times['magnitude_weighted_distmat_ms']:.4f} ms (bound "
-        f"{fusion_times['magnitude_bound_ms']:.4f} ms, bytes), 7 rankings "
-        f"{fusion_times['seven_rankings_ms']:.1f} ms")
-    k4_forward = (12 * results["flash_attention"]["ms"]
-                  + 4 * results["flash_attention"]["at_n53"]["ms"])
-    for route in ("k4", "sdpa"):
-        r = jpm[route]
-        log(f"JPM train step ({route}): {r['step_ms']:.3f} ms, {r['img_per_s']:.1f} img/s "
-            f"(K1 {r['augment_ms']:.4f} ms, forward+backward {r['forward_backward_ms']:.3f} ms, "
-            f"Adam+EMA {r['adam_ema_ms']:.3f} ms), peak {r['peak_memory_gb']:.2f} GB; "
-            f"extraction at 512: {r['extract_img_per_s_at_512']:.1f} img/s")
-    log(f"K4 in one JPM forward of {jpm['batch']}: 12 x N=211 + 4 x N=53 = {k4_forward:.3f} ms")
-    for mode in ("none", "full", "tuned"):
-        r = jpm["remat"][mode]
-        log(f"remat {mode}: JPM train step with K4 {r['step_ms']:.3f} ms, {r['img_per_s']:.1f} "
-            f"img/s, peak {r['peak_memory_gb']:.2f} GB, K4 {r['k4_launches']} launches a step, "
-            f"gradient bit-equal to none's: {r['grads_bit_equal_to_none']}")
-    for name, r in remainder["export"].items():
-        log(f"export {name} ({r['keys']} tensors, {r['mb']:.1f} MB): .pt -> .npz "
-            f"{r['to_npz_s']:.2f} s, .npz -> .pth {r['to_torch_s']:.2f} s, bit-equal")
-    k4 = results["flash_attention"]
-    bwd = (k4["backward_ms"], k4["at_n53"]["backward_ms"])
-    log(f"attention_backward alone (bf16, plain f32 torch): N=211 {bwd[0]:.4f} ms, N=53 "
-        f"{bwd[1]:.4f} ms; one JPM step of {jpm['batch']}: 12 x N=211 + 4 x N=53 = "
-        f"{12 * bwd[0] + 4 * bwd[1]:.3f} ms")
-    log("zoo extraction at batch 512 (bf16, 256x128): "
-        + ", ".join(f"{n} {r['img_per_s']:.1f} img/s peak {r['peak_memory_gb']:.2f} GB"
-                    for n, r in zoo_rates.items()))
-    log(f"densenet121 train step: {dense_step['step_ms']:.3f} ms, "
-        f"{dense_step['img_per_s']:.1f} img/s, peak {dense_step['peak_memory_gb']:.2f} GB")
-    log(f"re_ranking at Market-1501's shape (Q=3368, G=15913): "
-        f"{rerank_times['market_ms']:.1f} ms, peak {rerank_times['market_peak_memory_gb']:.2f} GB "
-        f"above its inputs; re-ranked search Q=200 over 400 rows at depth 64: "
-        f"{rerank_times['search_q200_g400_depth64_ms']:.2f} ms (device re-ranking "
-        f"{rerank_times['shortlists_q200_depth64_device_ms']:.3f} ms)")
-    log("int8 extraction at batch 512 (256x128; bf16 in the same call): "
-        + ", ".join(f"{n} int8 {r['int8_img_per_s']:.1f} img/s (bf16 {r['bf16_img_per_s']:.1f}) "
-                    f"peak {r['int8_peak_memory_gb']:.2f} GB" for n, r in int8_rates.items()))
-    g = gang
-    bn_t = g["gang_bn"]["forward_backward"]
-    log(f"multi-process (phase 20): gang bootstrap {g['bootstrap_gloo_s']:.3f} s (2 ranks, "
-        f"gloo), {g['bootstrap_nccl_s']:.3f} s (1 rank, NCCL); train step (ResNet-50 bf16, "
-        f"{2 * P * K} images a step): one process {g['timing_plain']['step_ms']:.1f} ms, the "
-        f"1-rank NCCL gang {g['timing_nccl']['step_ms']:.1f} ms (its BN reductions and gradient "
-        f"all-reduce), 2 gloo ranks of {g['timing_gloo']['rows_per_rank']} rows on the one card "
-        f"{g['timing_gloo']['step_ms']:.1f} ms; gang BN forward+backward at "
-        f"{g['gang_bn']['shape']}: fused {bn_t['fused_ms']:.3f} ms, eager "
-        f"{bn_t['plain_ms']:.3f} ms, one process's F.batch_norm "
-        f"{bn_t['single_process_ms']:.3f} ms; a {g['timing_gloo']['all_reduce_mb']:.1f} MB "
-        f"all-reduce: gloo (2 ranks) {g['timing_gloo']['all_reduce_ms']:.3f} ms, NCCL not "
-        f"measurable on one card; first step against one process: "
-        f"{json.dumps(g['first_step_vs_one_process'])}; bounded-memory ranking at MSMT17's shape "
-        f"{bounded['sharded']['ms']:.1f} ms, {bounded['sharded']['peak_gb_above_inputs']:.2f} GB "
-        f"(K2 {bounded['sharded']['k2_launches']} launches) against replicated "
-        f"{bounded['replicated']['ms']:.1f} ms, {bounded['replicated']['peak_gb_above_inputs']:.2f} "
-        f"GB; drill stitched state bit-exact")
-    log(f"card: {card}; total {time.time() - t_start:.1f} s")
+    log(f"card: {card}; kernels {' '.join(selected)}; phases {len(checks)} checks, "
+        f"{len(path)} on the main path, {len(timings)} timings; total "
+        f"{time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check", "shape")
     extra = ("at_path_shape", "at_path_p", "at_max_positives_bound", "at_msmt17_protocol",
              "at_n53", "at_stages", "model_sdpa_route_ms", "sdpa_forms",
              "backward_max_abs_err",
              "backward_ms", "ptxas", "library", "plan", "im2col_int_mm_ms", "cudnn_bf16_ms",
-             "int8_input_ms", "at_shapes", "profiled_resnet50_int8")
-    kernels = [{k: r[k] for k in keys + extra if k in r} for r in results.values()]
+             "int8_input_ms", "at_shapes")
+    kernels = [{k: e[k] for k in keys + extra if k in e} for e in results.values()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
